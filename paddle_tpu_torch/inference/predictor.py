@@ -1,0 +1,86 @@
+"""Predictor serving API (ref: inference/api/analysis_predictor.cc,
+paddle_api.h PaddlePredictor; paddle_tpu/inference/predictor.py:19-167).
+
+load -> run: the directory written by `io.save_inference_model` (by either
+package) is loaded into the predictor's own Scope on its device, and each
+`run` interprets the pruned program with the Executor. The predictor runs
+on the card unless the Config asks for the CPU with `disable_gpu()`.
+"""
+from __future__ import annotations
+
+import os
+
+from ..core.scope import Scope, scope_guard
+from ..executor import Executor
+from ..framework import CPUPlace, CUDAPlace
+
+
+class Config(object):
+    """AnalysisConfig equivalent: where the model lives and where it runs
+    (CUDAPlace(0) unless disable_gpu() is called)."""
+
+    def __init__(self, model_dir=None, prog_file=None):
+        self.model_dir = model_dir
+        self.prog_file = prog_file
+        self._place = CUDAPlace(0)
+
+    def disable_gpu(self):
+        self._place = CPUPlace()
+        return self
+
+
+class Predictor(object):
+    def __init__(self, config):
+        self._config = config
+        self._scope = Scope()
+        self._exe = Executor(config._place)
+        self._program, self._feed_names, self._fetch_vars = self._load()
+
+    def _load(self):
+        from .. import io as ptt_io
+        cfg = self._config
+        path = os.path.join(cfg.model_dir, cfg.prog_file or '__model__')
+        with open(path, 'rb') as f:
+            if f.read(1) != b'{':
+                raise ValueError(
+                    "%s is not a JSON program: the port loads directories "
+                    "written by save_inference_model, not the reference's "
+                    "protobuf format" % path)
+        with scope_guard(self._scope):
+            return ptt_io.load_inference_model(cfg.model_dir, self._exe,
+                                               model_filename=cfg.prog_file)
+
+    def get_input_names(self):
+        return list(self._feed_names)
+
+    def get_output_names(self):
+        return [v.name for v in self._fetch_vars]
+
+    def run(self, inputs, return_numpy=True):
+        """inputs: a list in feed order or a dict name -> array/tensor.
+        Returns the outputs as numpy arrays, or as device tensors with
+        return_numpy=False (an async serving loop then syncs once)."""
+        if isinstance(inputs, (list, tuple)):
+            if len(inputs) != len(self._feed_names):
+                raise ValueError(
+                    "predictor expects %d inputs (%s), got %d"
+                    % (len(self._feed_names), self._feed_names, len(inputs)))
+            inputs = dict(zip(self._feed_names, inputs))
+        return self._exe.run(self._program, feed=dict(inputs),
+                             fetch_list=self.get_output_names(),
+                             scope=self._scope, return_numpy=return_numpy)
+
+    def warmup(self, sample_inputs):
+        """One run ahead of serving (cuDNN picks its algorithms)."""
+        self.run(sample_inputs)
+        return self
+
+    def clone(self):
+        """A predictor sharing this one's weights and executor."""
+        twin = Predictor.__new__(Predictor)
+        twin.__dict__.update(self.__dict__)
+        return twin
+
+
+def create_predictor(config):
+    return Predictor(config)

@@ -1,0 +1,157 @@
+"""Neural-network layer functions (ref: python/paddle/fluid/layers/nn.py;
+paddle_tpu/layers/nn.py:25,71,182,234,510).
+
+The port's copies of the layers the serving slice needs. Each appends the
+same ops with the same attrs and names as its paddle_tpu counterpart, so a
+model built under a fresh unique_name guard gives the same Program, op for
+op, in both packages.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..layer_helper import LayerHelper
+from ..initializer import NormalInitializer, ConstantInitializer
+from ..param_attr import ParamAttr
+
+__all__ = ['fc', 'conv2d', 'pool2d', 'batch_norm', 'relu', 'elementwise_add']
+
+
+def _single(v, n):
+    if isinstance(v, (list, tuple)):
+        return list(v)
+    return [v] * n
+
+
+def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
+       act=None, is_test=False, name=None):
+    """Fully-connected layer (ref nn.py fc): mul per input + sum + bias + act."""
+    helper = LayerHelper("fc", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = helper.input_dtype()
+    mul_results = []
+    for input_var, pattr in helper.iter_inputs_and_params():
+        input_shape = input_var.shape
+        param_shape = [int(np.prod(input_shape[num_flatten_dims:])), size]
+        w = helper.create_parameter(attr=pattr, shape=param_shape, dtype=dtype)
+        tmp = helper.create_variable_for_type_inference(dtype)
+        helper.append_op(
+            type="mul", inputs={"X": input_var, "Y": w},
+            outputs={"Out": tmp},
+            attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1})
+        mul_results.append(tmp)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(dtype)
+        helper.append_op(type="sum", inputs={"X": mul_results},
+                         outputs={"Out": pre_bias}, attrs={})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
+    return helper.append_activation(pre_act)
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None):
+    helper = LayerHelper('conv2d', param_attr=param_attr, bias_attr=bias_attr,
+                         act=act, name=name)
+    dtype = input.dtype
+    num_channels = input.shape[1]
+    groups = groups or 1
+    filter_size = _single(filter_size, 2)
+    stride = _single(stride, 2)
+    padding = _single(padding, 2)
+    dilation = _single(dilation, 2)
+    filter_shape = [num_filters, num_channels // groups] + filter_size
+    filter_elem_num = int(np.prod(filter_shape[1:]))
+    std = (2.0 / filter_elem_num) ** 0.5
+    w = helper.create_parameter(
+        attr=helper.param_attr, shape=filter_shape, dtype=dtype,
+        default_initializer=NormalInitializer(0.0, std))
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type='conv2d',
+        inputs={'Input': input, 'Filter': w},
+        outputs={'Output': pre_bias},
+        attrs={'strides': stride, 'paddings': padding, 'dilations': dilation,
+               'groups': groups, 'use_cudnn': use_cudnn})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True):
+    helper = LayerHelper('pool2d', name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type='pool2d', inputs={'X': input}, outputs={'Out': out},
+        attrs={'pooling_type': pool_type, 'ksize': _single(pool_size, 2),
+               'global_pooling': global_pooling,
+               'strides': _single(pool_stride, 2),
+               'paddings': _single(pool_padding, 2),
+               'ceil_mode': ceil_mode, 'exclusive': exclusive})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-05,
+               param_attr=None, bias_attr=None, data_layout='NCHW',
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None,
+               do_model_average_for_mean_and_var=False,
+               fuse_with_relu=False, use_global_stats=False):
+    helper = LayerHelper('batch_norm', param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    c = input.shape[1] if data_layout == 'NCHW' else input.shape[-1]
+    scale = helper.create_parameter(
+        attr=helper.param_attr or ParamAttr(), shape=[c], dtype=dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(attr=helper.bias_attr or ParamAttr(),
+                                   shape=[c], dtype=dtype, is_bias=True)
+    mean = helper.create_or_get_global_variable(
+        name=moving_mean_name or (helper.name + '.mean'),
+        shape=[c], dtype=dtype, persistable=True)
+    helper.set_variable_initializer(mean, ConstantInitializer(0.0))
+    variance = helper.create_or_get_global_variable(
+        name=moving_variance_name or (helper.name + '.variance'),
+        shape=[c], dtype=dtype, persistable=True)
+    helper.set_variable_initializer(variance, ConstantInitializer(1.0))
+    mean.stop_gradient = True
+    variance.stop_gradient = True
+
+    saved_mean = helper.create_variable_for_type_inference(dtype, True)
+    saved_var = helper.create_variable_for_type_inference(dtype, True)
+    out = input if in_place else helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type='batch_norm',
+        inputs={'X': input, 'Scale': scale, 'Bias': bias,
+                'Mean': mean, 'Variance': variance},
+        outputs={'Y': out, 'MeanOut': mean, 'VarianceOut': variance,
+                 'SavedMean': saved_mean, 'SavedVariance': saved_var},
+        attrs={'momentum': momentum, 'epsilon': epsilon, 'is_test': is_test,
+               'data_layout': data_layout,
+               'use_global_stats': use_global_stats})
+    return helper.append_activation(out)
+
+
+def relu(x, name=None):
+    helper = LayerHelper('relu', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type='relu', inputs={'X': x}, outputs={'Out': out},
+                     attrs={})
+    return out
+
+
+def _elementwise_layer(op_type):
+    def layer(x, y, axis=-1, act=None, name=None):
+        helper = LayerHelper(op_type, act=act, name=name)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        helper.append_op(type=op_type, inputs={'X': x, 'Y': y},
+                         outputs={'Out': out}, attrs={'axis': axis})
+        return helper.append_activation(out)
+    layer.__name__ = op_type
+    return layer
+
+
+elementwise_add = _elementwise_layer('elementwise_add')

@@ -1,0 +1,2 @@
+"""Op lowerings. Importing this package registers every lowering."""
+from . import tensor_ops, math_ops, nn_ops  # noqa: F401

@@ -1,0 +1,121 @@
+"""NN op lowerings: conv2d, pool2d, batch_norm
+(ref: operators/conv_op.cc, pool_op.cc, batch_norm_op.cc;
+paddle_tpu/ops/nn_ops.py:29,186,334).
+
+conv2d maps to torch.nn.functional.conv2d (cuDNN on the card), as the JAX
+package leaves it to XLA. The batch_norm apply runs through the hand-written
+kernel in ops/bn_apply.py.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..core.registry import register
+from .bn_apply import bn_apply
+from .math_ops import X
+
+
+def _pair(v, n=2):
+    if isinstance(v, (list, tuple)):
+        return list(v)
+    return [v] * n
+
+
+@register('conv2d')
+def _conv2d(ctx, ins):
+    x, w = ins['Input'][0], ins['Filter'][0]
+    out = F.conv2d(x, w, None,
+                   stride=_pair(ctx.attr('strides', [1, 1])),
+                   padding=_pair(ctx.attr('paddings', [0, 0])),
+                   dilation=_pair(ctx.attr('dilations', [1, 1])),
+                   groups=ctx.attr('groups', 1) or 1)
+    return {'Output': [out]}
+
+
+def ceil_mode_pads(spatial, ksize, strides, pads):
+    """Per-spatial-dim (lo, hi) padding implementing pool ceil_mode: the
+    high side grows so the last (partial) window is kept instead of
+    dropped — output dims become ceil((in + 2p - k) / s) + 1."""
+    out = []
+    for i in range(len(ksize)):
+        in_sz = spatial[i] + 2 * pads[i]
+        rem = (in_sz - ksize[i]) % strides[i]
+        out.append((pads[i],
+                    pads[i] + (strides[i] - rem if rem else 0)))
+    return out
+
+
+def _window_sum(x, ksize, strides, pads_hw):
+    """Sum over each window of zero-padded x ([N, C, H, W])."""
+    (hlo, hhi), (wlo, whi) = pads_hw
+    xp = F.pad(x, (wlo, whi, hlo, hhi))
+    return F.avg_pool2d(xp, ksize, strides, divisor_override=1)
+
+
+@register('pool2d')
+def _pool2d(ctx, ins):
+    x = X(ins)
+    ptype = ctx.attr('pooling_type', 'max')
+    ksize = _pair(ctx.attr('ksize'))
+    strides = _pair(ctx.attr('strides', [1, 1]))
+    pads = _pair(ctx.attr('paddings', [0, 0]))
+    if ctx.attr('adaptive', False):
+        raise NotImplementedError("adaptive pool2d is not ported yet")
+    if ctx.attr('global_pooling', False):
+        ksize = list(x.shape[2:])
+        pads = [0, 0]
+    pads_hw = [(p, p) for p in pads]
+    if ctx.attr('ceil_mode', False):
+        pads_hw = ceil_mode_pads(x.shape[2:], ksize, strides, pads)
+    (hlo, hhi), (wlo, whi) = pads_hw
+    if ptype == 'max':
+        fill = (-float('inf') if x.dtype.is_floating_point
+                else torch.iinfo(x.dtype).min)
+        xp = F.pad(x, (wlo, whi, hlo, hhi), value=fill)
+        return {'Out': [F.max_pool2d(xp, ksize, strides)]}
+    s = _window_sum(x, ksize, strides, pads_hw)
+    if ctx.attr('exclusive', True) and any(lo or hi for lo, hi in pads_hw):
+        # count each window's real elements, ceil_mode's high-side extension
+        # included; a window wholly inside padding counts 0 -> clamp to 1
+        ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                          device=x.device)
+        cnt = _window_sum(ones, ksize, strides, pads_hw)
+        return {'Out': [s / torch.clamp(cnt, min=1.0)]}
+    return {'Out': [s / float(np.prod(ksize))]}
+
+
+@register('batch_norm')
+def _batch_norm(ctx, ins):
+    """y = x*k + (bias - m*k), with k = scale / sqrt(v + eps) computed in
+    the stats' dtype as paddle_tpu/ops/nn_ops.py:358-366 does. With
+    is_test or use_global_stats, m and v are the running stats; otherwise
+    they are this batch's, reduced in f32 in plain torch, and the running
+    stats move by `momentum`. The apply is the bn_apply kernel."""
+    x = X(ins)
+    scale, bias = ins['Scale'][0], ins['Bias'][0]
+    mean, var = ins['Mean'][0], ins['Variance'][0]
+    eps = ctx.attr('epsilon', 1e-5)
+    momentum = ctx.attr('momentum', 0.9)
+    layout = ctx.attr('data_layout', 'NCHW')
+    use_global = ctx.attr('use_global_stats', False) or ctx.is_test
+
+    c_axis = 1 if layout == 'NCHW' else x.ndim - 1
+    if use_global:
+        m, v = mean, var
+        mean_out, var_out = mean, var
+    else:
+        red_axes = tuple(i for i in range(x.ndim) if i != c_axis)
+        xf = x.float()
+        m = xf.mean(red_axes)
+        v = xf.square().mean(red_axes) - m.square()
+        mean_out = momentum * mean + (1.0 - momentum) * m
+        var_out = momentum * var + (1.0 - momentum) * v
+    inv = torch.rsqrt(v + eps)
+    kvec = inv * scale
+    bvec = bias - m * kvec
+    y = bn_apply(x.contiguous(), kvec.float().contiguous(),
+                 bvec.float().contiguous(), channel_axis=c_axis)
+    return {'Y': [y], 'MeanOut': [mean_out], 'VarianceOut': [var_out],
+            'SavedMean': [m], 'SavedVariance': [inv]}

@@ -1,0 +1,41 @@
+"""Carry parameters from numpy arrays into the port's Scope.
+
+The JAX package's scope holds its parameters as jax Arrays under the names
+unique_name gave them; `np.asarray` of each is the hand-over format. Both
+packages name a model's variables alike when it is built under a fresh
+`unique_name.guard()`, so the arrays of a JAX-initialized model load into
+the same model built with the port's layers.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.scope import global_scope
+
+
+def params_from_numpy(params, program, scope=None, device=None):
+    """Set every persistable var of `program` in `scope` (default: the
+    global scope) from `params` ({name: np.ndarray}), as a tensor on
+    `device` (default: the CPU).
+
+    Names must match exactly: a persistable of the program with no array,
+    or an array with no persistable, raises. So does an array whose shape
+    or dtype differs from the var's declaration."""
+    scope = scope if scope is not None else global_scope()
+    device = torch.device(device) if device is not None else torch.device('cpu')
+    persist = {v.name: v for v in program.list_vars() if v.persistable}
+    missing = sorted(set(persist) - set(params))
+    extra = sorted(set(params) - set(persist))
+    if missing or extra:
+        raise KeyError("params do not match the program's persistables: "
+                       "missing %r, extra %r" % (missing, extra))
+    for name, var in persist.items():
+        arr = np.asarray(params[name])
+        want = tuple(var.shape)
+        if arr.shape != want or arr.dtype.name != var.dtype:
+            raise ValueError("param %r: got %s %s, the program declares %s %s"
+                             % (name, arr.dtype.name, arr.shape, var.dtype,
+                                want))
+    for name in persist:
+        scope.set(name, torch.from_numpy(np.array(params[name])).to(device))

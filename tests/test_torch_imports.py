@@ -1,0 +1,71 @@
+"""paddle_tpu_torch and chip_smoke.py import neither jax nor paddle_tpu.
+
+The port runs on a machine without jax, and it keeps its own copies of
+what it needs from the JAX package, even of modules that are pure numpy.
+"""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, 'paddle_tpu_torch')
+FORBIDDEN = ('jax', 'jaxlib', 'paddle_tpu', 'models')
+
+
+def _port_sources():
+    out = [os.path.join(ROOT, 'chip_smoke.py')]
+    for dirpath, _, files in os.walk(PKG):
+        out += [os.path.join(dirpath, f) for f in sorted(files)
+                if f.endswith('.py')]
+    return sorted(os.path.relpath(p, ROOT) for p in out)
+
+
+def _forbidden(module):
+    return module.split('.')[0] in FORBIDDEN
+
+
+@pytest.mark.parametrize('relpath', _port_sources())
+def test_source_imports_no_jax_package(relpath):
+    with open(os.path.join(ROOT, relpath)) as f:
+        tree = ast.parse(f.read(), relpath)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _forbidden(node.module or ''):
+                bad.append(node.module)
+    assert not bad, '%s imports %s' % (relpath, bad)
+
+
+_BLOCKED_IMPORT = r'''
+import importlib, pkgutil, sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'):
+            raise ImportError('blocked import: ' + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+import paddle_tpu_torch
+for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, 'paddle_tpu_torch.'):
+    importlib.import_module(m.name)
+import chip_smoke
+leaked = sorted(m for m in sys.modules
+                if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))
+assert not leaked, leaked
+print('imported', len([m for m in sys.modules
+                       if m.startswith('paddle_tpu_torch')]))
+'''
+
+
+def test_package_and_chip_smoke_import_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, '-c', _BLOCKED_IMPORT], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert 'imported' in r.stdout

@@ -1,0 +1,175 @@
+"""The serving slice as a whole: ResNet through save_inference_model and
+Predictor, the port held against paddle_tpu on the CPU.
+
+paddle_tpu builds, initializes and saves the model; its batch_norm
+statistics and affine parameters are first set to random values so that
+every BN apply does real work. The port's Predictor loads that same
+directory, and its logits match the JAX Predictor's at rtol 1e-4, with an
+absolute floor of 1e-4 of the largest logit (the two frameworks sum the
+convolutions in different orders, through ~50 layers).
+"""
+import json
+import os
+
+import numpy as np
+import pytest
+
+import paddle_tpu as fluid
+from paddle_tpu.inference import Config as JaxConfig
+from paddle_tpu.inference import create_predictor as jax_create_predictor
+from models import resnet as jax_resnet
+
+import paddle_tpu_torch as ptt
+from paddle_tpu_torch.models import resnet as ptt_resnet
+
+MODELS = {
+    # name: (depth, class_dim, image side); resnet_imagenet for depth >= 50
+    'resnet20_cifar': (20, 10, 32),
+    'resnet50_32px': (50, 10, 32),
+}
+
+
+def _build(pkg, resnet, name):
+    depth, class_dim, side = MODELS[name]
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, startup), pkg.unique_name.guard():
+        img = pkg.layers.data('data', shape=[3, side, side], dtype='float32')
+        if depth >= 50:
+            out = resnet.resnet_imagenet(img, class_dim, depth=depth,
+                                         is_train=False)
+        else:
+            out = resnet.resnet_cifar10(img, class_dim, depth=depth,
+                                        is_train=False)
+    return main, startup, out
+
+
+def _randomize_bn(program, scope, seed):
+    """Random running stats and affine params for every batch_norm."""
+    rng = np.random.RandomState(seed)
+    for op in program.global_block().ops:
+        if op.type != 'batch_norm':
+            continue
+        c = program.global_block().var(op.input('Scale')[0]).shape[0]
+        for slot, (lo, hi) in (('Scale', (0.5, 1.5)), ('Bias', (-0.2, 0.2)),
+                               ('Mean', (-0.2, 0.2)),
+                               ('Variance', (0.5, 2.0))):
+            scope.var(op.input(slot)[0]).get_tensor().set(
+                rng.uniform(lo, hi, c).astype(np.float32))
+
+
+def _close(got, want):
+    want = np.asarray(want)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-4 * np.abs(want).max())
+
+
+@pytest.fixture(scope='module')
+def jax_saved(tmp_path_factory):
+    """{model name: (dir, persistables as numpy)} saved by paddle_tpu."""
+    out = {}
+    for name in MODELS:
+        main, startup, logits = _build(fluid, jax_resnet, name)
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CPUPlace())
+        d = str(tmp_path_factory.mktemp(name))
+        with fluid.scope_guard(scope):
+            exe.run(startup)
+            _randomize_bn(main, scope, seed=len(out))
+            fluid.io.save_inference_model(d, ['data'], [logits], exe, main)
+        params = {v.name: np.asarray(scope.find_var(v.name).get_tensor())
+                  for v in main.list_vars() if v.persistable}
+        out[name] = (d, params)
+    return out
+
+
+def _image(batch, side, seed=0):
+    return np.random.RandomState(seed).randn(batch, 3, side, side).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize('name', sorted(MODELS))
+def test_port_predictor_loads_jax_saved_dir(jax_saved, name):
+    d, _ = jax_saved[name]
+    x = _image(2, MODELS[name][2])
+    want, = jax_create_predictor(JaxConfig(d).disable_gpu()).run([x])
+    pred = ptt.inference.create_predictor(
+        ptt.inference.Config(d).disable_gpu())
+    assert pred.get_input_names() == ['data']
+    got, = pred.run([x])
+    _close(got, want)
+    twin, = pred.clone().run({'data': x})
+    np.testing.assert_array_equal(twin, got)
+
+
+@pytest.mark.parametrize('name', sorted(MODELS))
+def test_params_from_numpy_into_port_built_program(jax_saved, name):
+    _, params = jax_saved[name]
+    x = _image(3, MODELS[name][2], seed=1)
+    jmain, _, jlogits = _build(fluid, jax_resnet, name)
+    jscope = fluid.Scope()
+    with fluid.scope_guard(jscope):
+        for n, arr in params.items():
+            jscope.var(n).get_tensor().set(arr)
+        want, = fluid.Executor(fluid.CPUPlace()).run(
+            jmain, feed={'data': x}, fetch_list=[jlogits])
+
+    main, _, logits = _build(ptt, ptt_resnet, name)
+    scope = ptt.Scope()
+    ptt.weights.params_from_numpy(params, main, scope)
+    got, = ptt.Executor(ptt.CPUPlace()).run(main, feed={'data': x},
+                                            fetch_list=[logits], scope=scope)
+    _close(got, want)
+
+
+def test_params_from_numpy_checks_names_and_shapes(jax_saved):
+    _, params = jax_saved['resnet20_cifar']
+    main, _, _ = _build(ptt, ptt_resnet, 'resnet20_cifar')
+    extra = dict(params, stray=np.zeros(1, np.float32))
+    with pytest.raises(KeyError, match='stray'):
+        ptt.weights.params_from_numpy(extra, main, ptt.Scope())
+    missing = dict(params)
+    missing.pop('fc_0.b_0')
+    with pytest.raises(KeyError, match='fc_0.b_0'):
+        ptt.weights.params_from_numpy(missing, main, ptt.Scope())
+    bad = dict(params, **{'fc_0.b_0': np.zeros(3, np.float32)})
+    with pytest.raises(ValueError, match='fc_0.b_0'):
+        ptt.weights.params_from_numpy(bad, main, ptt.Scope())
+
+
+def test_port_saved_dir_round_trip(tmp_path):
+    """The port initializes and saves ResNet-20; its own Predictor and the
+    JAX Predictor both load the directory, and the program file is the one
+    paddle_tpu writes for the same model."""
+    main, startup, logits = _build(ptt, ptt_resnet, 'resnet20_cifar')
+    main.random_seed = startup.random_seed = 3
+    scope = ptt.Scope()
+    exe = ptt.Executor(ptt.CPUPlace())
+    x = _image(2, 32, seed=2)
+    with ptt.scope_guard(scope):
+        exe.run(startup)
+        _randomize_bn(main, scope, seed=5)
+        want, = exe.run(main, feed={'data': x}, fetch_list=[logits])
+        ptt.io.save_inference_model(str(tmp_path / 'port'), ['data'],
+                                    [logits], exe, main)
+    got, = ptt.inference.create_predictor(
+        ptt.inference.Config(str(tmp_path / 'port')).disable_gpu()).run([x])
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+    jgot, = jax_create_predictor(
+        JaxConfig(str(tmp_path / 'port')).disable_gpu()).run([x])
+    _close(np.asarray(jgot), want)
+
+    jmain, jstartup, jlogits = _build(fluid, jax_resnet, 'resnet20_cifar')
+    with fluid.scope_guard(fluid.Scope()):
+        jexe = fluid.Executor(fluid.CPUPlace())
+        jexe.run(jstartup)
+        fluid.io.save_inference_model(str(tmp_path / 'jax'), ['data'],
+                                      [jlogits], jexe, jmain)
+
+    def model(sub):
+        with open(os.path.join(str(tmp_path / sub), '__model__')) as f:
+            d = json.load(f)
+        d['random_seed'] = 0
+        return d
+    assert model('port') == model('jax')
