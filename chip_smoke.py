@@ -1,22 +1,35 @@
 #!/usr/bin/env python3
-"""On-card smoke run of paddle_tpu_torch: ResNet-50 served on one NVIDIA GPU.
+"""On-card smoke run of paddle_tpu_torch: ResNet-50 and BERT-base served on
+one NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from paddle_tpu_torch/csrc/, holds each
-against its plain PyTorch version on the card, serves a full-width ResNet-50
-(depth 50, 224x224, 1000 classes, f32, random weights from a seed) through
-save_inference_model -> create_predictor(Config(dir)) -> Predictor.run, and
-times the kernels and the requests with CUDA events and the host clock.
-Every check that fails raises, so the exit code is 0 only when all phases
-passed. Without a card it exits 1 and prints no result.
+It builds the port's CUDA kernels from paddle_tpu_torch/csrc/ (bn_apply and
+flash_attn_fwd, one nvcc each, in parallel) and holds each against its
+plain PyTorch version on the card. Then it serves two models through
+save_inference_model -> create_predictor(Config(dir)) -> Predictor.run,
+with random weights from a seed, f32 and TF32 off:
+
+- ResNet-50 (depth 50, 224x224, 1000 classes), batch 1/8/16, with 53
+  bn_apply launches per request;
+- BERT-base (12 layers, d_model 768, 12 heads, d_ff 3072, vocab 30522) at
+  S=512, its masked-LM logits, batch 1/8, with 12 flash_attn_fwd launches
+  per request.
+
+Each path runs with every kernel's launch count set to 0 just before it
+and read just after. The run compares GPU and CPU outputs of each model,
+times the kernels (CUDA events) and the requests (host clock), and
+profiles a few requests. Every check that fails raises, so the exit code
+is 0 only when all phases passed. Without a card it exits 1 and prints no
+result.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit from nvidia-smi, and the one before that the
 kernels' summary as JSON.
 """
+import collections
 import json
 import math
 import subprocess
@@ -26,11 +39,14 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch import kernels
+from paddle_tpu_torch.models.bert import bert_mlm_logits
 from paddle_tpu_torch.models.resnet import resnet_imagenet
 from paddle_tpu_torch.ops import bn_apply as bn_mod
+from paddle_tpu_torch.ops import flash_attention as fa
 
 SEED = 0
 BATCHES = (1, 8, 16)
@@ -41,6 +57,7 @@ SPIN_CYCLES = 100_000_000  # ~50 ms at the H100's ~2 GHz SM clock
 # H100 SXM peaks (NVIDIA H100 data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 L2_BYTES = 50 * 2 ** 20
 
 # the (C, H, W) of ResNet-50's 53 batch_norm outputs at 224x224, with counts
@@ -49,6 +66,19 @@ BN_SHAPES = [((256, 14, 14), 11), ((128, 28, 28), 7), ((1024, 14, 14), 7),
              ((256, 56, 56), 4), ((2048, 7, 7), 4), ((64, 112, 112), 1),
              ((128, 56, 56), 1), ((256, 28, 28), 1), ((512, 14, 14), 1)]
 BN_BATCH = 16
+
+# BERT-base (models/bert.py defaults) at its published maximum length
+BERT = dict(vocab=30522, max_len=512, d_model=768, d_ff=3072, n_head=12,
+            n_layer=12)
+BERT_BATCHES = (1, 8)
+BERT_LATENCY_REQUESTS = 10
+BERT_THROUGHPUT_REQUESTS = 10
+# (B, H, Sq, Sk, D, causal) of the K2 checks: BERT-base at batch 1 and 8,
+# causal square and offset (Sq < Sk), a ragged S, and D 32/64/128
+K2_CASES = [(1, 12, 512, 512, 64, False), (8, 12, 512, 512, 64, False),
+            (2, 12, 512, 512, 64, True), (2, 12, 128, 512, 64, True),
+            (2, 12, 200, 200, 64, False), (2, 12, 200, 200, 64, True),
+            (2, 12, 512, 512, 32, False), (2, 12, 512, 512, 128, False)]
 
 
 def check(cond, msg):
@@ -124,9 +154,20 @@ def build_and_save(dirname):
     return len(bn_ops), n_params
 
 
+def reset_launches():
+    bn_mod.bn_apply.launches = 0
+    fa.flash_attn_fwd.launches = 0
+
+
+def read_launches():
+    return {'bn_apply': bn_mod.bn_apply.launches,
+            'flash_attn_fwd': fa.flash_attn_fwd.launches}
+
+
 def phase_serving(dirname, n_bn):
     """Serve requests at batch 1, 8, 16 through the Predictor; every request
-    must launch the BN kernel once per batch_norm op."""
+    must launch the BN kernel once per batch_norm op, and no other kernel
+    of the port."""
     pred = fluid.inference.create_predictor(fluid.inference.Config(dirname))
     check(pred.get_input_names() == ['data'], 'input names')
     gen = torch.Generator(device='cuda').manual_seed(SEED + 3)
@@ -136,7 +177,7 @@ def phase_serving(dirname, n_bn):
         pred.warmup([images[bs]])
     torch.cuda.synchronize()
 
-    bn_mod.bn_apply.launches = 0
+    reset_launches()
     requests = 0
     lat = {}
     for bs in BATCHES:
@@ -161,9 +202,11 @@ def phase_serving(dirname, n_bn):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     requests += THROUGHPUT_REQUESTS
-    launches = bn_mod.bn_apply.launches
+    counts = read_launches()
+    launches = counts['bn_apply']
     check(launches == n_bn * requests,
           'bn_apply launched %d times over %d requests' % (launches, requests))
+    check(counts['flash_attn_fwd'] == 0, 'ResNet-50 launched flash_attn_fwd')
     print('serving requests=%d bn_apply_launches=%d (%d per request)'
           % (requests, launches, launches // requests))
     for bs in BATCHES:
@@ -255,14 +298,20 @@ def phase_kernel_times():
 
 
 def phase_profile(pred, images):
-    """Device time by kernel over 3 batch-16 requests (torch.profiler; only
-    the CUDA kernels' own rows, so no op is counted twice)."""
+    """Device time by kernel over 3 batch-16 ResNet-50 requests."""
+    _profile(pred, [images[16]], 'resnet50 batch=16')
+
+
+def _profile(pred, feed, label):
+    """Device time by kernel over 3 requests (torch.profiler; only the CUDA
+    kernels' own rows, so no op is counted twice), each kernel with the
+    torch ops that launched it."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(3):
-            pred.run([images[16]], return_numpy=False)
+            pred.run(feed, return_numpy=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     from torch.autograd import DeviceType
@@ -271,15 +320,224 @@ def phase_profile(pred, images):
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0), reverse=True)
     if not rows:
-        print('profile: no device time in the trace (not measured)')
+        print('profile %s: no device time in the trace (not measured)'
+              % label)
         return
+    ops = collections.defaultdict(collections.Counter)
+    for e in prof.events():
+        for k in e.kernels:
+            ops[k.name][e.name] += 1
     busy_s = sum(r[0] for r in rows) * 1e-6
-    print('profile 3 requests batch=16 (profiler on): wall_ms=%r '
+    print('profile %s 3 requests (profiler on): wall_ms=%r '
           'device_busy_ms=%r idle_share=%.3f' % (
-              wall * 1e3, busy_s * 1e3, max(0.0, 1 - busy_s / wall)))
+              label, wall * 1e3, busy_s * 1e3, max(0.0, 1 - busy_s / wall)))
     for dev_us, count, key in rows[:12]:
-        print('profile kernel=%r calls=%d device_ms=%r share=%.3f' % (
-            key[:90], count, dev_us * 1e-3, dev_us * 1e-6 / busy_s))
+        print('profile %s kernel=%r calls=%d device_ms=%r share=%.3f ops=%s'
+              % (label, key[:160], count, dev_us * 1e-3,
+                 dev_us * 1e-6 / busy_s, dict(ops[key])))
+
+
+def _qkv(b, h, sq, sk, d, dtype, gen):
+    """q, k, v as [B, H, S, D] views of [B, S, H, D] memory: the strides
+    the head split hands the kernel."""
+    def one(s):
+        return torch.randn(b, s, h, d, device='cuda', generator=gen).to(
+            dtype).permute(0, 2, 1, 3)
+    return one(sq), one(sk), one(sk)
+
+
+def phase_flash_vs_plain():
+    """flash_attn_fwd vs flash_attention_reference at K2_CASES, f32 and
+    bf16, scale D**-0.5. Tolerance: fa.tolerance, 1e-5 * max|v| in f32
+    (summation order) and 2**-6 * max|v| in bf16 (the plain version rounds
+    the scores and P to bf16, the kernel does not)."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 5)
+    max_abs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for b, h, sq, sk, d, causal in K2_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _qkv(b, h, sq, sk, d, dtype, gen)
+            out = fa.flash_attn_fwd(q, k, v, causal, d ** -0.5)
+            ref = fa.flash_attention_reference(q, k, v, causal, d ** -0.5)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            tol = fa.tolerance(v)
+            max_abs[dtype] = max(max_abs[dtype], err)
+            print('k2_check shape=%s causal=%s dtype=%s max_abs_err=%r '
+                  'tolerance=%r' % ((b, h, sq, sk, d), causal,
+                                    str(dtype)[6:], err, tol))
+            check(tuple(out.shape) == (b, h, sq, d) and out.dtype == dtype,
+                  'flash_attn_fwd output %s %s' % (tuple(out.shape),
+                                                   out.dtype))
+            check(err <= tol, 'flash_attn_fwd differs from its plain version '
+                  'by %r > %r at %s causal=%s %s' % (
+                      err, tol, (b, h, sq, sk, d), causal, dtype))
+    return max_abs
+
+
+def build_and_save_bert(dirname):
+    """Full-width BERT-base at S=512, initialized on the card by the
+    startup program (seeded), its layer_norm scales and shifts set to
+    random values, saved as an inference model of the masked-LM logits."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        feeds, logits = bert_mlm_logits(**BERT)
+    ops = main.global_block().ops
+    n_fused = sum(op.type == 'fused_multihead_attention' for op in ops)
+    check(n_fused == BERT['n_layer'],
+          'BERT-base has %d fused_multihead_attention ops' % n_fused)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 6)
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        for p in main.all_parameters():
+            if p.name.startswith('layer_norm_'):
+                lo = 0.5 if p.name.endswith('.w_0') else -0.2
+                t = scope.get(p.name)
+                scope.set(p.name, lo + torch.rand(
+                    t.shape, device=t.device, generator=gen))
+        fluid.io.save_inference_model(dirname, [f[0] for f in feeds],
+                                      [logits], exe, main)
+    n_params = sum(int(np.prod(v.shape)) for v in main.list_vars()
+                   if v.persistable)
+    return len(ops), n_fused, n_params
+
+
+def _bert_feed(bs, gen):
+    s = BERT['max_len']
+    return [torch.randint(0, BERT['vocab'], (bs, s), device='cuda',
+                          generator=gen),
+            torch.randint(0, 2, (bs, s), device='cuda', generator=gen)]
+
+
+def phase_bert_serving(dirname, n_fused):
+    """Serve BERT-base requests at batch 1 and 8 through the Predictor:
+    latency of requests that each end in a sync (return_numpy=False, so no
+    device-to-host copy of the logits is timed), tokens/s of back-to-back
+    batch-8 requests, one numpy return timed on its own. Every request must
+    launch flash_attn_fwd once per layer, and bn_apply never."""
+    pred = fluid.inference.create_predictor(fluid.inference.Config(dirname))
+    check(pred.get_input_names() == ['tok_ids', 'seg_ids'], 'input names')
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 7)
+    feeds = {bs: _bert_feed(bs, gen) for bs in BERT_BATCHES}
+    for bs in BERT_BATCHES:
+        pred.warmup(feeds[bs])
+    torch.cuda.synchronize()
+
+    reset_launches()
+    requests = 0
+    lat = {}
+    s, vocab = BERT['max_len'], BERT['vocab']
+    for bs in BERT_BATCHES:
+        times = []
+        for _ in range(BERT_LATENCY_REQUESTS):
+            before = fa.flash_attn_fwd.launches
+            t0 = time.perf_counter()
+            out, = pred.run(feeds[bs], return_numpy=False)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            requests += 1
+            check(fa.flash_attn_fwd.launches - before == n_fused,
+                  'a batch-%d BERT request launched flash_attn_fwd %d times, '
+                  'not %d' % (bs, fa.flash_attn_fwd.launches - before,
+                              n_fused))
+        check(tuple(out.shape) == (bs * s, vocab), 'logits shape %s' % (
+            tuple(out.shape),))
+        check(bool(torch.isfinite(out).all()), 'non-finite logits')
+        lat[bs] = times
+    bs = BERT_BATCHES[-1]
+    t0 = time.perf_counter()
+    for _ in range(BERT_THROUGHPUT_REQUESTS):
+        out, = pred.run(feeds[bs], return_numpy=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    requests += BERT_THROUGHPUT_REQUESTS
+    counts = read_launches()
+    launches = counts['flash_attn_fwd']
+    check(launches == n_fused * requests,
+          'flash_attn_fwd launched %d times over %d requests'
+          % (launches, requests))
+    check(counts['bn_apply'] == 0, 'BERT launched bn_apply')
+    print('bert_serving requests=%d flash_attn_fwd_launches=%d (%d per '
+          'request)' % (requests, launches, launches // requests))
+    for b in BERT_BATCHES:
+        print('bert_serving batch=%d S=%d p50_ms=%r p90_ms=%r (host clock, '
+              '%d requests, return_numpy=False, each ending in a sync)' % (
+                  b, s, float(np.percentile(lat[b], 50)) * 1e3,
+                  float(np.percentile(lat[b], 90)) * 1e3, len(lat[b])))
+    print('bert_serving batch=%d tokens_per_s=%r (%d back-to-back requests, '
+          'one sync)' % (bs, bs * s * BERT_THROUGHPUT_REQUESTS / dt,
+                         BERT_THROUGHPUT_REQUESTS))
+    t0 = time.perf_counter()
+    host, = pred.run(feeds[bs])
+    print('bert_serving batch=%d one request with return_numpy=True '
+          '(includes the %.0f MB device-to-host copy of the logits): ms=%r'
+          % (bs, host.nbytes / 1e6, (time.perf_counter() - t0) * 1e3))
+    return pred, feeds, launches
+
+
+def phase_bert_cpu_agreement(dirname, pred, feeds):
+    """GPU logits vs the port's CPU logits at batch 1, same directory.
+    f32 on both sides with TF32 off; the matmuls and the attention sum in
+    different orders through 12 layers, so the tolerance is 1e-3 of the
+    largest logit, as for ResNet-50."""
+    cpu = fluid.inference.create_predictor(
+        fluid.inference.Config(dirname).disable_gpu())
+    want, = cpu.run([t.cpu().numpy() for t in feeds[1]])
+    got, = pred.run(feeds[1])
+    err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    print('bert_gpu_vs_cpu batch=1 max_abs_err=%r max_abs_logit=%r rel=%r '
+          'tolerance_rel=1e-3' % (err, scale, err / scale))
+    check(np.isfinite(got).all() and err <= 1e-3 * scale,
+          'BERT GPU and CPU logits differ: %r of %r' % (err, scale))
+
+
+def phase_flash_times():
+    """flash_attn_fwd, its plain version and scaled_dot_product_attention
+    at the BERT-base attention shapes (batch 1 and 8, S=512, non-causal),
+    f32 and bf16, beside the bound: max(bytes of q, k, v, o / HBM rate,
+    4*B*H*S*S*D operations / the dtype's peak rate)."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 8)
+    h, s, d = BERT['n_head'], BERT['max_len'], BERT['d_model'] // BERT['n_head']
+    scale = d ** -0.5
+    rows = {}
+    for b in BERT_BATCHES:
+        for dtype, peak in ((torch.float32, F32_OPS_PER_S),
+                            (torch.bfloat16, BF16_OPS_PER_S)):
+            size = dtype.itemsize
+            nbytes = 4 * b * h * s * d * size
+            copies = max(2, math.ceil(2 * L2_BYTES / (3 * b * h * s * d
+                                                      * size)))
+            sets = [_qkv(b, h, s, s, d, dtype, gen) for _ in range(copies)]
+            before = fa.flash_attn_fwd.launches
+            ms = _time_ms(lambda t: fa.flash_attn_fwd(*t, False, scale), sets)
+            check(fa.flash_attn_fwd.launches - before == KERNEL_REPS + 2,
+                  'timing loop did not launch the kernel')
+            plain = _time_ms(lambda t: fa.flash_attention_reference(
+                *t, False, scale), sets)
+            lib = _time_ms(lambda t: F.scaled_dot_product_attention(
+                *t, scale=scale), sets)
+            ops = 4 * b * h * s * s * d
+            bound = max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3
+            by = 'operations' if ops / peak > nbytes / HBM_BYTES_PER_S \
+                else 'bytes'
+            key = (b, str(dtype)[6:])
+            rows[key] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                             bound_ms=bound, bound_by=by)
+            print('k2_time shape=%s dtype=%s kernel_ms=%r bound_ms=%r (%s) '
+                  'plain_ms=%r sdpa_ms=%r bound_share=%.3f tflops=%.2f' % (
+                      (b, h, s, s, d), key[1], ms, bound, by, plain, lib,
+                      bound / ms, ops / ms * 1e-9))
+            del sets
+    return rows
+
+
+def phase_bert_profile(pred, feeds):
+    """Device time by kernel over 3 batch-8 BERT requests."""
+    _profile(pred, feeds[BERT_BATCHES[-1]], 'bert batch=%d S=%d' % (
+        BERT_BATCHES[-1], BERT['max_len']))
 
 
 def main():
@@ -303,15 +561,29 @@ def main():
     print('build all kernels %.1fs' % (time.perf_counter() - t0))
 
     max_abs = phase_kernel_vs_plain()
+    k2_abs = phase_flash_vs_plain()
     with tempfile.TemporaryDirectory() as d:
         n_bn, n_params = build_and_save(d)
         print('model resnet50 224x224 classes=1000 f32 batch_norm_ops=%d '
               'persistable_elements=%d' % (n_bn, n_params))
         pred, images, launches = phase_serving(d, n_bn)
         phase_cpu_agreement(d, pred, images)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        n_ops, n_fused, n_params = build_and_save_bert(d)
+        print('model bert-base S=%d vocab=%d layers=%d f32 ops=%d '
+              'fused_multihead_attention_ops=%d persistable_elements=%d '
+              'build_init_save_s=%.1f' % (
+                  BERT['max_len'], BERT['vocab'], BERT['n_layer'], n_ops,
+                  n_fused, n_params, time.perf_counter() - t0))
+        bert_pred, bert_feeds, k2_launches = phase_bert_serving(d, n_fused)
+        phase_bert_cpu_agreement(d, bert_pred, bert_feeds)
     totals = phase_kernel_times()
+    k2_rows = phase_flash_times()
     phase_profile(pred, images)
+    phase_bert_profile(bert_pred, bert_feeds)
 
+    k2 = k2_rows[(BERT_BATCHES[-1], 'float32')]
     print('total seconds %.1f' % (time.perf_counter() - t_start))
     print(json.dumps({'kernels': [{
         'name': 'bn_apply', 'route': 'cuda',
@@ -322,7 +594,19 @@ def main():
         'max_abs_err_bf16': max_abs[torch.bfloat16],
         'ms': totals['ms'], 'plain_ms': totals['plain_ms'],
         'bound_ms': totals['bound_ms'], 'bound_by': 'bytes',
-        'library_ms': totals['library_ms']}]}))
+        'library_ms': totals['library_ms']}, {
+        'name': 'flash_attn_fwd', 'route': 'cuda',
+        'source': 'paddle_tpu_torch/csrc/flash_attn_fwd.cu',
+        'replaces': 'jax/experimental/pallas/ops/tpu/flash_attention.py:589',
+        'launches': k2_launches,
+        'max_abs_err': k2_abs[torch.float32],
+        'max_abs_err_bf16': k2_abs[torch.bfloat16],
+        'shape': [BERT_BATCHES[-1], BERT['n_head'], BERT['max_len'],
+                  BERT['d_model'] // BERT['n_head']],
+        'ms': k2['ms'], 'plain_ms': k2['plain_ms'],
+        'bound_ms': k2['bound_ms'], 'bound_by': k2['bound_by'],
+        'library_ms': k2['library_ms'],
+        'by_shape': {'%d/%s' % key: row for key, row in k2_rows.items()}}]}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 """Neural-network layer functions (ref: python/paddle/fluid/layers/nn.py;
-paddle_tpu/layers/nn.py:25,71,182,234,510).
+paddle_tpu/layers/nn.py:25,52,71,182,234,275,510,867,900,1955).
 
 The port's copies of the layers the serving slice needs. Each appends the
 same ops with the same attrs and names as its paddle_tpu counterpart, so a
@@ -14,7 +14,9 @@ from ..layer_helper import LayerHelper
 from ..initializer import NormalInitializer, ConstantInitializer
 from ..param_attr import ParamAttr
 
-__all__ = ['fc', 'conv2d', 'pool2d', 'batch_norm', 'relu', 'elementwise_add']
+__all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
+           'relu', 'elementwise_add', 'reshape', 'transpose',
+           'fused_multihead_attention']
 
 
 def _single(v, n):
@@ -48,6 +50,24 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
                          outputs={"Out": pre_bias}, attrs={})
     pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
+
+
+def embedding(input, size, is_sparse=False, is_distributed=False,
+              padding_idx=None, param_attr=None, dtype='float32'):
+    """Embedding lookup (ref nn.py embedding / lookup_table_op.cc).
+    is_sparse/is_distributed are recorded as attrs; the lookup is dense."""
+    helper = LayerHelper('embedding', param_attr=param_attr)
+    w = helper.create_parameter(attr=helper.param_attr, shape=size,
+                                dtype=dtype, is_bias=False)
+    tmp = helper.create_variable_for_type_inference(dtype)
+    padding_idx = (-1 if padding_idx is None else
+                   padding_idx if padding_idx >= 0 else size[0] + padding_idx)
+    helper.append_op(
+        type='lookup_table', inputs={'Ids': input, 'W': w},
+        outputs={'Out': tmp},
+        attrs={'is_sparse': is_sparse, 'is_distributed': is_distributed,
+               'padding_idx': padding_idx})
+    return tmp
 
 
 def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
@@ -135,6 +155,32 @@ def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-05,
     return helper.append_activation(out)
 
 
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-05, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    helper = LayerHelper('layer_norm', param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    param_shape = [int(np.prod(input.shape[begin_norm_axis:]))]
+    inputs = {'X': input}
+    if scale:
+        inputs['Scale'] = helper.create_parameter(
+            attr=helper.param_attr, shape=param_shape, dtype=dtype,
+            default_initializer=ConstantInitializer(1.0))
+    if shift:
+        inputs['Bias'] = helper.create_parameter(
+            attr=helper.bias_attr, shape=param_shape, dtype=dtype,
+            is_bias=True)
+    mean_out = helper.create_variable_for_type_inference(dtype, True)
+    var_out = helper.create_variable_for_type_inference(dtype, True)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type='layer_norm', inputs=inputs,
+        outputs={'Y': out, 'Mean': mean_out, 'Variance': var_out},
+        attrs={'epsilon': epsilon, 'begin_norm_axis': begin_norm_axis})
+    return helper.append_activation(out)
+
+
 def relu(x, name=None):
     helper = LayerHelper('relu', name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
@@ -155,3 +201,42 @@ def _elementwise_layer(op_type):
 
 
 elementwise_add = _elementwise_layer('elementwise_add')
+
+
+def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
+    helper = LayerHelper('reshape2', act=act, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    x_shape = helper.create_variable_for_type_inference(x.dtype, True)
+    inputs = {'X': x}
+    if actual_shape is not None:
+        inputs['Shape'] = actual_shape
+    helper.append_op(type='reshape2', inputs=inputs,
+                     outputs={'Out': out, 'XShape': x_shape},
+                     attrs={'shape': list(shape)})
+    return helper.append_activation(out)
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper('transpose2', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    x_shape = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op(type='transpose2', inputs={'X': x},
+                     outputs={'Out': out, 'XShape': x_shape},
+                     attrs={'axis': list(perm)})
+    return out
+
+
+def fused_multihead_attention(q, k, v, causal=False, scale=1.0,
+                              sequence_parallel=False, name=None):
+    """Fused [B, H, S, D] attention, softmax(scale·q·kᵀ [+ causal])·v: the
+    flash-attention kernel on the card (ops/flash_attention.py).
+    sequence_parallel is recorded; the port runs it on one device."""
+    helper = LayerHelper('fused_multihead_attention', name=name)
+    out = helper.create_variable_for_type_inference(q.dtype)
+    helper.append_op(
+        type='fused_multihead_attention',
+        inputs={'Q': q, 'K': k, 'V': v}, outputs={'Out': out},
+        attrs={'causal': causal, 'scale': scale,
+               'sequence_parallel': sequence_parallel}, infer_shape=False)
+    out.shape = q.shape  # same [B, H, S, D] as the query
+    return out

@@ -1,10 +1,12 @@
-"""NN op lowerings: conv2d, pool2d, batch_norm
-(ref: operators/conv_op.cc, pool_op.cc, batch_norm_op.cc;
-paddle_tpu/ops/nn_ops.py:29,186,334).
+"""NN op lowerings: conv2d, pool2d, batch_norm, layer_norm, lookup_table,
+fused_multihead_attention (ref: operators/conv_op.cc, pool_op.cc,
+batch_norm_op.cc, layer_norm_op.cc, lookup_table_op.cc;
+paddle_tpu/ops/nn_ops.py:29,186,334,388,480,684).
 
 conv2d maps to torch.nn.functional.conv2d (cuDNN on the card), as the JAX
 package leaves it to XLA. The batch_norm apply runs through the hand-written
-kernel in ops/bn_apply.py.
+kernel in ops/bn_apply.py, fused_multihead_attention through the one in
+ops/flash_attention.py.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch.nn.functional as F
 
 from ..core.registry import register
 from .bn_apply import bn_apply
+from .flash_attention import flash_attn_fwd
 from .math_ops import X
 
 
@@ -119,3 +122,64 @@ def _batch_norm(ctx, ins):
                  bvec.float().contiguous(), channel_axis=c_axis)
     return {'Y': [y], 'MeanOut': [mean_out], 'VarianceOut': [var_out],
             'SavedMean': [m], 'SavedVariance': [inv]}
+
+
+@register('layer_norm')
+def _layer_norm(ctx, ins):
+    """Normalize over the dims from begin_norm_axis on, with the biased
+    variance and eps from the attr, computed in f32 and cast back to x's
+    dtype; Mean and Variance are f32 of shape [prod(x.shape[:axis])]. One
+    torch.native_layer_norm gives Y, the mean and 1/sqrt(var + eps); the
+    variance is recovered from the latter."""
+    x_in = X(ins)
+    x = x_in.float()
+    eps = ctx.attr('epsilon', 1e-5)
+    axis = ctx.attr('begin_norm_axis', 1)
+    norm_shape = tuple(x.shape[axis:])
+    scale = (ins.get('Scale') or [None])[0]
+    bias = (ins.get('Bias') or [None])[0]
+    y, mean, rstd = torch.native_layer_norm(
+        x, norm_shape,
+        None if scale is None else scale.float().reshape(norm_shape),
+        None if bias is None else bias.float().reshape(norm_shape), eps)
+    lead = int(np.prod(x.shape[:axis]))
+    return {'Y': [y.to(x_in.dtype)], 'Mean': [mean.reshape(lead)],
+            'Variance': [(rstd.reshape(lead) ** -2) - eps]}
+
+
+@register('lookup_table')
+def _lookup_table(ctx, ins):
+    """Rows of W by integer id. As in the JAX lowering, ids in [-V, 0) count
+    from the end, ids outside [-V, V) give NaN rows, and with padding_idx
+    the rows of that id are 0. A trailing ids dim of 1 is squeezed:
+    ids [S, 1] give [S, D]."""
+    w, ids = ins['W'][0], ins['Ids'][0]
+    n = w.shape[0]
+    flat = ids.reshape(-1)
+    idx = torch.where(flat < 0, flat + n, flat)
+    valid = (idx >= 0) & (idx < n)
+    out = F.embedding(idx.clamp(0, n - 1), w)  # a fresh tensor: fill in place
+    out.masked_fill_(~valid[:, None], float('nan'))
+    pad = ctx.attr('padding_idx', -1)
+    if pad is not None and pad != -1:
+        if pad < 0:
+            pad += n
+        out.masked_fill_((flat == pad)[:, None], 0.0)
+    shape = tuple(ids.shape)
+    if shape[-1] == 1:
+        shape = shape[:-1]
+    return {'Out': [out.reshape(shape + (w.shape[1],))]}
+
+
+@register('fused_multihead_attention')
+def _fused_multihead_attention(ctx, ins):
+    """Q, K, V [B, H, S, D] -> softmax(scale·Q·Kᵀ [+ causal mask])·V, the
+    flash-attention kernel on every CUDA tensor. sequence_parallel takes
+    the single-device semantics, as the JAX lowering does when no
+    sequence-parallel mesh is present; the TPU's measured block and
+    kernel-selection policy (_flash_policy, PTPU_FLASH_ATTN) is not
+    carried over."""
+    q, k, v = ins['Q'][0], ins['K'][0], ins['V'][0]
+    return {'Out': [flash_attn_fwd(q, k, v,
+                                   causal=bool(ctx.attr('causal', False)),
+                                   scale=float(ctx.attr('scale', 1.0)))]}

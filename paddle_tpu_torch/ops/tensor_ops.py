@@ -1,6 +1,7 @@
-"""Tensor creation op lowerings: the startup program's init ops
-(ref: operators/fill_constant_op.cc, uniform_random_op.cc,
-gaussian_random_op.cc; paddle_tpu/ops/tensor_ops.py:28,95,116).
+"""Tensor op lowerings: the startup program's init ops, range, and the
+reshape2/transpose2 views (ref: operators/fill_constant_op.cc,
+uniform_random_op.cc, gaussian_random_op.cc, range_op.cc, reshape_op.cc,
+transpose_op.cc; paddle_tpu/ops/tensor_ops.py:28,95,116,46,282,298).
 
 Random ops draw from the torch.Generator that ctx.rng() seeds for the op.
 torch's streams differ from JAX's threefry streams, so the two packages
@@ -9,10 +10,12 @@ JAX package's values across where a comparison needs the same ones.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.registry import register
 from ..framework import to_torch_dtype
+from .math_ops import X
 
 
 def _shape_dtype(ctx):
@@ -43,3 +46,85 @@ def _gaussian_random(ctx, ins):
     out.normal_(ctx.attr('mean', 0.0), ctx.attr('std', 1.0),
                 generator=ctx.rng())
     return {'Out': [out]}
+
+
+@register('range', no_grad=True)
+def _range(ctx, ins):
+    """[start, end) by step from static attrs, int64 unless the attr says
+    otherwise, made on the executor's device."""
+    dt = to_torch_dtype(ctx.attr('dtype') or 'int64')
+    return {'Out': [torch.arange(ctx.attr('start', 0), ctx.attr('end'),
+                                 ctx.attr('step', 1), dtype=dt,
+                                 device=ctx.device)]}
+
+
+def _xshape(x):
+    """reshape2/transpose2's XShape: shape (0,) + x.shape, so it holds no
+    element and allocates no memory."""
+    return x.new_empty((0,) + tuple(x.shape))
+
+
+def _resolve_reshape(x, shape):
+    """A 0 in the target shape copies that dim of x; -1 is left to torch."""
+    return [x.shape[i] if s == 0 else int(s) for i, s in enumerate(shape)]
+
+
+def _reshape_infer(op, block):
+    """reshape2's build-time shapes, as paddle_tpu's _reshape_infer gives
+    them: the target with 0 copied from x and -1 resolved when x is fully
+    static; XShape is (0,) + x.shape. The generic meta evaluation cannot
+    reshape a -1-batch input to a static target (probe sizes disagree)."""
+    shape = list(op.attrs.get('shape', ()))
+    if not shape or (op.inputs.get('Shape') and op.inputs['Shape'][0]):
+        return  # runtime shape tensor: declared shapes stay
+    xv = block._find_var_recursive(op.inputs['X'][0])
+    out = []
+    for i, s in enumerate(shape):
+        if s == 0:
+            if xv is None or xv.shape is None or i >= len(xv.shape):
+                return
+            out.append(xv.shape[i])
+        else:
+            out.append(int(s))
+    if -1 in out and xv is not None and xv.shape is not None \
+            and all(d not in (-1, None) for d in xv.shape):
+        known = int(np.prod([d for d in out if d != -1]))
+        numel = int(np.prod(xv.shape))
+        if known > 0 and numel % known == 0:
+            out[out.index(-1)] = numel // known
+    for n in op.outputs.get('Out', []):
+        v = block._find_var_recursive(n)
+        if v is not None:
+            v.shape = tuple(out)
+            if xv is not None and xv.dtype:
+                v.dtype = xv.dtype
+    if xv is not None and xv.shape is not None:
+        for n in op.outputs.get('XShape', []):
+            v = block._find_var_recursive(n)
+            if v is not None:
+                v.shape = (0,) + tuple(xv.shape)
+                if xv.dtype:
+                    v.dtype = xv.dtype
+
+
+@register('reshape2', infer_shape=_reshape_infer)
+def _reshape2(ctx, ins):
+    """A view of x where its strides allow one (always, for the contiguous
+    tensors and head-merge outputs of the BERT path), else a copy: torch's
+    `reshape` decides."""
+    x = X(ins)
+    if ins.get('Shape') and ins['Shape'][0] is not None:
+        shape = [int(s) for s in ins['Shape'][0].tolist()]
+    else:
+        shape = ctx.attr('shape')
+    return {'Out': [x.reshape(_resolve_reshape(x, shape))],
+            'XShape': [_xshape(x)]}
+
+
+@register('transpose2')
+def _transpose2(ctx, ins):
+    """Always a view: no data moves. A consumer that needs contiguous
+    memory copies (`mul` via reshape); fused_multihead_attention's kernel
+    takes the strides as they are."""
+    x = X(ins)
+    return {'Out': [x.permute(*ctx.attr('axis'))], 'XShape': [_xshape(x)]}

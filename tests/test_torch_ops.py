@@ -1,10 +1,10 @@
-"""Each op of the serving slice as a one-op Program in both packages.
+"""Each op of the serving slices as a one-op Program in both packages.
 
 The same numpy inputs (fed as data vars) go through paddle_tpu's Executor
 and paddle_tpu_torch's Executor on the CPU. The outputs agree at rtol 1e-5
-(f32; the two frameworks sum in different orders), and the build-time
-shapes inferred for a -1 batch dim (JAX eval_shape vs torch meta tensors)
-are equal.
+(f32; the two frameworks sum in different orders; integer outputs and NaN
+rows must match exactly), and the build-time shapes inferred for a -1
+batch dim (JAX eval_shape vs torch meta tensors) are equal.
 """
 import numpy as np
 import pytest
@@ -41,6 +41,35 @@ def _pool_case(x, **attrs):
     full.update(attrs)
     return dict(type='pool2d', inputs={'X': ('x', x)},
                 outputs={'Out': 'out'}, attrs=full)
+
+
+def _ids(*shape, high=10, seed=0):
+    return np.random.RandomState(seed).randint(0, high, shape).astype(np.int64)
+
+
+def _lookup_case(ids, padding_idx=-1):
+    return dict(type='lookup_table',
+                inputs={'Ids': ('ids', ids), 'W': ('w', _r(10, 4, seed=8))},
+                outputs={'Out': 'out'},
+                attrs={'is_sparse': False, 'is_distributed': False,
+                       'padding_idx': padding_idx})
+
+
+def _layer_norm_case(shape, axis, affine=True):
+    inputs = {'X': ('x', _r(*shape))}
+    if affine:
+        n = int(np.prod(shape[axis:]))
+        inputs['Scale'] = ('scale', _r(n, seed=9))
+        inputs['Bias'] = ('bias', _r(n, seed=10))
+    return dict(type='layer_norm', inputs=inputs,
+                outputs={'Y': 'y', 'Mean': 'mean', 'Variance': 'variance'},
+                attrs={'epsilon': 1e-5, 'begin_norm_axis': axis})
+
+
+def _reshape2_case(x, shape):
+    return dict(type='reshape2', inputs={'X': ('x', x)},
+                outputs={'Out': 'out', 'XShape': 'xshape'},
+                attrs={'shape': shape})
 
 
 CASES = {
@@ -91,6 +120,27 @@ CASES = {
         outputs={'Out': 'out'}, attrs={'axis': -1}),
     'relu': dict(type='relu', inputs={'X': ('x', _r(2, 3, 5))},
                  outputs={'Out': 'out'}, attrs={}),
+    'range_int64': dict(type='range', inputs={}, outputs={'Out': 'out'},
+                        attrs={'start': 2, 'end': 17, 'step': 3,
+                               'dtype': 'int64'}),
+    'range_float32': dict(type='range', inputs={}, outputs={'Out': 'out'},
+                          attrs={'start': 0, 'end': 5, 'step': 1,
+                                 'dtype': 'float32'}),
+    'reshape2_minus1': _reshape2_case(_r(2, 3, 4), [-1, 12]),
+    'reshape2_copy_dim0': _reshape2_case(_r(2, 3, 4), [0, 4, 3]),
+    'reshape2_split_heads': _reshape2_case(_r(2, 5, 8), [-1, 5, 2, 4]),
+    'transpose2': dict(type='transpose2', inputs={'X': ('x', _r(2, 5, 2, 4))},
+                       outputs={'Out': 'out', 'XShape': 'xshape'},
+                       attrs={'axis': [0, 2, 1, 3]}),
+    'lookup_table_2d_ids': _lookup_case(_ids(2, 6)),
+    'lookup_table_trailing1_squeeze': _lookup_case(_ids(5, 1, seed=1)),
+    'lookup_table_padding_idx': _lookup_case(
+        np.array([[1, 3, 3], [0, 3, 9]], np.int64), padding_idx=3),
+    'lookup_table_negative_and_out_of_range_ids': _lookup_case(
+        np.array([[-1, -10, 10], [-11, 4, 25]], np.int64)),
+    'layer_norm_axis2': _layer_norm_case((2, 3, 8), 2),
+    'layer_norm_axis1': _layer_norm_case((2, 3, 8), 1),
+    'layer_norm_no_affine': _layer_norm_case((3, 16), 1, affine=False),
     'fill_constant': dict(type='fill_constant', inputs={},
                           outputs={'Out': 'out'},
                           attrs={'shape': [2, 3], 'dtype': 'float32',
@@ -107,9 +157,9 @@ def _build_and_run(pkg, case, exe):
     with pkg.program_guard(main, startup), pkg.unique_name.guard():
         block = main.global_block()
         for slot, (name, arr) in case['inputs'].items():
-            batched = slot in ('X', 'Input')
+            batched = slot in ('X', 'Input', 'Ids')
             shape = list(arr.shape[1:]) if batched else list(arr.shape)
-            pkg.layers.data(name, shape=shape, dtype='float32',
+            pkg.layers.data(name, shape=shape, dtype=str(arr.dtype),
                             append_batch_size=batched)
             feed[name] = arr
         out_names = []
