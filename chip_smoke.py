@@ -1,28 +1,34 @@
 #!/usr/bin/env python3
-"""On-card smoke run of paddle_tpu_torch: ResNet-50 and BERT-base served on
-one NVIDIA GPU.
+"""On-card smoke run of paddle_tpu_torch: ResNet-50 and BERT-base served,
+and BERT-base trained, on one NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from paddle_tpu_torch/csrc/ (bn_apply and
-flash_attn_fwd, one nvcc each, in parallel) and holds each against its
-plain PyTorch version on the card. Then it serves two models through
-save_inference_model -> create_predictor(Config(dir)) -> Predictor.run,
-with random weights from a seed, f32 and TF32 off:
+It builds the port's CUDA kernels from paddle_tpu_torch/csrc/ (bn_apply,
+flash_attn_fwd and flash_attn_bwd, one nvcc each, in parallel) and holds
+each against its plain PyTorch version on the card. Then it drives three
+paths, with random weights from a seed, f32 and TF32 off:
 
-- ResNet-50 (depth 50, 224x224, 1000 classes), batch 1/8/16, with 53
-  bn_apply launches per request;
+- ResNet-50 (depth 50, 224x224, 1000 classes) served through
+  save_inference_model -> create_predictor(Config(dir)) -> Predictor.run,
+  batch 1/8/16, with 53 bn_apply launches per request;
 - BERT-base (12 layers, d_model 768, 12 heads, d_ff 3072, vocab 30522) at
-  S=512, its masked-LM logits, batch 1/8, with 12 flash_attn_fwd launches
-  per request.
+  S=512 served the same way, its masked-LM logits, batch 1/8, with 12
+  flash_attn_fwd launches per request;
+- BERT-base at S=512 trained through build_bert_pretrain (masked-LM loss,
+  Adam.minimize) -> Executor.run(startup) -> Executor.run(main, feed,
+  fetch_list=[loss]), batch 8, 2 warm-up and 10 timed steps on one fixed
+  batch, with 12 launches of each backward kernel (flash_attn_bwd_dkv,
+  flash_attn_bwd_dq) and 24 of flash_attn_fwd per step.
 
 Each path runs with every kernel's launch count set to 0 just before it
-and read just after. The run compares GPU and CPU outputs of each model,
-times the kernels (CUDA events) and the requests (host clock), and
-profiles a few requests. Every check that fails raises, so the exit code
-is 0 only when all phases passed. Without a card it exits 1 and prints no
+and read just after. The run compares GPU and CPU outputs of each served
+model and the loss and gradients of one training step, times the kernels
+(CUDA events), the requests and the steps (host clock), and profiles a few
+requests and steps. Every check that fails raises, so the exit code is 0
+only when all phases passed. Without a card it exits 1 and prints no
 result.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
@@ -43,7 +49,7 @@ import torch.nn.functional as F
 
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch import kernels
-from paddle_tpu_torch.models.bert import bert_mlm_logits
+from paddle_tpu_torch.models.bert import bert_mlm_logits, build_bert_pretrain
 from paddle_tpu_torch.models.resnet import resnet_imagenet
 from paddle_tpu_torch.ops import bn_apply as bn_mod
 from paddle_tpu_torch.ops import flash_attention as fa
@@ -79,6 +85,15 @@ K2_CASES = [(1, 12, 512, 512, 64, False), (8, 12, 512, 512, 64, False),
             (2, 12, 512, 512, 64, True), (2, 12, 128, 512, 64, True),
             (2, 12, 200, 200, 64, False), (2, 12, 200, 200, 64, True),
             (2, 12, 512, 512, 32, False), (2, 12, 512, 512, 128, False)]
+# (B, H, Sq, Sk, D, causal) of the K2 backward checks: BERT-base training at
+# batch 8 and 1, causal square and offset, a ragged S, and D 32/64/128
+K2_BWD_CASES = [(8, 12, 512, 512, 64, False), (1, 12, 512, 512, 64, False),
+                (2, 12, 512, 512, 64, True), (2, 12, 128, 512, 64, True),
+                (2, 12, 300, 300, 64, False), (2, 12, 300, 300, 64, True),
+                (2, 12, 512, 512, 32, False), (2, 12, 512, 512, 128, True)]
+TRAIN_BATCH = 8
+TRAIN_WARMUP_STEPS = 2
+TRAIN_STEPS = 10
 
 
 def check(cond, msg):
@@ -154,14 +169,19 @@ def build_and_save(dirname):
     return len(bn_ops), n_params
 
 
+WRAPPERS = {'bn_apply': bn_mod.bn_apply,
+            'flash_attn_fwd': fa.flash_attn_fwd,
+            'flash_attn_bwd_dkv': fa.flash_attn_bwd_dkv,
+            'flash_attn_bwd_dq': fa.flash_attn_bwd_dq}
+
+
 def reset_launches():
-    bn_mod.bn_apply.launches = 0
-    fa.flash_attn_fwd.launches = 0
+    for fn in WRAPPERS.values():
+        fn.launches = 0
 
 
 def read_launches():
-    return {'bn_apply': bn_mod.bn_apply.launches,
-            'flash_attn_fwd': fa.flash_attn_fwd.launches}
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
 def phase_serving(dirname, n_bn):
@@ -206,7 +226,9 @@ def phase_serving(dirname, n_bn):
     launches = counts['bn_apply']
     check(launches == n_bn * requests,
           'bn_apply launched %d times over %d requests' % (launches, requests))
-    check(counts['flash_attn_fwd'] == 0, 'ResNet-50 launched flash_attn_fwd')
+    check(counts['flash_attn_fwd'] == counts['flash_attn_bwd_dkv']
+          == counts['flash_attn_bwd_dq'] == 0,
+          'ResNet-50 launched a flash-attention kernel: %s' % counts)
     print('serving requests=%d bn_apply_launches=%d (%d per request)'
           % (requests, launches, launches // requests))
     for bs in BATCHES:
@@ -216,7 +238,7 @@ def phase_serving(dirname, n_bn):
                   float(np.percentile(lat[bs], 90)) * 1e3, len(lat[bs])))
     print('serving batch=16 img_per_s=%r (%d back-to-back requests, one sync)'
           % (16 * THROUGHPUT_REQUESTS / dt, THROUGHPUT_REQUESTS))
-    return pred, images, launches
+    return pred, images, counts
 
 
 def phase_cpu_agreement(dirname, pred, images):
@@ -236,12 +258,15 @@ def phase_cpu_agreement(dirname, pred, images):
           'GPU and CPU logits differ: %r of %r' % (err, scale))
 
 
-def _time_ms(fn, inputs):
+def _time_ms(fn, inputs, spin_cycles=SPIN_CYCLES):
     """Device ms of one fn call, CUDA events around KERNEL_REPS calls,
     cycling over `inputs` so each call reads x from HBM rather than L2.
     A spin kernel holds the card while the host enqueues the calls, so the
-    events time them back to back on the card, not the host's launch rate;
-    the run fails if the host took longer than the spin."""
+    events time them back to back on the card, not the host's launch rate.
+    Where the host outlasts the spin (it was blocked: an implicit sync in
+    fn, such as a cudaMalloc), the events would time the host, so the call
+    is measured instead as the device's busy time per call under
+    torch.profiler (`_busy_ms`), and a line says so."""
     for x in inputs[:2]:
         fn(x)
     torch.cuda.synchronize()
@@ -249,7 +274,7 @@ def _time_ms(fn, inputs):
                          for _ in range(3))
     t0 = time.perf_counter()
     spin0.record()
-    torch.cuda._sleep(SPIN_CYCLES)
+    torch.cuda._sleep(spin_cycles)
     start.record()
     for i in range(KERNEL_REPS):
         fn(inputs[i % len(inputs)])
@@ -257,9 +282,29 @@ def _time_ms(fn, inputs):
     host_ms = (time.perf_counter() - t0) * 1e3
     end.synchronize()
     spin_ms = spin0.elapsed_time(start)
-    check(host_ms < spin_ms, 'host enqueue (%.2f ms) outlasted the spin '
-          '(%.2f ms): the events would time the host' % (host_ms, spin_ms))
-    return start.elapsed_time(end) / KERNEL_REPS
+    if host_ms < spin_ms:
+        return start.elapsed_time(end) / KERNEL_REPS
+    busy = _busy_ms(fn, inputs)
+    print('timing: host enqueue %.2f ms outlasted the spin %.2f ms; the next '
+          'time is device busy ms per call under torch.profiler: %r'
+          % (host_ms, spin_ms, busy))
+    return busy
+
+
+def _busy_ms(fn, inputs):
+    """Device busy ms per fn call: the CUDA kernels' own time under
+    torch.profiler over KERNEL_REPS calls (gaps between kernels excluded)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(KERNEL_REPS):
+            fn(inputs[i % len(inputs)])
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    check(busy_us > 0, 'the profiler saw no device time')
+    return busy_us * 1e-3 / KERNEL_REPS
 
 
 def phase_kernel_times():
@@ -299,19 +344,20 @@ def phase_kernel_times():
 
 def phase_profile(pred, images):
     """Device time by kernel over 3 batch-16 ResNet-50 requests."""
-    _profile(pred, [images[16]], 'resnet50 batch=16')
+    _profile(lambda: pred.run([images[16]], return_numpy=False),
+             'resnet50 batch=16', 'requests')
 
 
-def _profile(pred, feed, label):
-    """Device time by kernel over 3 requests (torch.profiler; only the CUDA
-    kernels' own rows, so no op is counted twice), each kernel with the
-    torch ops that launched it."""
+def _profile(run_once, label, what):
+    """Device time by kernel over 3 calls of run_once (torch.profiler; only
+    the CUDA kernels' own rows, so no op is counted twice), each kernel with
+    the torch ops that launched it."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(3):
-            pred.run(feed, return_numpy=False)
+            run_once()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     from torch.autograd import DeviceType
@@ -328,9 +374,10 @@ def _profile(pred, feed, label):
         for k in e.kernels:
             ops[k.name][e.name] += 1
     busy_s = sum(r[0] for r in rows) * 1e-6
-    print('profile %s 3 requests (profiler on): wall_ms=%r '
+    print('profile %s 3 %s (profiler on): wall_ms=%r '
           'device_busy_ms=%r idle_share=%.3f' % (
-              label, wall * 1e3, busy_s * 1e3, max(0.0, 1 - busy_s / wall)))
+              label, what, wall * 1e3, busy_s * 1e3,
+              max(0.0, 1 - busy_s / wall)))
     for dev_us, count, key in rows[:12]:
         print('profile %s kernel=%r calls=%d device_ms=%r share=%.3f ops=%s'
               % (label, key[:160], count, dev_us * 1e-3,
@@ -458,7 +505,9 @@ def phase_bert_serving(dirname, n_fused):
     check(launches == n_fused * requests,
           'flash_attn_fwd launched %d times over %d requests'
           % (launches, requests))
-    check(counts['bn_apply'] == 0, 'BERT launched bn_apply')
+    check(counts['bn_apply'] == counts['flash_attn_bwd_dkv']
+          == counts['flash_attn_bwd_dq'] == 0,
+          'BERT serving launched bn_apply or a backward kernel: %s' % counts)
     print('bert_serving requests=%d flash_attn_fwd_launches=%d (%d per '
           'request)' % (requests, launches, launches // requests))
     for b in BERT_BATCHES:
@@ -474,7 +523,7 @@ def phase_bert_serving(dirname, n_fused):
     print('bert_serving batch=%d one request with return_numpy=True '
           '(includes the %.0f MB device-to-host copy of the logits): ms=%r'
           % (bs, host.nbytes / 1e6, (time.perf_counter() - t0) * 1e3))
-    return pred, feeds, launches
+    return pred, feeds, counts
 
 
 def phase_bert_cpu_agreement(dirname, pred, feeds):
@@ -536,8 +585,281 @@ def phase_flash_times():
 
 def phase_bert_profile(pred, feeds):
     """Device time by kernel over 3 batch-8 BERT requests."""
-    _profile(pred, feeds[BERT_BATCHES[-1]], 'bert batch=%d S=%d' % (
-        BERT_BATCHES[-1], BERT['max_len']))
+    feed = feeds[BERT_BATCHES[-1]]
+    _profile(lambda: pred.run(feed, return_numpy=False),
+             'bert batch=%d S=%d' % (BERT_BATCHES[-1], BERT['max_len']),
+             'requests')
+
+
+def _bwd_inputs(b, h, sq, sk, d, dtype, gen):
+    """q, k, v and dO as [B, H, S, D] views of [B, S, H, D] memory: the
+    strides the head split and the head merge's gradient hand the
+    kernels."""
+    q, k, v = _qkv(b, h, sq, sk, d, dtype, gen)
+    do = torch.randn(b, sq, h, d, device='cuda', generator=gen).to(
+        dtype).permute(0, 2, 1, 3)
+    return q, k, v, do
+
+
+def phase_flash_bwd_vs_plain():
+    """K2-fwd's log-sum-exp, K2-bwd-dkv and K2-bwd-dq vs their plain
+    versions at K2_BWD_CASES, f32 and bf16, scale D**-0.5, the kernel's lse
+    and di = rowsum(dO·O) fed to both. Tolerance: fa.grad_tolerance for dQ,
+    dK and dV (1e-5 of the largest value in f32, 2**-7 in bf16: both
+    compute in f32 from the same inputs) and 1e-5 of the largest |lse|.
+    Then one FlashAttention forward and backward on the card against the
+    same function on the CPU, f32, at the batch-1 BERT-base shape, within
+    1e-5 of each tensor's largest value."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 9)
+    max_abs = collections.defaultdict(float)
+    for b, h, sq, sk, d, causal in K2_BWD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = _bwd_inputs(b, h, sq, sk, d, dtype, gen)
+            scale = d ** -0.5
+            out, lse = fa.flash_attn_fwd(q, k, v, causal, scale,
+                                         return_lse=True)
+            di = (do.float() * out.float()).sum(-1)
+            dk, dv = fa.flash_attn_bwd_dkv(q, k, v, do, lse, di, causal,
+                                           scale)
+            dq = fa.flash_attn_bwd_dq(q, k, v, do, lse, di, causal, scale)
+            torch.cuda.synchronize()
+            ref_lse = fa.flash_attention_reference_lse(q, k, causal, scale)
+            ref_dk, ref_dv = fa.flash_attn_bwd_dkv_reference(
+                q, k, v, do, lse, di, causal, scale)
+            ref_dq = fa.flash_attn_bwd_dq_reference(q, k, v, do, lse, di,
+                                                    causal, scale)
+            line = []
+            for name, got, ref, tol in (
+                    ('lse', lse, ref_lse,
+                     1e-5 * float(ref_lse.abs().max())),
+                    ('dq', dq, ref_dq, fa.grad_tolerance(ref_dq)),
+                    ('dk', dk, ref_dk, fa.grad_tolerance(ref_dk)),
+                    ('dv', dv, ref_dv, fa.grad_tolerance(ref_dv))):
+                check(got.shape == ref.shape and got.dtype == ref.dtype,
+                      '%s: %s %s, plain %s %s' % (name, tuple(got.shape),
+                                                  got.dtype,
+                                                  tuple(ref.shape),
+                                                  ref.dtype))
+                err = float((got.float() - ref.float()).abs().max())
+                max_abs[name, dtype] = max(max_abs[name, dtype], err)
+                line.append('%s_err=%r tol=%r' % (name, err, tol))
+                check(err <= tol, 'K2 backward %s differs from its plain '
+                      'version by %r > %r at %s causal=%s %s' % (
+                          name, err, tol, (b, h, sq, sk, d), causal, dtype))
+            print('k2_bwd_check shape=%s causal=%s dtype=%s %s' % (
+                (b, h, sq, sk, d), causal, str(dtype)[6:], ' '.join(line)))
+
+    b, h, s, d = 1, BERT['n_head'], BERT['max_len'], 64
+    q, k, v, do = _bwd_inputs(b, h, s, s, d, torch.float32, gen)
+    results = []
+    for device in ('cuda', 'cpu'):
+        leaves = [t.detach().to(device).requires_grad_() for t in (q, k, v)]
+        out = fa.FlashAttention.apply(*leaves, False, d ** -0.5)
+        out.backward(do.to(device))
+        results.append([out.detach()] + [t.grad for t in leaves])
+    for name, got, want in zip(('out', 'dq', 'dk', 'dv'), *results):
+        err = float((got.cpu() - want).abs().max())
+        scale_ = float(want.abs().max())
+        print('k2_autograd_gpu_vs_cpu shape=%s %s max_abs_err=%r max_abs=%r '
+              'tolerance_rel=1e-5' % ((b, h, s, d), name, err, scale_))
+        check(err <= 1e-5 * scale_, 'FlashAttention %s on the card differs '
+              'from the CPU by %r of %r' % (name, err, scale_))
+    return max_abs
+
+
+def build_bert_training():
+    """Full-width BERT-base pretraining at S=512: the masked-LM loss and
+    Adam(lr 1e-4).minimize, dropout 0, seeded initialization."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, loss = build_bert_pretrain(dropout=0.0, lr=1e-4, **BERT)
+    return main, startup, loss
+
+
+def _train_feed(bs, gen):
+    """One masked-LM batch: random tokens and segments, random labels, 15%
+    of the positions weighted."""
+    s, vocab = BERT['max_len'], BERT['vocab']
+    return {'tok_ids': torch.randint(0, vocab, (bs, s), device='cuda',
+                                     generator=gen),
+            'seg_ids': torch.randint(0, 2, (bs, s), device='cuda',
+                                     generator=gen),
+            'mlm_labels': torch.randint(0, vocab, (bs, s), device='cuda',
+                                        generator=gen),
+            'mlm_weights': (torch.rand(bs, s, device='cuda', generator=gen)
+                            < 0.15).float()}
+
+
+def phase_bert_training(main, startup, loss):
+    """Train BERT-base on the card: TRAIN_WARMUP_STEPS, then TRAIN_STEPS
+    timed steps (host clock around Executor.run and a sync), all on one
+    fixed batch of TRAIN_BATCH. The loss is finite at every step and lower
+    at the last than at the first; every timed step launches each backward
+    kernel once per layer, flash_attn_fwd twice per layer (the forward op
+    and the grad op's recomputed forward) and bn_apply never."""
+    ops = main.global_block().ops
+    n_layer = BERT['n_layer']
+    for t in ('fused_multihead_attention', 'fused_multihead_attention_grad'):
+        n = sum(op.type == t for op in ops)
+        check(n == n_layer, 'the training program has %d %s ops' % (n, t))
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 10)
+    feed = _train_feed(TRAIN_BATCH, gen)
+    losses = []
+    exe.run(startup, scope=scope)
+    for _ in range(TRAIN_WARMUP_STEPS):
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)
+        losses.append(float(out.reshape(-1)[0]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    want = {'bn_apply': 0, 'flash_attn_fwd': 2 * n_layer,
+            'flash_attn_bwd_dkv': n_layer, 'flash_attn_bwd_dq': n_layer}
+    reset_launches()
+    times = []
+    for _ in range(TRAIN_STEPS):
+        before = read_launches()
+        t0 = time.perf_counter()
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        after = read_launches()
+        step = {k: after[k] - before[k] for k in after}
+        check(step == want, 'a training step launched %s, not %s'
+              % (step, want))
+        losses.append(float(out.reshape(-1)[0]))
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses), 'non-finite loss: %s'
+          % losses)
+    check(losses[-1] < losses[0], 'the loss did not fall: %s' % losses)
+    tokens = TRAIN_BATCH * BERT['max_len']
+    p50 = float(np.percentile(times, 50))
+    print('bert_training batch=%d S=%d f32 lr=1e-4 ops=%d losses=%s'
+          % (TRAIN_BATCH, BERT['max_len'], len(ops),
+             json.dumps([round(x, 5) for x in losses])))
+    print('bert_training launches over %d timed steps: %s (per step: %s)'
+          % (TRAIN_STEPS, json.dumps(counts), json.dumps(want)))
+    print('bert_training step p50_ms=%r p90_ms=%r tokens_per_s=%r '
+          'peak_allocated_gb=%.2f (host clock, %d steps, each ending in a '
+          'sync)' % (p50 * 1e3, float(np.percentile(times, 90)) * 1e3,
+                     tokens / p50, peak / 2 ** 30, TRAIN_STEPS))
+    return exe, scope, feed, counts
+
+
+def phase_training_gpu_vs_cpu(main, startup, loss):
+    """One training step at full width, batch 1, from one initial state
+    (the startup program run on the card, carried to a CPU scope with
+    weights.py): the loss and the gradients of word_emb, the first layer's
+    Q weight and the last layer_norm's scale, GPU against CPU.
+
+    The tolerance of each is measured in the same run: the CPU step is
+    taken again from the state with every tensor scaled by 1 + 1e-7·N(0, 1)
+    (about one f32 ulp), and the GPU may differ from the CPU by at most 4
+    times what that perturbation moves the tensor, and never less than
+    1e-5 of its largest value. At random initialization the gradients that
+    reach the bottom of the 12 layers (word_emb, the first Q weight) are
+    ill-conditioned in f32: a one-ulp perturbation moves them by ~1e-3 to
+    ~6e-3 of their largest value (CPU), while the head's layer_norm scale
+    moves by ~1e-6. A fixed tolerance would be either too loose for the
+    one or too tight for the others."""
+    gpu_scope = fluid.Scope()
+    gpu = fluid.Executor(fluid.CUDAPlace(0))
+    cpu = fluid.Executor(fluid.CPUPlace())
+    gpu.run(startup, scope=gpu_scope)
+    state = fluid.weights.state_to_numpy(main, gpu_scope)
+    rng = np.random.RandomState(SEED + 13)
+    perturbed = {n: a * (1 + 1e-7 * rng.randn(*a.shape)).astype(a.dtype)
+                 for n, a in state.items()}
+    ln = max((p.name for p in main.all_parameters()
+              if p.name.startswith('layer_norm_') and p.name.endswith('.w_0')),
+             key=lambda n: int(n.split('_')[2].split('.')[0]))
+    names = [loss.name, 'word_emb@GRAD', 'fc_0.w_0@GRAD', ln + '@GRAD']
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 11)
+    feed = _train_feed(1, gen)
+    got = gpu.run(main, feed=feed, fetch_list=names, scope=gpu_scope)
+    cpu_feed = {k: t.cpu() for k, t in feed.items()}
+    want, moved = [], []
+    for st in (state, perturbed):
+        scope = fluid.Scope()
+        fluid.weights.params_from_numpy(st, main, scope)
+        (want if st is state else moved).extend(
+            cpu.run(main, feed=cpu_feed, fetch_list=names, scope=scope))
+    for name, g, w, m in zip(names, got, want, moved):
+        err = float(np.abs(g - w).max())
+        top = float(np.abs(w).max())
+        noise = float(np.abs(m - w).max())
+        tol = max(1e-5 * top, 4 * noise)
+        print('bert_training_gpu_vs_cpu batch=1 %s shape=%s max_abs_err=%r '
+              'max_abs=%r rel=%r one_ulp_perturbation_moves=%r tolerance=%r'
+              % (name, tuple(w.shape), err, top, err / top, noise, tol))
+        check(g.shape == w.shape and np.isfinite(g).all() and err <= tol,
+              'GPU and CPU %s differ: %r > %r' % (name, err, tol))
+
+
+def phase_flash_bwd_times():
+    """K2-bwd-dkv, K2-bwd-dq and their plain versions at the batch-8
+    BERT-base training shape, f32 and bf16, beside each kernel's bound:
+    max(bytes of q, k, v, dO, lse, di read and the gradients written /
+    HBM rate, 8 (dkv) or 6 (dq) * B*H*S*S*D operations / the dtype's peak).
+    The library's yardstick is scaled_dot_product_attention's backward
+    (autograd of it, forward and backward, less its forward), which
+    computes dQ, dK and dV in one call."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 12)
+    b, h, s = TRAIN_BATCH, BERT['n_head'], BERT['max_len']
+    d = BERT['d_model'] // h
+    scale = d ** -0.5
+    numel = b * h * s * d
+    rows = {}
+    for dtype, peak in ((torch.float32, F32_OPS_PER_S),
+                        (torch.bfloat16, BF16_OPS_PER_S)):
+        size = dtype.itemsize
+        copies = max(2, math.ceil(2 * L2_BYTES / (4 * numel * size)))
+        sets = []
+        for _ in range(copies):
+            q, k, v, do = _bwd_inputs(b, h, s, s, d, dtype, gen)
+            out, lse = fa.flash_attn_fwd(q, k, v, False, scale,
+                                         return_lse=True)
+            sets.append((q, k, v, do, lse, (do.float() * out.float()).sum(-1)))
+        lib_sets = [tuple(t.detach().requires_grad_() for t in st[:3])
+                    + (st[3],) for st in sets]
+        # autograd and the plain versions enqueue ~1.4 ms a call on the host
+        spin = 4 * SPIN_CYCLES
+        lib_fwd = _time_ms(lambda t: F.scaled_dot_product_attention(
+            *t[:3], scale=scale), lib_sets, spin)
+        lib_all = _time_ms(lambda t: torch.autograd.grad(
+            F.scaled_dot_product_attention(*t[:3], scale=scale), t[:3],
+            t[3]), lib_sets, spin)
+        lib = lib_all - lib_fwd
+        for name, factor, n_out in (('flash_attn_bwd_dkv', 8, 2),
+                                    ('flash_attn_bwd_dq', 6, 1)):
+            wrapper = WRAPPERS[name]
+            ref = getattr(fa, name + '_reference')
+            before = wrapper.launches
+            ms = _time_ms(lambda t: wrapper(*t, False, scale), sets, spin)
+            check(wrapper.launches - before == KERNEL_REPS + 2,
+                  'timing loop did not launch %s' % name)
+            plain = _time_ms(lambda t: ref(*t, False, scale), sets, spin)
+            ops = factor * b * h * s * s * d
+            nbytes = (4 + n_out) * numel * size + 2 * b * h * s * 4
+            bound = max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3
+            by = 'operations' if ops / peak > nbytes / HBM_BYTES_PER_S \
+                else 'bytes'
+            rows[name, str(dtype)[6:]] = dict(
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                bound_by=by)
+            print('k2_bwd_time %s shape=%s dtype=%s kernel_ms=%r '
+                  'bound_ms=%r (%s) plain_ms=%r sdpa_bwd_ms=%r (dq, dk and '
+                  'dv together; sdpa fwd+bwd %r, fwd %r) bound_share=%.3f '
+                  'tflops=%.2f' % (name, (b, h, s, s, d), str(dtype)[6:], ms,
+                                   bound, by, plain, lib, lib_all, lib_fwd,
+                                   bound / ms, ops / ms * 1e-9))
+        del sets, lib_sets
+    return rows
 
 
 def main():
@@ -562,11 +884,12 @@ def main():
 
     max_abs = phase_kernel_vs_plain()
     k2_abs = phase_flash_vs_plain()
+    bwd_abs = phase_flash_bwd_vs_plain()
     with tempfile.TemporaryDirectory() as d:
         n_bn, n_params = build_and_save(d)
         print('model resnet50 224x224 classes=1000 f32 batch_norm_ops=%d '
               'persistable_elements=%d' % (n_bn, n_params))
-        pred, images, launches = phase_serving(d, n_bn)
+        pred, images, resnet_counts = phase_serving(d, n_bn)
         phase_cpu_agreement(d, pred, images)
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
@@ -576,20 +899,74 @@ def main():
               'build_init_save_s=%.1f' % (
                   BERT['max_len'], BERT['vocab'], BERT['n_layer'], n_ops,
                   n_fused, n_params, time.perf_counter() - t0))
-        bert_pred, bert_feeds, k2_launches = phase_bert_serving(d, n_fused)
+        bert_pred, bert_feeds, bert_counts = phase_bert_serving(d, n_fused)
         phase_bert_cpu_agreement(d, bert_pred, bert_feeds)
+    t0 = time.perf_counter()
+    train_main, train_startup, train_loss = build_bert_training()
+    print('model bert-base training S=%d vocab=%d layers=%d f32 ops=%d '
+          'persistable_vars=%d build_s=%.1f' % (
+              BERT['max_len'], BERT['vocab'], BERT['n_layer'],
+              len(train_main.global_block().ops),
+              sum(v.persistable for v in train_main.list_vars()),
+              time.perf_counter() - t0))
+    train_exe, train_scope, train_feed, train_counts = phase_bert_training(
+        train_main, train_startup, train_loss)
+    _profile(lambda: train_exe.run(train_main, feed=train_feed,
+                                   fetch_list=[train_loss], scope=train_scope,
+                                   return_numpy=False),
+             'bert training batch=%d S=%d' % (TRAIN_BATCH, BERT['max_len']),
+             'steps')
+    del train_scope, train_feed  # the trained parameters and Adam state
+    phase_training_gpu_vs_cpu(train_main, train_startup, train_loss)
+    torch.cuda.empty_cache()
     totals = phase_kernel_times()
     k2_rows = phase_flash_times()
+    bwd_rows = phase_flash_bwd_times()
     phase_profile(pred, images)
     phase_bert_profile(bert_pred, bert_feeds)
 
+    paths = {'resnet50_serving': resnet_counts, 'bert_serving': bert_counts,
+             'bert_training': train_counts}
+
+    def by_path(name):
+        return {path: counts[name] for path, counts in paths.items()}
+
     k2 = k2_rows[(BERT_BATCHES[-1], 'float32')]
+    bwd_shape = [TRAIN_BATCH, BERT['n_head'], BERT['max_len'],
+                 BERT['d_model'] // BERT['n_head']]
+    bwd_entries = []
+    for name, replaces, grads in (
+            ('flash_attn_bwd_dkv',
+             'jax/experimental/pallas/ops/tpu/flash_attention.py:941',
+             ('dk', 'dv')),
+            ('flash_attn_bwd_dq',
+             'jax/experimental/pallas/ops/tpu/flash_attention.py:1287',
+             ('dq',))):
+        row = bwd_rows[name, 'float32']
+        bwd_entries.append({
+            'name': name, 'route': 'cuda',
+            'source': 'paddle_tpu_torch/csrc/flash_attn_bwd.cu',
+            'replaces': replaces,
+            'launches': train_counts[name],
+            'launches_by_path': by_path(name),
+            'max_abs_err': max(bwd_abs[g, torch.float32] for g in grads),
+            'max_abs_err_bf16': max(bwd_abs[g, torch.bfloat16]
+                                    for g in grads),
+            'shape': bwd_shape,
+            'ms': row['ms'], 'plain_ms': row['plain_ms'],
+            'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
+            'library_ms': row['library_ms'],
+            'library_call': 'scaled_dot_product_attention backward '
+                            '(dq, dk and dv together)',
+            'by_dtype': {dt: bwd_rows[name, dt]
+                         for dt in ('float32', 'bfloat16')}})
     print('total seconds %.1f' % (time.perf_counter() - t_start))
     print(json.dumps({'kernels': [{
         'name': 'bn_apply', 'route': 'cuda',
         'source': 'paddle_tpu_torch/csrc/bn_apply.cu',
         'replaces': 'paddle_tpu/ops/pallas_bn.py:40',
-        'launches': launches,
+        'launches': resnet_counts['bn_apply'],
+        'launches_by_path': by_path('bn_apply'),
         'max_abs_err': max_abs[torch.float32],
         'max_abs_err_bf16': max_abs[torch.bfloat16],
         'ms': totals['ms'], 'plain_ms': totals['plain_ms'],
@@ -598,15 +975,18 @@ def main():
         'name': 'flash_attn_fwd', 'route': 'cuda',
         'source': 'paddle_tpu_torch/csrc/flash_attn_fwd.cu',
         'replaces': 'jax/experimental/pallas/ops/tpu/flash_attention.py:589',
-        'launches': k2_launches,
+        'launches': bert_counts['flash_attn_fwd'],
+        'launches_by_path': by_path('flash_attn_fwd'),
         'max_abs_err': k2_abs[torch.float32],
         'max_abs_err_bf16': k2_abs[torch.bfloat16],
+        'max_abs_err_lse': bwd_abs['lse', torch.float32],
         'shape': [BERT_BATCHES[-1], BERT['n_head'], BERT['max_len'],
                   BERT['d_model'] // BERT['n_head']],
         'ms': k2['ms'], 'plain_ms': k2['plain_ms'],
         'bound_ms': k2['bound_ms'], 'bound_by': k2['bound_by'],
         'library_ms': k2['library_ms'],
-        'by_shape': {'%d/%s' % key: row for key, row in k2_rows.items()}}]}))
+        'by_shape': {'%d/%s' % key: row for key, row in k2_rows.items()}}]
+        + bwd_entries}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 """paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu.
 
 The same Fluid API as paddle_tpu (Program/Block/Operator built by
-`layers.*`, run by an Executor, served by `inference.Predictor`), run
-eagerly with torch on an NVIDIA GPU. It imports torch and numpy, never jax
+`layers.*`, trained through `optimizer.*.minimize` and an Executor, served
+by `inference.Predictor`), run eagerly with torch on an NVIDIA GPU. It imports torch and numpy, never jax
 and nothing of paddle_tpu, which stays in the repository as the reference.
 
     import paddle_tpu_torch as fluid
@@ -22,6 +22,6 @@ from .framework import (Program, Block, Operator, Variable, Parameter,  # noqa
 from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
 from .executor import Executor  # noqa: F401
 from . import core, initializer, inference, io, layers, unique_name  # noqa
-from . import weights  # noqa: F401
+from . import backward, optimizer, weights  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
 from .initializer import Constant, Uniform, Normal, Xavier, MSRA  # noqa

@@ -7,6 +7,14 @@ the Executor seeds with the persistable state and the feeds. There is no
 tracing and no compile step; ops that write persistable vars rebind their
 names in the environment, and the Executor commits those writes to the
 Scope after the block has run.
+
+Gradient ops: append_backward (backward.py) emits `<type>_grad` ops. One
+with no lowering of its own runs `_lower_generic_grad`, the counterpart of
+paddle_tpu/core/lowering.py:236-314: it re-runs the forward lowering on
+the differentiated inputs under autograd and takes torch.autograd.grad
+with the output cotangents. Where JAX's XLA folds the recomputed forward
+into the original one, here it runs again: a grad op costs its forward
+once more.
 """
 from __future__ import annotations
 
@@ -42,9 +50,13 @@ class OpCtx(object):
         """A torch.Generator on the op's device for the op's random draws:
         seeded from the program's random_seed and the op's own 'seed' attr,
         or its uid when that is 0, so the same program draws the same
-        numbers on every run on the same device type."""
-        op_seed = int(self.attrs.get('seed', 0) or
-                      self.attrs.get('_op_uid', 0)) & 0x7FFFFFFF
+        numbers on every run on the same device type. A grad op takes its
+        forward op's seed, then its forward op's uid, as JAX's rule does
+        (paddle_tpu/core/lowering.py:60-70), so a recomputed forward draws
+        what the forward drew."""
+        a = self.attrs
+        op_seed = int(a.get('seed', 0) or a.get('_fwd_seed', 0) or
+                      a.get('_fwd_op_uid', a.get('_op_uid', 0))) & 0x7FFFFFFF
         seed = (int(self.interp.program.random_seed) * 0x9E3779B1
                 + op_seed) & 0x7FFFFFFFFFFFFFFF
         g = torch.Generator(device=self.device)
@@ -87,8 +99,11 @@ class Interpreter(object):
             return
         d = registry.get(t)
         if d is None:
-            raise TraceError("No lowering registered for op type %r (%s)" %
-                             (t, op))
+            fwd = registry.get(t[:-5]) if t.endswith('_grad') else None
+            if fwd is None:
+                raise TraceError("No lowering registered for op type %r (%s)"
+                                 % (t, op))
+            return self._lower_generic_grad(op, block, fwd)
         ins = {slot: [self.read(n, op) if n else None for n in names]
                for slot, names in op.inputs.items()}
         outs = d.lower(OpCtx(self, op, block), ins) or {}
@@ -100,3 +115,51 @@ class Interpreter(object):
                 if n and v is not None:
                     self.env[n] = v
                     self.written.add(n)
+
+    # Generic autograd-derived gradient lowering. The grad op's attrs (see
+    # backward.py): '_fwd_inputs' / '_fwd_outputs' {slot: [names]} of the
+    # forward op, '_out_grad_map' {fwd output: grad var or ''},
+    # '_in_grad_map' {fwd input: grad var or ''}.
+    def _lower_generic_grad(self, op, block, fwd_def):
+        a = op.attrs
+        fwd_inputs, fwd_outputs = a['_fwd_inputs'], a['_fwd_outputs']
+        out_grad_map, in_grad_map = a['_out_grad_map'], a['_in_grad_map']
+
+        # names to differentiate with respect to (deduped, order-stable)
+        diff_names = []
+        for names in fwd_inputs.values():
+            for n in names:
+                if n and in_grad_map.get(n) and n not in diff_names:
+                    diff_names.append(n)
+        if not diff_names:
+            return
+        env = {n: self.read(n, op) for names in fwd_inputs.values()
+               for n in names if n}
+
+        with torch.enable_grad():
+            leaves = [env[n].detach().requires_grad_() for n in diff_names]
+            env.update(zip(diff_names, leaves))
+            ins = {slot: [env[n] if n else None for n in names]
+                   for slot, names in fwd_inputs.items()}
+            outs = fwd_def.lower(OpCtx(self, op, block), ins) or {}
+            primals, cots = [], []
+            for slot, names in fwd_outputs.items():
+                for n, p in zip(names, outs.get(slot) or ()):
+                    gname = out_grad_map.get(n, '') if n else ''
+                    if (p is None or not gname or gname not in self.env
+                            or not p.requires_grad):
+                        continue  # a zero cotangent adds nothing
+                    g = self.env[gname].to(p.dtype)
+                    if g.shape != p.shape:
+                        g = (g.reshape(p.shape) if g.numel() == p.numel()
+                             else g.expand(p.shape))
+                    primals.append(p)
+                    cots.append(g)
+            grads = (torch.autograd.grad(primals, leaves, cots,
+                                         allow_unused=True)
+                     if primals else [None] * len(leaves))
+
+        for n, leaf, g in zip(diff_names, leaves, grads):
+            self.env[in_grad_map[n]] = (torch.zeros_like(leaf) if g is None
+                                        else g)
+            self.written.add(in_grad_map[n])

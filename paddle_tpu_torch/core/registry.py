@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ..framework import convert_dtype, to_torch_dtype
+from ..framework import GRAD_SUFFIX, convert_dtype, to_torch_dtype
 
 # probe value substituted for -1 dims during meta-tensor shape inference;
 # any output dim that is a multiple of it maps back to -1.
@@ -102,6 +102,8 @@ def infer_shape(op, block):
     """Infer and assign output var shapes/dtypes for a freshly appended op."""
     d = get(op.type)
     if d is None:
+        if op.type.endswith('_grad'):
+            _infer_grad_shape(op, block)
         return  # feed/fetch and unknown ops keep their declared shapes
     if d.infer_shape is not None:
         d.infer_shape(op, block)
@@ -148,3 +150,18 @@ def _generic_infer_shape(op, block, d):
                 continue
             v.shape = tuple(_unprobe_dim(s, had_probe) for s in t.shape)
             v.dtype = convert_dtype(t.dtype)
+
+
+def _infer_grad_shape(op, block):
+    """A generic grad op's outputs take the shape and dtype of the forward
+    vars they are the gradients of (paddle_tpu/core/registry.py:201): the
+    name up to '@GRAD' names the forward var."""
+    for names in op.outputs.values():
+        for n in names:
+            gv = block._find_var_recursive(n) if n else None
+            if gv is None or gv.shape is not None:
+                continue
+            fv = block._find_var_recursive(n.split(GRAD_SUFFIX)[0])
+            if fv is not None:
+                gv.shape = fv.shape
+                gv.dtype = fv.dtype

@@ -34,6 +34,11 @@
 //   are skipped. Query rows past Sq are computed and not written.
 // - O is written once, divided by l, in the input's dtype. The [Sq, Sk]
 //   scores never leave the SM.
+// - With a non-null lse, each query row's log-sum-exp of the scaled scores,
+//   ln(sum_j exp(scale * s_ij)) = (m + log2 l) * ln 2, is written as f32
+//   [B, H, Sq], contiguous: the residual the backward kernels
+//   (flash_attn_bwd.cu) recompute P from, the port's form of the l and m
+//   that JAX's _flash_attention_fwd saves (:246-251). Serving passes null.
 // Shared memory: 44 KB (D <= 32), 68 KB (D <= 64), 118 KB (D <= 128), so the
 // launch raises the dynamic shared-memory limit first.
 //
@@ -51,6 +56,7 @@ constexpr int kBlockN = 64;    // keys per tile
 constexpr int kThreads = 256;  // 16 x 16
 constexpr int kLdm = kBlockM + 4;  // row length of the transposed tiles
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Strides {
   long long b, h, s, d;  // in elements
@@ -105,9 +111,10 @@ __device__ __forceinline__ void stage(const T* __restrict__ x, Strides st,
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, Strides sq,
-                     Strides sk, Strides sv, Strides so, int H, int Sq,
-                     int Sk, int d, float scale_log2, int causal) {
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, Strides sq, Strides sk,
+                     Strides sv, Strides so, int H, int Sq, int Sk, int d,
+                     float scale_log2, int causal) {
   constexpr int kCols = D / 16;  // accumulator columns per thread
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -239,6 +246,12 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 4; ++i) {
     const int row = m0 + ty * 4 + i;
     if (row >= Sq) continue;
+    if (lse != nullptr && tx == 0) {
+      // every row keeps a key (the wrapper refuses causal Sq > Sk and Sk = 0),
+      // so l > 0 and m is finite; the guard keeps a row without one finite
+      lse[bh * Sq + row] =
+          l_run[i] > 0.f ? (m_run[i] + log2f(l_run[i])) * kLn2 : 0.f;
+    }
     const float inv = 1.f / l_run[i];
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
@@ -250,8 +263,9 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const Strides* st, int B, int H, int Sq, int Sk, int d,
-                   float scale, int causal, cudaStream_t stream) {
+                   float* lse, const Strides* st, int B, int H, int Sq,
+                   int Sk, int d, float scale, int causal,
+                   cudaStream_t stream) {
   const int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -260,26 +274,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((Sq + kBlockM - 1) / kBlockM, B * H);
   flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), st[0], st[1], st[2],
-      st[3], H, Sq, Sk, d, scale * kLog2e, causal);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, st[0], st[1],
+      st[2], st[3], H, Sq, Sk, d, scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_dim(const void* q, const void* k, const void* v, void* o,
-                       const Strides* st, int B, int H, int Sq, int Sk, int d,
-                       float scale, int causal, cudaStream_t stream) {
+                       float* lse, const Strides* st, int B, int H, int Sq,
+                       int Sk, int d, float scale, int causal,
+                       cudaStream_t stream) {
   if (d <= 32) {
-    return launch<T, 32>(q, k, v, o, st, B, H, Sq, Sk, d, scale, causal,
+    return launch<T, 32>(q, k, v, o, lse, st, B, H, Sq, Sk, d, scale, causal,
                          stream);
   }
   if (d <= 64) {
-    return launch<T, 64>(q, k, v, o, st, B, H, Sq, Sk, d, scale, causal,
+    return launch<T, 64>(q, k, v, o, lse, st, B, H, Sq, Sk, d, scale, causal,
                          stream);
   }
   if (d <= 128) {
-    return launch<T, 128>(q, k, v, o, st, B, H, Sq, Sk, d, scale, causal,
-                          stream);
+    return launch<T, 128>(q, k, v, o, lse, st, B, H, Sq, Sk, d, scale,
+                          causal, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -287,11 +302,13 @@ cudaError_t launch_dim(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // strides: 16 element strides, (b, h, s, d) of q, k, v and o in that order.
+// lse: null, or f32 [B, H, Sq] contiguous for the rows' log-sum-exp.
 // dtype: 0 = float32, 1 = bfloat16. Requires 1 <= d <= 128, Sk >= 1, and
 // Sq <= Sk when causal (the Python wrapper checks).
 extern "C" int ptpu_flash_attn_fwd(const void* q, const void* k, const void* v,
-                                   void* o, const long long* strides, int B,
-                                   int H, int Sq, int Sk, int d, float scale,
+                                   void* o, float* lse,
+                                   const long long* strides, int B, int H,
+                                   int Sq, int Sk, int d, float scale,
                                    int causal, int dtype, int device,
                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -304,12 +321,12 @@ extern "C" int ptpu_flash_attn_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      err = launch_dim<float>(q, k, v, o, st, B, H, Sq, Sk, d, scale, causal,
-                              s);
+      err = launch_dim<float>(q, k, v, o, lse, st, B, H, Sq, Sk, d, scale,
+                              causal, s);
       break;
     case 1:
-      err = launch_dim<__nv_bfloat16>(q, k, v, o, st, B, H, Sq, Sk, d, scale,
-                                      causal, s);
+      err = launch_dim<__nv_bfloat16>(q, k, v, o, lse, st, B, H, Sq, Sk, d,
+                                      scale, causal, s);
       break;
     default:
       err = cudaErrorInvalidValue;

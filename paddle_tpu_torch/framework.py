@@ -1,10 +1,11 @@
 """Graph-program front end: Program / Block / Operator / Variable, Places.
 
 The port's own copy of paddle_tpu/framework.py, trimmed to what the serving
-slice needs. The Program is the IR: ops carry a type, input/output var names
-per slot and attrs, and shapes/dtypes are inferred when an op is appended
-(core/registry.py runs the op's torch lowering on 'meta' tensors). The
-Executor interprets block 0 eagerly with torch on the device a Place names.
+and training slices need. The Program is the IR: ops carry a type,
+input/output var names per slot and attrs, and shapes/dtypes are inferred
+when an op is appended (core/registry.py runs the op's torch lowering on
+'meta' tensors). The Executor interprets block 0 eagerly with torch on the
+device a Place names.
 """
 from __future__ import annotations
 
@@ -54,6 +55,18 @@ def convert_dtype(dtype):
 def to_torch_dtype(dtype):
     """The torch dtype a declared var dtype is carried in."""
     return _TORCH_DTYPE[convert_dtype(dtype)]
+
+
+def is_float_dtype(dtype):
+    return convert_dtype(dtype) in ('float16', 'bfloat16', 'float32', 'float64')
+
+
+# gradient var naming (ref: fluid/framework.py grad_var_name)
+GRAD_SUFFIX = '@GRAD'
+
+
+def grad_var_name(name):
+    return name + GRAD_SUFFIX
 
 
 class Variable(object):

@@ -20,7 +20,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
 
-SOURCES = ('bn_apply', 'flash_attn_fwd')
+SOURCES = ('bn_apply', 'flash_attn_fwd', 'flash_attn_bwd')
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')

@@ -1,7 +1,7 @@
 """Neural-network layer functions (ref: python/paddle/fluid/layers/nn.py;
-paddle_tpu/layers/nn.py:25,52,71,182,234,275,510,867,900,1955).
+paddle_tpu/layers/nn.py:25,52,71,182,234,275,388,510,842,867,900,1955).
 
-The port's copies of the layers the serving slice needs. Each appends the
+The port's copies of the layers the serving and training slices need. Each appends the
 same ops with the same attrs and names as its paddle_tpu counterpart, so a
 model built under a fresh unique_name guard gives the same Program, op for
 op, in both packages.
@@ -16,7 +16,8 @@ from ..param_attr import ParamAttr
 
 __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
            'relu', 'elementwise_add', 'reshape', 'transpose',
-           'fused_multihead_attention']
+           'fused_multihead_attention', 'softmax_with_cross_entropy',
+           'reduce_sum']
 
 
 def _single(v, n):
@@ -239,4 +240,32 @@ def fused_multihead_attention(q, k, v, causal=False, scale=1.0,
         attrs={'causal': causal, 'scale': scale,
                'sequence_parallel': sequence_parallel}, infer_shape=False)
     out.shape = q.shape  # same [B, H, S, D] as the query
+    return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False):
+    helper = LayerHelper('softmax_with_cross_entropy')
+    softmax_out = helper.create_variable_for_type_inference(logits.dtype)
+    loss = helper.create_variable_for_type_inference(logits.dtype)
+    helper.append_op(
+        type='softmax_with_cross_entropy',
+        inputs={'Logits': logits, 'Label': label},
+        outputs={'Softmax': softmax_out, 'Loss': loss},
+        attrs={'soft_label': soft_label, 'ignore_index': ignore_index})
+    if return_softmax:
+        return loss, softmax_out
+    return loss
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper('reduce_sum', name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if dim is not None and not isinstance(dim, (list, tuple)):
+        dim = [dim]
+    helper.append_op(
+        type='reduce_sum', inputs={'X': input}, outputs={'Out': out},
+        attrs={'dim': dim if dim is not None else [0],
+               'keep_dim': keep_dim, 'reduce_all': dim is None})
     return out

@@ -1,12 +1,17 @@
-"""BERT encoder with its masked-LM head, built on the port's layers: the
-forward of models/bert.py:17-66 (build_bert_pretrain), from the token and
-segment feeds to the [B*S, vocab] logits that feed its loss.
+"""BERT encoder pretraining with its masked-LM head, built on the port's
+layers: models/bert.py:17-66 (build_bert_pretrain).
 
-It appends the same layers in the same order as the JAX builder, so under
-a fresh unique_name.guard() the parameters carry the same names (word_emb,
-sent_emb, pos_emb, fc_N.w_0, fc_N.b_0, layer_norm_N.w_0, layer_norm_N.b_0)
-and a directory saved by either package serves in the other. Dropout,
-the masked-LM loss and Adam.minimize come with the training slice.
+`build_bert_pretrain` appends the same layers in the same order as the JAX
+builder, the masked-LM loss and Adam.minimize included, so under a fresh
+unique_name.guard() both packages build the same training program, op for
+op, with the same persistable names (word_emb, sent_emb, pos_emb,
+fc_N.w_0, fc_N.b_0, layer_norm_N.w_0, layer_norm_N.b_0, learning_rate_1,
+<param>_moment1_0, ...). `bert_mlm_logits` builds the forward alone, to
+the [B*S, vocab] logits, for serving; a directory saved by either package
+serves in the other.
+
+Only dropout 0 is ported: dropout > 0 raises (it needs the dropout op and
+the composed attention branch, which come with the dropout slice).
 """
 from __future__ import annotations
 
@@ -15,14 +20,9 @@ import paddle_tpu_torch as fluid
 from .transformer import encoder_layer
 
 
-def bert_mlm_logits(vocab=30522, max_len=128, d_model=768, d_ff=3072,
-                    n_head=12, n_layer=12, type_vocab=2):
-    """Returns (feeds, logits2d): feeds = [(name, shape, dtype)] of the two
-    int64 inputs, logits2d the [-1, vocab] masked-LM logits."""
-    S = max_len
-    tok = fluid.layers.data(name='tok_ids', shape=[S], dtype='int64')
-    seg = fluid.layers.data(name='seg_ids', shape=[S], dtype='int64')
-
+def _mlm_logits(tok, seg, vocab, S, d_model, d_ff, n_head, n_layer,
+                type_vocab):
+    """Embeddings, encoder and MLM head: [B*S, vocab] logits."""
     def emb(ids, size, name):
         e = fluid.layers.embedding(
             ids, size=size,
@@ -50,6 +50,52 @@ def bert_mlm_logits(vocab=30522, max_len=128, d_model=768, d_ff=3072,
     h = fluid.layers.layer_norm(h, begin_norm_axis=2)
     logits = fluid.layers.fc(h, size=vocab, num_flatten_dims=2,
                              bias_attr=False)
-    logits2d = fluid.layers.reshape(logits, shape=[-1, vocab])
+    return fluid.layers.reshape(logits, shape=[-1, vocab])
+
+
+def bert_mlm_logits(vocab=30522, max_len=128, d_model=768, d_ff=3072,
+                    n_head=12, n_layer=12, type_vocab=2):
+    """Returns (feeds, logits2d): feeds = [(name, shape, dtype)] of the two
+    int64 inputs, logits2d the [-1, vocab] masked-LM logits."""
+    S = max_len
+    tok = fluid.layers.data(name='tok_ids', shape=[S], dtype='int64')
+    seg = fluid.layers.data(name='seg_ids', shape=[S], dtype='int64')
+    logits2d = _mlm_logits(tok, seg, vocab, S, d_model, d_ff, n_head,
+                           n_layer, type_vocab)
     feeds = [('tok_ids', (S,), 'int64'), ('seg_ids', (S,), 'int64')]
     return feeds, logits2d
+
+
+def build_bert_pretrain(vocab=30522, max_len=128, d_model=768, d_ff=3072,
+                        n_head=12, n_layer=12, type_vocab=2, dropout=0.1,
+                        lr=1e-4, checkpoints=None):
+    """Returns (feeds, avg_mlm_loss). feeds = [(name, shape, dtype)].
+
+    The masked-LM loss is the masked mean of softmax_with_cross_entropy
+    over the positions whose mlm_weights are non-zero; Adam(lr) minimizes
+    it. dropout > 0 raises (the dropout slice is not ported yet), and so
+    does any checkpoints value but None (remat is not ported yet)."""
+    if dropout:
+        raise NotImplementedError(
+            "build_bert_pretrain: dropout=%r needs the dropout op and the "
+            "composed attention branch, which come with the port's dropout "
+            "slice; pass dropout=0.0" % (dropout,))
+    S = max_len
+    tok = fluid.layers.data(name='tok_ids', shape=[S], dtype='int64')
+    seg = fluid.layers.data(name='seg_ids', shape=[S], dtype='int64')
+    mlm_lbl = fluid.layers.data(name='mlm_labels', shape=[S], dtype='int64')
+    mlm_w = fluid.layers.data(name='mlm_weights', shape=[S], dtype='float32')
+    logits2d = _mlm_logits(tok, seg, vocab, S, d_model, d_ff, n_head,
+                           n_layer, type_vocab)
+    lbl2d = fluid.layers.reshape(mlm_lbl, shape=[-1, 1])
+    loss = fluid.layers.softmax_with_cross_entropy(logits=logits2d,
+                                                   label=lbl2d)
+    w = fluid.layers.reshape(mlm_w, shape=[-1, 1])
+    # masked mean: only the masked positions contribute
+    avg_loss = fluid.layers.reduce_sum(loss * w) / (
+        fluid.layers.reduce_sum(w) + 1e-6)
+    fluid.optimizer.Adam(learning_rate=lr).minimize(
+        avg_loss, checkpoints=checkpoints or None)
+    feeds = [('tok_ids', (S,), 'int64'), ('seg_ids', (S,), 'int64'),
+             ('mlm_labels', (S,), 'int64'), ('mlm_weights', (S,), 'float32')]
+    return feeds, avg_loss

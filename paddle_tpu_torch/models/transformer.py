@@ -5,12 +5,12 @@ The port's copy of the encoder half of models/transformer.py:16-90
 _split_heads, _merge_heads, multi_head_attention, _residual_ln, ffn and
 encoder_layer, appending the same ops with the same names.
 
-multi_head_attention ports the fused branch only, the one an inference
-program takes (attention dropout 0, no additive mask): one
-fused_multihead_attention op. The composed branch needs matmul, softmax,
-dropout, cast and greater_than, which the port does not have yet; asking
-for it raises. decoder_layer, the embeddings and the training builders
-come with the training slice.
+multi_head_attention ports the fused branch only, the one a program with
+attention dropout 0 and no additive mask takes, for serving and training
+alike: one fused_multihead_attention op. The composed branch needs matmul,
+softmax, dropout, cast and greater_than, which the port does not have yet;
+asking for it raises, as does residual dropout. decoder_layer and the NMT
+builders are not ported yet.
 """
 from __future__ import annotations
 

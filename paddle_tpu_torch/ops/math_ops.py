@@ -1,6 +1,7 @@
-"""Elementwise, activation and matmul op lowerings
-(ref: operators/elementwise/, activation_op.cc, mul_op.cc;
-paddle_tpu/ops/math_ops.py:27,70,216)."""
+"""Elementwise, activation, matmul, reduction and loss op lowerings
+(ref: operators/elementwise/, activation_op.cc, mul_op.cc, reduce_ops/,
+sum_op.cc, softmax_with_cross_entropy_op.cc;
+paddle_tpu/ops/math_ops.py:27,70,216,262,306,368)."""
 from __future__ import annotations
 
 import numpy as np
@@ -25,14 +26,20 @@ def _bcast_y(x, y, axis):
     return y.reshape(shape)
 
 
-@register('elementwise_add')
-def _elementwise_add(ctx, ins):
-    x, y = ins['X'][0], ins['Y'][0]
-    out = x + _bcast_y(x, y, ctx.attr('axis', -1))
-    scale = ctx.attr('scale', None)  # fused scale (rare attr)
-    if scale not in (None, 1.0):
-        out = out * scale
-    return {'Out': [out]}
+def _elementwise(name, fn):
+    @register(name)
+    def _lower(ctx, ins, _fn=fn):
+        x, y = ins['X'][0], ins['Y'][0]
+        out = _fn(x, _bcast_y(x, y, ctx.attr('axis', -1)))
+        scale = ctx.attr('scale', None)  # fused scale (rare attr)
+        if scale not in (None, 1.0):
+            out = out * scale
+        return {'Out': [out]}
+
+
+_elementwise('elementwise_add', torch.add)
+_elementwise('elementwise_mul', torch.mul)
+_elementwise('elementwise_div', torch.div)
 
 
 @register('relu')
@@ -49,3 +56,49 @@ def _mul(ctx, ins):
     y2 = y.reshape(int(np.prod(y.shape[:yn])), int(np.prod(y.shape[yn:])))
     out = torch.matmul(x2, y2)
     return {'Out': [out.reshape(tuple(x.shape[:xn]) + tuple(y.shape[yn:]))]}
+
+
+@register('reduce_sum')
+def _reduce_sum(ctx, ins):
+    """Sum over `dim` (negative dims count from the end), or over every dim
+    with reduce_all, keeping the reduced dims with keep_dim."""
+    x = X(ins)
+    keep = bool(ctx.attr('keep_dim', False))
+    if ctx.attr('reduce_all', False):
+        dims = tuple(range(x.ndim))
+    else:
+        dims = ctx.attr('dim', [0])
+        dims = tuple(d % x.ndim for d in
+                     ([dims] if isinstance(dims, int) else dims))
+    return {'Out': [torch.sum(x, dim=dims, keepdim=keep)]}
+
+
+@register('sum')
+def _sum(ctx, ins):
+    """The sum of the X inputs: how append_backward adds the gradients of
+    a var read by several ops. Dense tensors only (no SelectedRows yet)."""
+    xs = [x for x in ins['X'] if x is not None]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {'Out': [out]}
+
+
+@register('softmax_with_cross_entropy')
+def _softmax_with_cross_entropy(ctx, ins):
+    """Loss = -log softmax(logits)[label] over the last dim, in f32 whatever
+    the logits' dtype; 0 where label == ignore_index. Hard labels ([N, 1]
+    or [N]) only: soft_label raises. Softmax comes back in the logits'
+    dtype."""
+    if ctx.attr('soft_label', False):
+        raise NotImplementedError("softmax_with_cross_entropy: soft_label is "
+                                  "not ported yet")
+    logits = ins['Logits'][0]
+    label = ins['Label'][0]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    lab = label.reshape(label.shape[:-1]) if label.shape[-1] == 1 else label
+    lab = lab.long()
+    ignore = lab == ctx.attr('ignore_index', -100)
+    picked = torch.gather(logp, -1, torch.where(ignore, 0, lab)[..., None])
+    loss = torch.where(ignore[..., None], 0.0, -picked)
+    return {'Softmax': [torch.exp(logp).to(logits.dtype)], 'Loss': [loss]}

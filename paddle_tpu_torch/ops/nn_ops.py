@@ -1,12 +1,12 @@
-"""NN op lowerings: conv2d, pool2d, batch_norm, layer_norm, lookup_table,
-fused_multihead_attention (ref: operators/conv_op.cc, pool_op.cc,
-batch_norm_op.cc, layer_norm_op.cc, lookup_table_op.cc;
-paddle_tpu/ops/nn_ops.py:29,186,334,388,480,684).
+"""NN op lowerings: conv2d, pool2d, batch_norm, layer_norm, lookup_table
+and its explicit grad, fused_multihead_attention (ref: operators/conv_op.cc,
+pool_op.cc, batch_norm_op.cc, layer_norm_op.cc, lookup_table_op.cc;
+paddle_tpu/ops/nn_ops.py:29,186,334,388,480,502,684).
 
 conv2d maps to torch.nn.functional.conv2d (cuDNN on the card), as the JAX
 package leaves it to XLA. The batch_norm apply runs through the hand-written
-kernel in ops/bn_apply.py, fused_multihead_attention through the one in
-ops/flash_attention.py.
+kernel in ops/bn_apply.py, fused_multihead_attention and its gradient
+through the ones in ops/flash_attention.py.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ import torch.nn.functional as F
 
 from ..core.registry import register
 from .bn_apply import bn_apply
-from .flash_attention import flash_attn_fwd
+from .flash_attention import FlashAttention, flash_attn_fwd
 from .math_ops import X
 
 
@@ -171,15 +171,57 @@ def _lookup_table(ctx, ins):
     return {'Out': [out.reshape(shape + (w.shape[1],))]}
 
 
-@register('fused_multihead_attention')
+@register('lookup_table_grad', no_grad=True)
+def _lookup_table_grad(ctx, ins):
+    """The explicit grad of lookup_table (paddle_tpu/ops/nn_ops.py:502),
+    dense branch: W@GRAD is a zero [V, D] table with each id's output
+    gradient row added at that id (ids in [-V, 0) count from the end, ids
+    outside [-V, V) add nothing), and nothing added for padding_idx.
+    is_sparse (a SelectedRows gradient) raises: SelectedRows is not ported
+    yet."""
+    if ctx.attr('is_sparse', False):
+        raise NotImplementedError(
+            "lookup_table_grad: is_sparse=True needs SelectedRows, which the "
+            "port does not have yet")
+    a = ctx.attrs
+    w_name = a['_fwd_inputs']['W'][0]
+    gname = a['_in_grad_map'].get(w_name, '')
+    if not gname:
+        return {}
+    env = ctx.interp.env
+    w = env[w_name]
+    n = w.shape[0]
+    flat = env[a['_fwd_inputs']['Ids'][0]].reshape(-1).long()
+    g_out = env.get(a['_out_grad_map'].get(a['_fwd_outputs']['Out'][0], ''))
+    dense = torch.zeros_like(w)
+    if g_out is None:
+        return {'IN@GRAD': [dense]}
+    idx = torch.where(flat < 0, flat + n, flat)
+    keep = (idx >= 0) & (idx < n)
+    pad = ctx.attr('padding_idx', -1)
+    if pad is not None and pad != -1:
+        keep &= flat != (pad + n if pad < 0 else pad)
+    gv = g_out.reshape(flat.shape[0], w.shape[1]).to(w.dtype)
+    dense.index_add_(0, idx[keep], gv[keep])
+    return {'IN@GRAD': [dense]}
+
+
+@register('fused_multihead_attention', diff_inputs=('Q', 'K', 'V'))
 def _fused_multihead_attention(ctx, ins):
     """Q, K, V [B, H, S, D] -> softmax(scale·Q·Kᵀ [+ causal mask])·V, the
-    flash-attention kernel on every CUDA tensor. sequence_parallel takes
+    flash-attention kernel on every CUDA tensor. Under autograd (the generic
+    grad op re-running this lowering) it goes through FlashAttention, whose
+    forward keeps the rows' log-sum-exp and whose backward runs the two
+    backward kernels; otherwise (serving, the training forward) the plain
+    forward kernel, which writes no log-sum-exp. sequence_parallel takes
     the single-device semantics, as the JAX lowering does when no
     sequence-parallel mesh is present; the TPU's measured block and
     kernel-selection policy (_flash_policy, PTPU_FLASH_ATTN) is not
     carried over."""
     q, k, v = ins['Q'][0], ins['K'][0], ins['V'][0]
-    return {'Out': [flash_attn_fwd(q, k, v,
-                                   causal=bool(ctx.attr('causal', False)),
-                                   scale=float(ctx.attr('scale', 1.0)))]}
+    causal = bool(ctx.attr('causal', False))
+    scale = float(ctx.attr('scale', 1.0))
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return {'Out': [FlashAttention.apply(q, k, v, causal, scale)]}
+    return {'Out': [flash_attn_fwd(q, k, v, causal=causal, scale=scale)]}

@@ -1,10 +1,16 @@
-"""Carry parameters from numpy arrays into the port's Scope.
+"""Carry a program's persistable state between numpy arrays and the
+port's Scope.
 
-The JAX package's scope holds its parameters as jax Arrays under the names
-unique_name gave them; `np.asarray` of each is the hand-over format. Both
-packages name a model's variables alike when it is built under a fresh
-`unique_name.guard()`, so the arrays of a JAX-initialized model load into
-the same model built with the port's layers.
+The JAX package's scope holds its persistable vars as jax Arrays under the
+names unique_name gave them; `np.asarray` of each is the hand-over format.
+Both packages name a model's variables alike when it is built under a
+fresh `unique_name.guard()`, so the arrays of a JAX-initialized model load
+into the same model built with the port's layers. The state is every
+persistable var, not only the parameters: a training program's Adam
+moments (`<param>_moment1_0`, `<param>_moment2_0`), beta powers
+(`<param>_beta1_pow_acc_0`, `<param>_beta2_pow_acc_0`) and learning-rate
+var (`learning_rate_<n>`) come across too, so a JAX scope taken
+mid-training continues in the port. `state_to_numpy` is the way back.
 """
 from __future__ import annotations
 
@@ -39,3 +45,15 @@ def params_from_numpy(params, program, scope=None, device=None):
                                 want))
     for name in persist:
         scope.set(name, torch.from_numpy(np.array(params[name])).to(device))
+
+
+def state_to_numpy(program, scope=None):
+    """{name: np.ndarray} of every persistable var of `program` that
+    `scope` (default: the global scope) holds, copied to the host."""
+    scope = scope if scope is not None else global_scope()
+    out = {}
+    for v in program.list_vars():
+        t = scope.get(v.name) if v.persistable else None
+        if t is not None:
+            out[v.name] = t.detach().cpu().numpy()
+    return out

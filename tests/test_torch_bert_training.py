@@ -1,0 +1,163 @@
+"""The BERT training slice as a whole, the port held against paddle_tpu on
+the CPU: models.bert.build_bert_pretrain(dropout=0.0) at 2 layers,
+d_model 64, 4 heads, S=128 and a vocab of 97, built by both packages under
+a fresh unique_name.guard().
+
+The programs must have the same ops in the same order and the same
+persistable names. paddle_tpu initializes its program; weights.py carries
+the whole persistable state (parameters, Adam moments and beta powers, the
+learning rate) into the port, and both take Adam steps on the same feeds.
+Tolerances (f32 on both sides, the same arithmetic summed in other
+orders):
+- per-step losses: rtol 1e-5;
+- gradients fetched as `<param>@GRAD`: 1e-5 of each tensor's largest
+  value;
+- parameters after the steps: 1e-2 of the most that Adam can move an
+  element in those steps (steps · lr), i.e. the updates agree to 1%. Adam
+  divides each gradient by its own running scale, so a gradient element
+  that is rounding noise in both packages can take a different step; the
+  largest relative gap seen here was under 5e-6 of a tensor's largest
+  value.
+"""
+import numpy as np
+import pytest
+
+import paddle_tpu as fluid
+from models import bert as jax_bert
+
+import paddle_tpu_torch as ptt
+from paddle_tpu_torch.models import bert as ptt_bert
+
+CFG = dict(vocab=97, max_len=128, d_model=64, d_ff=128, n_head=4, n_layer=2,
+           dropout=0.0)
+LR = 1e-4
+STEPS = 4
+GRADS = ['word_emb@GRAD', 'pos_emb@GRAD', 'fc_0.w_0@GRAD',
+         'layer_norm_0.w_0@GRAD', 'fc_11.b_0@GRAD']
+
+
+def _feed(seed, batch=2):
+    rng = np.random.RandomState(seed)
+    s, v = CFG['max_len'], CFG['vocab']
+    return {'tok_ids': rng.randint(0, v, (batch, s)).astype(np.int64),
+            'seg_ids': rng.randint(0, 2, (batch, s)).astype(np.int64),
+            'mlm_labels': rng.randint(0, v, (batch, s)).astype(np.int64),
+            'mlm_weights': (rng.rand(batch, s) < 0.15).astype(np.float32)}
+
+
+def _build(pkg, builder):
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, startup), pkg.unique_name.guard():
+        feeds, loss = builder.build_bert_pretrain(lr=LR, **CFG)
+    return main, startup, feeds, loss
+
+
+@pytest.fixture(scope='module')
+def jax_run():
+    """paddle_tpu's program, its initial state, and per step: the loss and
+    GRADS after it; then its final state."""
+    main, startup, feeds, loss = _build(fluid, jax_bert)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CPUPlace())
+    steps = []
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        state = _jax_state(main, scope)
+        for i in range(STEPS):
+            out = exe.run(main, feed=_feed(i), fetch_list=[loss] + GRADS)
+            steps.append([np.asarray(o) for o in out])
+        final = _jax_state(main, scope)
+    return dict(main=main, feeds=feeds, state=state, steps=steps,
+                final=final)
+
+
+def _jax_state(main, scope):
+    return {v.name: np.array(scope.find_var(v.name).get_tensor())
+            for v in main.list_vars() if v.persistable}
+
+
+def test_same_program_in_both_packages(jax_run):
+    main, _, feeds, loss = _build(ptt, ptt_bert)
+    jmain = jax_run['main']
+    assert [op.type for op in main.global_block().ops] == \
+        [op.type for op in jmain.global_block().ops]
+    for a, b in zip(main.global_block().ops, jmain.global_block().ops):
+        assert (a.inputs, a.outputs) == (b.inputs, b.outputs), a.type
+    assert sorted(v.name for v in main.list_vars() if v.persistable) == \
+        sorted(jax_run['state'])
+    assert feeds == jax_run['feeds']
+    assert loss.shape == (1,)
+    types = {op.type for op in main.global_block().ops}
+    assert {'fused_multihead_attention_grad', 'lookup_table_grad', 'adam',
+            'softmax_with_cross_entropy_grad', 'sum'} <= types
+    assert sum(op.type == 'fused_multihead_attention_grad'
+               for op in main.global_block().ops) == CFG['n_layer']
+
+
+def _port_steps(state, first_step, n_steps):
+    main, _, _, loss = _build(ptt, ptt_bert)
+    scope = ptt.Scope()
+    ptt.weights.params_from_numpy(state, main, scope)
+    exe = ptt.Executor(ptt.CPUPlace())
+    steps = [exe.run(main, feed=_feed(i), fetch_list=[loss] + GRADS,
+                     scope=scope)
+             for i in range(first_step, first_step + n_steps)]
+    return steps, ptt.weights.state_to_numpy(main, scope)
+
+
+def _params_close(got, want, n_steps):
+    assert sorted(got) == sorted(want)
+    atol = 1e-2 * n_steps * LR
+    for name in want:
+        np.testing.assert_allclose(got[name], want[name], rtol=0, atol=atol,
+                                   err_msg=name)
+
+
+def test_training_steps_match_jax(jax_run):
+    steps, final = _port_steps(jax_run['state'], 0, STEPS)
+    losses = [float(s[0][0]) for s in steps]
+    want = [float(s[0][0]) for s in jax_run['steps']]
+    np.testing.assert_allclose(losses, want, rtol=1e-5)
+    assert losses[-1] < losses[0]
+    # the gradients of step 1, taken from the same initial state
+    for name, got, w in zip(GRADS, steps[0][1:], jax_run['steps'][0][1:]):
+        assert got.shape == w.shape, name
+        np.testing.assert_allclose(got, w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max(), err_msg=name)
+    _params_close(final, jax_run['final'], STEPS)
+    # Adam's own state moved too: beta powers after STEPS updates
+    np.testing.assert_allclose(final['word_emb_beta1_pow_acc_0'],
+                               [0.9 ** (STEPS + 1)], rtol=1e-6)
+
+
+def test_state_taken_mid_training_continues_in_the_port(jax_run):
+    """paddle_tpu trains two steps; its whole state (moments, beta powers,
+    learning rate included) goes to the port, which takes the last two."""
+    main, startup, _, loss = _build(fluid, jax_bert)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CPUPlace())
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        for name, arr in jax_run['state'].items():
+            scope.var(name).get_tensor().set(arr)
+        for i in range(2):
+            exe.run(main, feed=_feed(i), fetch_list=[loss])
+        mid = _jax_state(main, scope)
+    assert float(mid['fc_0.w_0_beta2_pow_acc_0'][0]) == \
+        pytest.approx(0.999 ** 3)
+    steps, final = _port_steps(mid, 2, STEPS - 2)
+    np.testing.assert_allclose([float(s[0][0]) for s in steps],
+                               [float(s[0][0]) for s in
+                                jax_run['steps'][2:]], rtol=1e-5)
+    _params_close(final, jax_run['final'], STEPS)
+
+
+def test_unported_options_raise():
+    with ptt.program_guard(ptt.Program(), ptt.Program()), \
+            ptt.unique_name.guard():
+        with pytest.raises(NotImplementedError, match='dropout slice'):
+            ptt_bert.build_bert_pretrain(**dict(CFG, dropout=0.1))
+    with ptt.program_guard(ptt.Program(), ptt.Program()), \
+            ptt.unique_name.guard():
+        with pytest.raises(NotImplementedError, match='checkpoints'):
+            ptt_bert.build_bert_pretrain(checkpoints=True, **CFG)

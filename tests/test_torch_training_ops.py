@@ -1,0 +1,326 @@
+"""The training slice's ops, each as a one-op program with its gradient op,
+in both packages on the CPU.
+
+Each case builds the forward op over data vars and, where it has inputs to
+differentiate, the `<type>_grad` op that append_backward would emit (the
+grad-op convention of backward.py: forward slots, 'Out@GRAD@ALL',
+'IN@GRAD', the _fwd_* and _in/_out_grad_map attrs), with the output
+cotangents fed as `<out>@GRAD` data vars. paddle_tpu derives a generic
+grad op's lowering with jax.vjp of its forward lowering
+(paddle_tpu/core/lowering.py:236); the port re-runs its own forward
+lowering under torch autograd (paddle_tpu_torch/core/lowering.py). The
+explicit lookup_table_grad and one adam step run as themselves. The same
+numpy inputs and cotangents go to both, and the forward outputs and the
+gradients are compared.
+
+Tolerance: rtol 1e-5 with an absolute floor of 1e-6 of the largest value
+compared: f32 on both sides, the same arithmetic summed in other orders.
+"""
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as fluid
+import paddle_tpu_torch as ptt
+
+
+def _r(*shape, seed=0, low=None):
+    rng = np.random.RandomState(seed + 7 * len(shape) + sum(shape))
+    if low is not None:
+        return rng.uniform(low, low + 1.0, shape).astype(np.float32)
+    return rng.randn(*shape).astype(np.float32)
+
+
+def _ids(*shape, high=10, seed=0):
+    return np.random.RandomState(seed).randint(0, high, shape).astype(np.int64)
+
+
+def _case(type, inputs, outputs, attrs=None, diff=(), cot=None):
+    """diff: input names to differentiate; cot: output slots that get a
+    cotangent (default: every output slot, when diff is not empty)."""
+    if cot is None:
+        cot = list(outputs) if diff else []
+    return dict(type=type, inputs=inputs, outputs=outputs,
+                attrs=dict(attrs or {}), diff=list(diff), cot=list(cot))
+
+
+def _lookup_grad_case(ids, padding_idx):
+    return _case('lookup_table',
+                 {'Ids': ('ids', ids), 'W': ('w', _r(10, 4, seed=8))},
+                 {'Out': 'out'},
+                 {'is_sparse': False, 'is_distributed': False,
+                  'padding_idx': padding_idx}, diff=['w'])
+
+
+def _adam_case():
+    g = _r(3, 4, seed=2)
+    return _case('adam', {
+        'Param': ('p', _r(3, 4, seed=1)), 'Grad': ('g', g),
+        'LearningRate': ('lr', np.array([0.01], np.float32)),
+        'Moment1': ('m1', 0.1 * _r(3, 4, seed=3)),
+        'Moment2': ('m2', 0.01 * _r(3, 4, seed=4, low=0.0)),
+        'Beta1Pow': ('b1p', np.array([0.9 ** 3], np.float32)),
+        'Beta2Pow': ('b2p', np.array([0.999 ** 3], np.float32))},
+        {'ParamOut': 'p_out', 'Moment1Out': 'm1_out', 'Moment2Out': 'm2_out',
+         'Beta1PowOut': 'b1p_out', 'Beta2PowOut': 'b2p_out'},
+        {'beta1': 0.9, 'beta2': 0.999, 'epsilon': 1e-8, 'lazy_mode': False})
+
+
+_LABELS = np.array([[3], [-100], [0], [6], [-100], [2]], np.int64)
+
+CASES = {
+    'elementwise_add_bias_axis2': _case(
+        'elementwise_add', {'X': ('x', _r(2, 3, 4)), 'Y': ('y', _r(4, seed=1))},
+        {'Out': 'out'}, {'axis': 2}, diff=['x', 'y']),
+    'elementwise_add_broadcast_rows': _case(
+        'elementwise_add',
+        {'X': ('x', _r(2, 3, 4)), 'Y': ('y', _r(1, 3, 4, seed=2))},
+        {'Out': 'out'}, {'axis': -1}, diff=['x', 'y']),
+    'elementwise_mul': _case(
+        'elementwise_mul', {'X': ('x', _r(6, 1)), 'Y': ('y', _r(6, 1, seed=3))},
+        {'Out': 'out'}, {'axis': -1}, diff=['x', 'y']),
+    'elementwise_mul_axis1': _case(
+        'elementwise_mul', {'X': ('x', _r(2, 3, 4)), 'Y': ('y', _r(3, seed=4))},
+        {'Out': 'out'}, {'axis': 1}, diff=['x', 'y']),
+    'elementwise_div': _case(
+        'elementwise_div',
+        {'X': ('x', _r(2, 3)), 'Y': ('y', _r(3, seed=5, low=0.5))},
+        {'Out': 'out'}, {'axis': -1}, diff=['x', 'y']),
+    'elementwise_div_scalar_by_1': _case(
+        'elementwise_div',
+        {'X': ('x', np.array(2.5, np.float32)),
+         'Y': ('y', np.array([1.75], np.float32))},
+        {'Out': 'out'}, {'axis': -1}, diff=['x', 'y']),
+    'reduce_sum_all': _case(
+        'reduce_sum', {'X': ('x', _r(6, 1))}, {'Out': 'out'},
+        {'dim': [0], 'keep_dim': False, 'reduce_all': True}, diff=['x']),
+    'reduce_sum_dim1_keep': _case(
+        'reduce_sum', {'X': ('x', _r(2, 3, 4))}, {'Out': 'out'},
+        {'dim': [1], 'keep_dim': True, 'reduce_all': False}, diff=['x']),
+    'reduce_sum_negative_dim': _case(
+        'reduce_sum', {'X': ('x', _r(2, 3, 4))}, {'Out': 'out'},
+        {'dim': [-1, 0], 'keep_dim': False, 'reduce_all': False}, diff=['x']),
+    'sum_three': _case(
+        'sum', {'X': [('a', _r(2, 3)), ('b', _r(2, 3, seed=1)),
+                      ('c', _r(2, 3, seed=2))]}, {'Out': 'out'}),
+    'softmax_with_cross_entropy_ignore_index': _case(
+        'softmax_with_cross_entropy',
+        {'Logits': ('logits', _r(6, 7)), 'Label': ('label', _LABELS)},
+        {'Softmax': 'softmax', 'Loss': 'loss'},
+        {'soft_label': False, 'ignore_index': -100}, diff=['logits'],
+        cot=['Loss']),
+    'fused_multihead_attention': _case(
+        'fused_multihead_attention',
+        {'Q': ('q', _r(2, 2, 16, 8)), 'K': ('k', _r(2, 2, 16, 8, seed=1)),
+         'V': ('v', _r(2, 2, 16, 8, seed=2))},
+        {'Out': 'out'}, {'causal': False, 'scale': 0.35,
+                         'sequence_parallel': False}, diff=['q', 'k', 'v']),
+    'fused_multihead_attention_causal': _case(
+        'fused_multihead_attention',
+        {'Q': ('q', _r(1, 2, 12, 8)), 'K': ('k', _r(1, 2, 20, 8, seed=1)),
+         'V': ('v', _r(1, 2, 20, 8, seed=2))},
+        {'Out': 'out'}, {'causal': True, 'scale': 0.35,
+                         'sequence_parallel': False}, diff=['q', 'k', 'v']),
+    'layer_norm_axis2': _case(
+        'layer_norm', {'X': ('x', _r(2, 3, 8)), 'Scale': ('scale', _r(8, seed=1)),
+                       'Bias': ('bias', _r(8, seed=2))},
+        {'Y': 'y', 'Mean': 'mean', 'Variance': 'variance'},
+        {'epsilon': 1e-5, 'begin_norm_axis': 2},
+        diff=['x', 'scale', 'bias'], cot=['Y']),
+    'mul_x_num_col_dims_2': _case(
+        'mul', {'X': ('x', _r(2, 3, 4)), 'Y': ('w', _r(4, 5))}, {'Out': 'out'},
+        {'x_num_col_dims': 2, 'y_num_col_dims': 1}, diff=['x', 'w']),
+    'relu': _case('relu', {'X': ('x', _r(3, 5))}, {'Out': 'out'},
+                  diff=['x']),
+    'reshape2_merge_heads': _case(
+        'reshape2', {'X': ('x', _r(2, 5, 2, 4))},
+        {'Out': 'out', 'XShape': 'xshape'}, {'shape': [-1, 5, 8]},
+        diff=['x'], cot=['Out']),
+    'transpose2': _case(
+        'transpose2', {'X': ('x', _r(2, 5, 2, 4))},
+        {'Out': 'out', 'XShape': 'xshape'}, {'axis': [0, 2, 1, 3]},
+        diff=['x'], cot=['Out']),
+    'lookup_table_grad': _lookup_grad_case(_ids(2, 6), -1),
+    'lookup_table_grad_padding_idx': _lookup_grad_case(
+        np.array([[1, 3, 3], [0, 3, 9]], np.int64), 3),
+    'adam': _adam_case(),
+}
+
+
+def _slot_items(v):
+    return v if isinstance(v, list) else [v]
+
+
+def _cotangents(case):
+    """A cotangent for each output slot in case['cot'], shaped as the
+    port's forward output on the CPU."""
+    with ptt.scope_guard(ptt.Scope()):
+        main, _, feed, _ = _build(ptt, case, {})
+        names = [case['outputs'][s] for s in case['cot']]
+        outs = ptt.Executor(ptt.CPUPlace()).run(main, feed=feed,
+                                                fetch_list=names)
+    return {name: _r(*out.shape, seed=20 + i) if out.ndim
+            else np.array(0.75, np.float32)
+            for i, (name, out) in enumerate(zip(names, outs))}
+
+
+def _build(pkg, case, cots):
+    """The forward op over data vars and, with cotangents, its grad op.
+    Returns (program, startup, feed, fetch names)."""
+    main, startup = pkg.Program(), pkg.Program()
+    feed = {}
+    with pkg.program_guard(main, startup), pkg.unique_name.guard():
+        block = main.global_block()
+        for slot, items in case['inputs'].items():
+            for name, arr in _slot_items(items):
+                pkg.layers.data(name, shape=list(arr.shape),
+                                dtype=str(arr.dtype), append_batch_size=False,
+                                stop_gradient=False)
+                feed[name] = arr
+        for name in case['outputs'].values():
+            block.create_var(name=name, dtype='float32')
+        fwd_inputs = {s: [n for n, _ in _slot_items(items)]
+                      for s, items in case['inputs'].items()}
+        fwd_outputs = {s: [n] for s, n in case['outputs'].items()}
+        op = block.append_op(type=case['type'], inputs=fwd_inputs,
+                             outputs=fwd_outputs, attrs=dict(case['attrs']))
+        fetch = [case['outputs'][s] for s in case['outputs']
+                 if s not in ('XShape', 'Mean', 'Variance')]
+        if cots:
+            out_grad_map = {n: '' for n in case['outputs'].values()}
+            for s in case['cot']:
+                n = case['outputs'][s]
+                arr = cots[n]
+                pkg.layers.data(n + '@GRAD', shape=list(arr.shape),
+                                dtype='float32', append_batch_size=False)
+                feed[n + '@GRAD'] = arr
+                out_grad_map[n] = n + '@GRAD'
+            in_grad_map = {n: n + '@GRAD' for n in case['diff']}
+            for n in case['diff']:
+                v = block.var(n)
+                block.create_var(name=n + '@GRAD', shape=v.shape,
+                                 dtype=v.dtype)
+            grad_inputs = {s: list(v) for s, v in fwd_inputs.items()}
+            for s, v in fwd_outputs.items():
+                grad_inputs[s + '@OUT' if s in grad_inputs else s] = list(v)
+            grad_inputs['Out@GRAD@ALL'] = [g for g in out_grad_map.values()
+                                           if g]
+            attrs = {k: v for k, v in op.attrs.items()
+                     if not k.startswith('_')}
+            attrs.update({
+                '_fwd_inputs': fwd_inputs, '_fwd_outputs': fwd_outputs,
+                '_out_grad_map': out_grad_map, '_in_grad_map': in_grad_map,
+                '_fwd_op_uid': op.attrs['_op_uid'], '_fwd_seed': 0,
+                'op_role': 1, 'op_role_var': []})
+            block.append_op(type=case['type'] + '_grad', inputs=grad_inputs,
+                            outputs={'IN@GRAD': list(in_grad_map.values())},
+                            attrs=attrs, infer_shape=False)
+            fetch += list(in_grad_map.values())
+    return main, startup, feed, fetch
+
+
+@pytest.mark.parametrize('name', sorted(CASES))
+def test_op_and_grad_match_jax(name):
+    case = CASES[name]
+    cots = _cotangents(case) if case['diff'] else {}
+    main, _, feed, fetch = _build(fluid, case, cots)
+    want = fluid.Executor(fluid.CPUPlace()).run(main, feed=feed,
+                                                fetch_list=fetch)
+    with ptt.scope_guard(ptt.Scope()):
+        main, _, feed, fetch = _build(ptt, case, cots)
+        got = ptt.Executor(ptt.CPUPlace()).run(main, feed=feed,
+                                               fetch_list=fetch)
+    assert len(got) == len(want) == len(fetch)
+    for n, g, w in zip(fetch, got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape, (n, g.shape, w.shape)
+        assert np.isfinite(g).all(), n
+        np.testing.assert_allclose(g, w, rtol=1e-5,
+                                   atol=1e-6 * max(1.0, np.abs(w).max()),
+                                   err_msg=n)
+
+
+def test_generic_grad_without_cotangent_is_zero():
+    """A grad op whose forward outputs have no gradient var yields zeros,
+    as JAX's zero cotangent does."""
+    x = _r(2, 3)
+    main = ptt.Program()
+    with ptt.program_guard(main, ptt.Program()), ptt.unique_name.guard():
+        block = main.global_block()
+        ptt.layers.data('x', shape=[2, 3], append_batch_size=False,
+                        stop_gradient=False)
+        block.create_var(name='out', dtype='float32')
+        block.create_var(name='x@GRAD', shape=(2, 3), dtype='float32')
+        op = block.append_op(type='relu', inputs={'X': ['x']},
+                             outputs={'Out': ['out']})
+        block.append_op(
+            type='relu_grad', inputs={'X': ['x'], 'Out': ['out'],
+                                      'Out@GRAD@ALL': []},
+            outputs={'IN@GRAD': ['x@GRAD']},
+            attrs={'_fwd_inputs': {'X': ['x']}, '_fwd_outputs': {'Out': ['out']},
+                   '_out_grad_map': {'out': ''},
+                   '_in_grad_map': {'x': 'x@GRAD'},
+                   '_fwd_op_uid': op.attrs['_op_uid'], '_fwd_seed': 0},
+            infer_shape=False)
+    g, = ptt.Executor(ptt.CPUPlace()).run(main, feed={'x': x},
+                                          fetch_list=['x@GRAD'],
+                                          scope=ptt.Scope())
+    np.testing.assert_array_equal(g, np.zeros_like(x))
+
+
+def test_grad_op_outputs_take_forward_shapes():
+    """A `<type>_grad` op appended with shape inference gives each output
+    var without a shape its forward var's shape and dtype, as
+    paddle_tpu/core/registry.py:201 does."""
+    main = ptt.Program()
+    with ptt.program_guard(main, ptt.Program()), ptt.unique_name.guard():
+        block = main.global_block()
+        x = ptt.layers.data('x', shape=[3, 5], dtype='float32')
+        block.create_var(name='x@GRAD')
+        block.create_var(name='y@GRAD', shape=(7,), dtype='float32')
+        block.append_op(type='relu_grad', inputs={'X': ['x']},
+                        outputs={'IN@GRAD': ['x@GRAD', 'y@GRAD']})
+    assert block.var('x@GRAD').shape == x.shape == (-1, 3, 5)
+    assert block.var('x@GRAD').dtype == 'float32'
+    assert block.var('y@GRAD').shape == (7,)  # declared shapes stay
+
+
+def test_sparse_and_lazy_branches_raise():
+    case = _lookup_grad_case(_ids(2, 3), -1)
+    case['attrs']['is_sparse'] = True
+    cots = {'out': _r(2, 3, 4)}
+    main, _, feed, fetch = _build(ptt, case, cots)
+    with pytest.raises(NotImplementedError, match='SelectedRows'):
+        ptt.Executor(ptt.CPUPlace()).run(main, feed=feed, fetch_list=fetch,
+                                         scope=ptt.Scope())
+    case = _adam_case()
+    case['attrs']['lazy_mode'] = True
+    main, _, feed, fetch = _build(ptt, case, {})
+    with pytest.raises(NotImplementedError, match='lazy_mode'):
+        ptt.Executor(ptt.CPUPlace()).run(main, feed=feed, fetch_list=fetch,
+                                         scope=ptt.Scope())
+
+
+def test_grad_op_rng_follows_forward_op():
+    """A grad op seeds its generator from its forward op's seed, else its
+    forward op's uid, so a recomputed forward draws what the forward drew
+    (paddle_tpu/core/lowering.py:60-70)."""
+    from paddle_tpu_torch.core.lowering import Interpreter, OpCtx
+
+    main = ptt.Program()
+    block = main.global_block()
+    interp = Interpreter(main, ptt.CPUPlace().device(), {})
+
+    def draw(attrs):
+        op = ptt.Operator(block, 'x_grad', attrs=attrs)
+        return torch.rand(4, generator=OpCtx(interp, op, block).rng())
+
+    fwd = ptt.Operator(block, 'x', attrs={})
+    uid = fwd.attrs['_op_uid']
+    assert torch.equal(draw({'_fwd_op_uid': uid, '_fwd_seed': 0}),
+                       torch.rand(4, generator=OpCtx(interp, fwd,
+                                                     block).rng()))
+    seeded = ptt.Operator(block, 'x', attrs={'seed': 11})
+    assert torch.equal(draw({'_fwd_op_uid': uid, '_fwd_seed': 11}),
+                       torch.rand(4, generator=OpCtx(interp, seeded,
+                                                     block).rng()))
