@@ -605,8 +605,10 @@ def phase_flash_bwd_vs_plain():
     """K2-fwd's log-sum-exp, K2-bwd-dkv and K2-bwd-dq vs their plain
     versions at K2_BWD_CASES, f32 and bf16, scale D**-0.5, the kernel's lse
     and di = rowsum(dO·O) fed to both. Tolerance: fa.grad_tolerance for dQ,
-    dK and dV (1e-5 of the largest value in f32, 2**-7 in bf16: both
-    compute in f32 from the same inputs) and 1e-5 of the largest |lse|.
+    dK and dV (1e-5 of the largest value in f32, 2**-7 in bf16; its
+    docstring says why) and 1e-5 of the largest |lse|. A second launch of
+    each backward kernel on the same inputs must give the same bits (no
+    atomics).
     Then one FlashAttention forward and backward on the card against the
     same function on the CPU, f32, at the batch-1 BERT-base shape, within
     1e-5 of each tensor's largest value."""
@@ -622,7 +624,16 @@ def phase_flash_bwd_vs_plain():
             dk, dv = fa.flash_attn_bwd_dkv(q, k, v, do, lse, di, causal,
                                            scale)
             dq = fa.flash_attn_bwd_dq(q, k, v, do, lse, di, causal, scale)
+            again = fa.flash_attn_bwd_dkv(q, k, v, do, lse, di, causal,
+                                          scale) + (fa.flash_attn_bwd_dq(
+                                              q, k, v, do, lse, di, causal,
+                                              scale),)
             torch.cuda.synchronize()
+            for name, first, second in zip(('dk', 'dv', 'dq'), (dk, dv, dq),
+                                           again):
+                check(torch.equal(first, second), 'K2 backward %s differs '
+                      'between two launches at %s causal=%s %s' % (
+                          name, (b, h, sq, sk, d), causal, dtype))
             ref_lse = fa.flash_attention_reference_lse(q, k, causal, scale)
             ref_dk, ref_dv = fa.flash_attn_bwd_dkv_reference(
                 q, k, v, do, lse, di, causal, scale)
@@ -805,10 +816,11 @@ def phase_flash_bwd_times():
     """K2-bwd-dkv, K2-bwd-dq and their plain versions at the batch-8
     BERT-base training shape, f32 and bf16, beside each kernel's bound:
     max(bytes of q, k, v, dO, lse, di read and the gradients written /
-    HBM rate, 8 (dkv) or 6 (dq) * B*H*S*S*D operations / the dtype's peak).
-    The library's yardstick is scaled_dot_product_attention's backward
-    (autograd of it, forward and backward, less its forward), which
-    computes dQ, dK and dV in one call."""
+    HBM rate, 8 (dkv) or 6 (dq) * B*H*S*S*D operations / the dtype's peak),
+    and each kernel's TFLOP/s. The library's yardstick is
+    scaled_dot_product_attention's backward (autograd of it, forward and
+    backward, less its forward), which computes dQ, dK and dV in one call,
+    so the pair dkv + dq is also given as a ratio to it."""
     gen = torch.Generator(device='cuda').manual_seed(SEED + 12)
     b, h, s = TRAIN_BATCH, BERT['n_head'], BERT['max_len']
     d = BERT['d_model'] // h
@@ -851,13 +863,19 @@ def phase_flash_bwd_times():
                 else 'bytes'
             rows[name, str(dtype)[6:]] = dict(
                 ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
-                bound_by=by)
+                bound_by=by, tflops=ops / ms * 1e-9)
             print('k2_bwd_time %s shape=%s dtype=%s kernel_ms=%r '
                   'bound_ms=%r (%s) plain_ms=%r sdpa_bwd_ms=%r (dq, dk and '
                   'dv together; sdpa fwd+bwd %r, fwd %r) bound_share=%.3f '
                   'tflops=%.2f' % (name, (b, h, s, s, d), str(dtype)[6:], ms,
                                    bound, by, plain, lib, lib_all, lib_fwd,
                                    bound / ms, ops / ms * 1e-9))
+        pair = (rows['flash_attn_bwd_dkv', str(dtype)[6:]]['ms']
+                + rows['flash_attn_bwd_dq', str(dtype)[6:]]['ms'])
+        for name in ('flash_attn_bwd_dkv', 'flash_attn_bwd_dq'):
+            rows[name, str(dtype)[6:]]['pair_vs_sdpa_bwd'] = pair / lib
+        print('k2_bwd_time pair dkv+dq dtype=%s ms=%r sdpa_bwd_ms=%r '
+              'ratio=%.3f' % (str(dtype)[6:], pair, lib, pair / lib))
         del sets, lib_sets
     return rows
 
@@ -955,7 +973,8 @@ def main():
             'shape': bwd_shape,
             'ms': row['ms'], 'plain_ms': row['plain_ms'],
             'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
-            'library_ms': row['library_ms'],
+            'library_ms': row['library_ms'], 'tflops': row['tflops'],
+            'pair_vs_sdpa_bwd': row['pair_vs_sdpa_bwd'],
             'library_call': 'scaled_dot_product_attention backward '
                             '(dq, dk and dv together)',
             'by_dtype': {dt: bwd_rows[name, dt]

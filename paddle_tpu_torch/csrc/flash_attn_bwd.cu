@@ -1,4 +1,4 @@
-// Flash-attention backward for Hopper: dQ, dK and dV of
+// Flash-attention backward for Hopper on the tensor cores: dQ, dK and dV of
 // O = softmax(scale * Q K^T [+ causal mask]) V, from Q, K, V, dO, the
 // forward's per-row log-sum-exp `lse` and di = rowsum(dO * O), both f32
 // [B, H, Sq]. Q and dO are [B, H, Sq, D], K and V [B, H, Sk, D], any strides.
@@ -7,56 +7,82 @@
 // backward (jax/experimental/pallas/ops/tpu/flash_attention.py), which
 // paddle_tpu's fused_multihead_attention reaches when it is differentiated
 // on a TPU (paddle_tpu/ops/nn_ops.py:714-722):
-// - _flash_attention_bwd_dkv :941 (pallas_call :1121, body :800-938) by
-//   flash_bwd_dkv_kernel below;
-// - _flash_attention_bwd_dq :1287 (pallas_call :1456) by flash_bwd_dq_kernel.
+// - _flash_attention_bwd_dkv :941 (pallas_call :1121, body
+//   _flash_attention_dkv_kernel :796) by flash_bwd_dkv_kernel below;
+// - _flash_attention_bwd_dq :1287 (pallas_call :1456, body
+//   _flash_attention_dq_kernel :1146) by flash_bwd_dq_kernel.
 //
 // Both recompute P from the saved log-sum-exp instead of storing it:
 //   P  = exp2(s * scale * log2(e) - lse * log2(e)),   s = q . k
-//   dV = sum_q P^T dO           dS = P o (dO V^T - di)
-//   dK = scale * sum_q dS^T Q   dQ = scale * sum_k dS K
+//   dS = scale * P o (dO V^T - di)
+//   dV = sum_q P^T dO,   dK = sum_q dS^T Q,   dQ = sum_k dS K
 // with the port's forward semantics: the scale multiplies the f32 scores,
-// and with causal key j is kept for query i when j <= i + Sk - Sq (the
-// TPU kernels' col <= row is the same mask when Sq = Sk, the only case the
-// JAX op sends them).
+// and with causal key j is kept for query i when j <= i + Sk - Sq (the TPU
+// kernels' col <= row is the same mask when Sq = Sk, the only case the JAX
+// op sends them). As on the TPU, P and dS (scale included) are rounded to
+// the input dtype before the second products (p.T.astype :900, ds.T.astype
+// :918, ds.astype :1258): in bf16 a real rounding, in f32 none.
 //
 // Bound on an H100 SXM: four [Sq, Sk, D] products in dkv (S, dP, dV, dK)
-// and three in dq (S, dP, dQ), so 8 * B * H * Sq * Sk * D and
-// 6 * B * H * Sq * Sk * D operations. BERT-base at batch 8, S = 512, D = 64,
-// f32: 12.9 GFLOP (192 us at the 67 TFLOP/s f32 CUDA-core peak) and
-// 9.7 GFLOP (144 us), against 76 and 63 MB read or written once (23 and
-// 19 us at 3.35 TB/s): bound by operations. In bf16 the bound is the larger
-// of the halved bytes and the operations at the 989 TFLOP/s tensor-core
-// peak (13 and 10 us); these first kernels compute in f32 on the CUDA cores
-// either way (wgmma, TMA and tensor cores are later work).
+// and three in dq (S, dP, dQ), 8 * B * H * Sq * Sk * D and
+// 6 * B * H * Sq * Sk * D operations. BERT-base at batch 8, S = 512,
+// D = 64: 12.9 and 9.7 GFLOP against 76 and 63 MB (f32) read or written
+// once. bf16: 13.0 and 9.8 us at the 989 TFLOP/s tensor-core peak, against
+// 11 and 9 us for the halved bytes at 3.35 TB/s, so bound by operations.
+// f32: 192 and 144 us at the 67 TFLOP/s f32 peak of the CUDA cores (23 and
+// 19 us of bytes).
 //
-// Design, simple first, laid out as flash_attn_fwd.cu:
+// What the design does about that bound:
+// - Every product runs on the tensor cores with mma.sync (mma_frag.cuh has
+//   the fragment maps). bf16: m16n8k16, bf16 operands, f32 accumulators.
+//   f32: m16n8k8 TF32 in the 3xTF32 split (a*b ~ a_lo*b_hi + a_hi*b_lo +
+//   a_hi*b_hi): plain TF32 keeps 11 significant bits, which would make an
+//   f32 gradient a TF32 one; the split keeps ~22, within the f32
+//   tolerance (ops/flash_attention.py grad_tolerance, 1e-5 of the largest
+//   value), at up to a third of the 495 TFLOP/s TF32 rate, above the
+//   67 TFLOP/s of f32 on the CUDA cores. So f32 still means f32. The
+//   tensor cores round each mma's sum toward zero; the tf32 products order
+//   their accumulation so that this bias stays near 1e-6 (mma_frag.cuh).
 // - Two kernels, as on the TPU, neither with atomics, so both are
-//   deterministic. dkv: one block of 256 threads per (b*h, 64 keys); a loop
-//   over query tiles of 32 rows (the TPU grid's sequential q_seq_index axis,
-//   :822-826 and :930-934, becomes this loop) keeps dK and dV for the
-//   block's keys in registers. dq: one block per (b*h, 64 queries); a loop
-//   over key tiles of 64 keeps dQ in registers.
-// - Tiles are staged in shared memory as f32, zero-filled past S and past
-//   D: transposed ([d][row], rows padded by 4) for the products that reduce
-//   over d, row-major ([row][d]) for those that reduce over rows. Threads
-//   form a 16 x 16 grid; each reads 16-byte (or 8-byte) vectors from both
-//   operands for every 8 or 16 fused multiply-adds.
-// - dkv: thread (ty, tx) owns keys ty*4..+4 against queries tx*2..+2 of the
-//   S^T and dP^T tiles, and keys ty*4..+4 x D/16 columns of dK and dV. P^T
-//   and dS^T go through shared memory ([q][key]) to the dV and dK products.
-// - dq: thread (ty, tx) owns queries ty*4..+4 against keys tx*4..+4 of the
-//   S and dP tiles, and queries ty*4..+4 x D/16 columns of dQ; dS goes
-//   through shared memory ([key][q]) to the dQ product.
-// - Masked entries (keys at or past Sk, queries at or past Sq, and with
-//   causal keys j > i + Sk - Sq) get P = 0; with causal, dkv starts at the
-//   first query tile that sees its keys and dq stops after the last key
-//   tile its rows see. Rows and keys past S are computed and not written.
+//   deterministic. Blocks of 4 warps; each warp owns 16 rows of the block's
+//   64 (keys in dkv, queries in dq) and keeps its accumulators in registers.
+//   dkv: one block per (b*h, 64 keys), K and V staged once, a loop over
+//   query tiles of BQ rows (the TPU grid's sequential q_seq_index axis,
+//   :822-826 and :930-934, becomes this loop): S^T = K Q^T and dP^T = V dO^T
+//   (mma_nt), P^T and dS^T on the accumulator fragments, then dV += P^T dO
+//   and dK += dS^T Q (mma_rt) with P^T and dS^T re-used in registers as the
+//   A operand (in bf16 packed to bf16 pairs at once, which frees the
+//   registers for a third block an SM). dq: one block per (b*h, 64 queries), Q and dO staged once, a
+//   loop over key tiles of BK: S = Q K^T, dP = dO V^T, dQ += dS K.
+// - Each operand is staged once, in its own dtype. Q and dO (dkv) and K (dq)
+//   serve as B both of a product that reduces over d (ldmatrix) and of one
+//   that reduces over rows (ldmatrix.trans in bf16, the transposed fragment
+//   indexing of the TF32 path in f32). Rows are padded by 16 bytes, which
+//   makes both reads free of bank conflicts.
+// - The streamed tiles (Q, dO, lse and di in dkv; K and V in dq) go through
+//   a double buffer filled by cp.async: tile t + 1 is in flight while tile t
+//   is multiplied. Rows past S and columns past d are zero-filled by the
+//   copy (src-size 0). Where an operand's rows are not 16-byte vectors
+//   (stride along d other than 1, or misaligned), the same tiles are
+//   filled by plain loads instead.
+// - A step takes BQ (dkv) or BK (dq) = 64 rows at D <= 64 and 32 at
+//   D = 128, where the dK and dV (or dQ) accumulators of 16 rows x 128
+//   columns take 128 (64) registers a thread; half that in f32, whose
+//   products also hold a partial sum. Masked entries (keys at or past Sk,
+//   queries at or past Sq, and with causal keys j > i + Sk - Sq) get P = 0,
+//   tested only in tiles that cross an edge or the diagonal; with causal,
+//   dkv starts at the first query tile that sees its keys and dq stops
+//   after the last key tile its rows see.
 // - dQ, dK and dV are written once, in the input's dtype, through the
 //   strides the wrapper passes (it allocates [B, S, H, D] memory).
-// Shared memory: dkv 52 / 87 / 157 KB and dq 60 / 103 / 189 KB for
-// D <= 32 / 64 / 128, so each launch raises the dynamic shared-memory
-// limit first.
+// Resources (nvcc 12.9 -Xptxas -v, sm_90a), D = 32 / 64 / 128:
+//   dkv bf16: 166 / 166 / 246 registers, 31 / 55 / 68.5 KB shared memory;
+//   dkv f32:  165 / 254 / 255 registers, 36.5 / 68.5 / 99.2 KB (D = 128
+//             spills 540 bytes);
+//   dq bf16:  128 / 128 / 127 registers, 30 / 54 / 68 KB;
+//   dq f32:   128 / 254 / 250 registers, 36 / 68 / 99 KB.
+// At D = 64 that is 3 blocks (12 warps) an SM for bf16 dkv, 4 for bf16 dq
+// and 2 for f32. Each launch raises the dynamic shared-memory limit first.
 //
 // C interface, loaded with ctypes (paddle_tpu_torch/ops/flash_attention.py).
 // Each launch is on the caller's stream, allocates nothing and does not
@@ -65,94 +91,104 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "mma_frag.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;   // 16 x 16
-constexpr int kTile = 64;       // dkv: keys per block; dq: queries per block
-                                // and keys per step
-constexpr int kQStep = 32;      // dkv: queries per step
-constexpr int kLd = kTile + 4;  // row length of 64-row transposed tiles
-constexpr int kLdQ = kQStep + 4;  // row length of 32-row transposed tiles
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;  // keys of a dkv block, queries of a dq one
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {
   long long b, h, s, d;  // in elements
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+// Query (dkv) or key (dq) rows a loop step takes: 64, halved at D = 128,
+// where the accumulators are largest, and halved again for f32, whose tf32
+// products also hold a partial sum (mma_frag.cuh).
+template <typename T, int D>
+constexpr int kStepRows = (D <= 64 ? 64 : 32) / (sizeof(T) == 4 ? 2 : 1);
+
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-// Output column of accumulator slot c (0 <= c < D/16) for thread column tx,
-// as in flash_attn_fwd.cu: groups of 4 at a stride of 64.
-template <int D>
-__device__ __forceinline__ int out_col(int tx, int c) {
-  if constexpr (D == 32) {
-    return tx * 2 + c;
+// Rows [r0, r0 + ROWS) of one head of x into dst, rows of D + kPad<T>
+// elements, zero past `rows` and past `d`. vec: 16-byte cp.async (the
+// caller commits and waits); else plain loads and stores.
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void load_tile(T* __restrict__ dst,
+                                          const T* __restrict__ x, Strides st,
+                                          int r0, int rows, int d, bool vec) {
+  constexpr int LD = D + ptpu::kPad<T>;
+  if (vec) {
+    constexpr int kChunk = 16 / static_cast<int>(sizeof(T));
+    constexpr int kPerRow = D / kChunk;
+    for (int i = threadIdx.x; i < ROWS * kPerRow; i += kThreads) {
+      const int r = i / kPerRow, c = (i % kPerRow) * kChunk;
+      const bool ok = r0 + r < rows && c < d;
+      ptpu::cp_async16(dst + r * LD + c, ok ? x + (r0 + r) * st.s + c : x, ok);
+    }
   } else {
-    return (c >> 2) * 64 + tx * 4 + (c & 3);
+    for (int i = threadIdx.x; i < ROWS * D; i += kThreads) {
+      const int r = i / D, c = i % D;
+      T val = T(0.f);
+      if (r0 + r < rows && c < d) val = x[(r0 + r) * st.s + c * st.d];
+      dst[r * LD + c] = val;
+    }
   }
 }
 
-// The D/16 values of row-major row `row` ([.][D]) that thread column tx
-// multiplies, at columns out_col<D>(tx, c).
-template <int D>
-__device__ __forceinline__ void load_cols(const float* __restrict__ row,
-                                          int tx, float* out) {
-  if constexpr (D == 32) {
-    const float2 t = *reinterpret_cast<const float2*>(row + tx * 2);
-    out[0] = t.x;
-    out[1] = t.y;
-  } else {
+// ROWS f32 values x[r0..] into dst, zero past `rows`, by 4-byte cp.async.
+template <int ROWS>
+__device__ __forceinline__ void load_rows(float* __restrict__ dst,
+                                          const float* __restrict__ x, int r0,
+                                          int rows) {
+  for (int i = threadIdx.x; i < ROWS; i += kThreads) {
+    const bool ok = r0 + i < rows;
+    ptpu::cp_async4(dst + i, ok ? x + r0 + i : x, ok);
+  }
+}
+
+// A warp's accumulator, 16 rows x D, into out's rows r0 .. r0 + 15,
+// skipping rows past `rows` and columns past d.
+template <typename T, int ND>
+__device__ __forceinline__ void store_rows(T* __restrict__ out, Strides st,
+                                           const float (&acc)[ND][4], int r0,
+                                           int rows, int d, int lane) {
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int g = 0; g < D / 64; ++g) {
-      const float4 t = *reinterpret_cast<const float4*>(row + g * 64 + tx * 4);
-      out[4 * g] = t.x;
-      out[4 * g + 1] = t.y;
-      out[4 * g + 2] = t.z;
-      out[4 * g + 3] = t.w;
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + g + 8 * half;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = j * 8 + 2 * t + e;
+        if (col < d) store(out + row * st.s + col * st.d, acc[j][2 * half + e]);
+      }
     }
   }
 }
 
-// Stage rows [r0, r0 + ROWS) of one head of x into shared memory as f32,
-// zero past `rows` and past `d`. Transposed: dst[c * LD + r]; else
-// dst[r * D + c]. Consecutive threads read consecutive columns.
-template <typename T, int D, int ROWS, int LD, bool TRANSPOSE>
-__device__ __forceinline__ void stage(const T* __restrict__ x, Strides st,
-                                      int r0, int rows, int d,
-                                      float* __restrict__ dst) {
-  for (int i = threadIdx.x; i < ROWS * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    float val = 0.f;
-    if (r0 + r < rows && c < d) {
-      val = to_f32(x[(r0 + r) * st.s + c * st.d]);
-    }
-    if (TRANSPOSE) {
-      dst[c * LD + r] = val;
-    } else {
-      dst[r * D + c] = val;
-    }
-  }
+template <typename T, int D>
+constexpr int dkv_smem_bytes() {
+  constexpr int LD = D + ptpu::kPad<T>, BQ = kStepRows<T, D>;
+  // K, V [kRows][LD]; Q, dO [2][BQ][LD]; lse, di [2][BQ]
+  return static_cast<int>(sizeof(T)) * (2 * kRows * LD + 4 * BQ * LD) +
+         4 * 4 * BQ;
 }
 
-template <int D>
-constexpr int dkv_smem_floats() {
-  // Kt, Vt [D][kLd]; Qt, dOt [D][kLdQ]; Qs, dOs [kQStep][D];
-  // Ps, dSs [kQStep][kLd]; lse, di [kQStep]
-  return 2 * D * kLd + 2 * D * kLdQ + 2 * kQStep * D + 2 * kQStep * kLd +
-         2 * kQStep;
-}
-
-template <int D>
-constexpr int dq_smem_floats() {
-  // Qt, dOt, Kt, Vt [D][kLd]; Ks [kTile][D]; dSt [kTile][kLd]
-  return 4 * D * kLd + kTile * D + kTile * kLd;
+template <typename T, int D>
+constexpr int dq_smem_bytes() {
+  constexpr int LD = D + ptpu::kPad<T>, BK = kStepRows<T, D>;
+  // Q, dO [kRows][LD]; K, V [2][BK][LD]
+  return static_cast<int>(sizeof(T)) * (2 * kRows * LD + 4 * BK * LD);
 }
 
 template <typename T, int D>
@@ -164,24 +200,21 @@ __global__ void __launch_bounds__(kThreads)
                          T* __restrict__ dv, Strides sq, Strides sk,
                          Strides sv, Strides sdo, Strides sdk, Strides sdv,
                          int H, int Sq, int Sk, int d, float scale,
-                         float scale_log2, int causal) {
-  constexpr int kCols = D / 16;
+                         float scale_log2, int causal, int vec) {
+  constexpr int LD = D + ptpu::kPad<T>, BQ = kStepRows<T, D>;
+  constexpr int NQ = BQ / 8, ND = D / 8;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* Kt = smem;                      // [D][kLd]
-  float* Vt = Kt + D * kLd;              // [D][kLd]
-  float* Qt = Vt + D * kLd;              // [D][kLdQ]
-  float* dOt = Qt + D * kLdQ;            // [D][kLdQ]
-  float* Qs = dOt + D * kLdQ;            // [kQStep][D]
-  float* dOs = Qs + kQStep * D;          // [kQStep][D]
-  float* Ps = dOs + kQStep * D;          // [kQStep][kLd]: P^T as [q][key]
-  float* dSs = Ps + kQStep * kLd;        // [kQStep][kLd]: dS^T as [q][key]
-  float* lse_s = dSs + kQStep * kLd;     // [kQStep], times log2(e)
-  float* di_s = lse_s + kQStep;          // [kQStep]
+  T* Ks = reinterpret_cast<T*>(smem4);  // [kRows][LD]
+  T* Vs = Ks + kRows * LD;              // [kRows][LD]
+  T* Qs = Vs + kRows * LD;              // [2][BQ][LD]
+  T* dOs = Qs + 2 * BQ * LD;            // [2][BQ][LD]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * LD);  // [2][BQ]
+  float* di_s = lse_s + 2 * BQ;                                // [2][BQ]
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int n0 = blockIdx.x * kTile;
+  const int n0 = blockIdx.x * kRows;
   const T* qh = q + b * sq.b + h * sq.h;
   const T* kh = k + b * sk.b + h * sk.h;
   const T* vh = v + b * sv.b + h * sv.h;
@@ -190,114 +223,86 @@ __global__ void __launch_bounds__(kThreads)
   const float* di_h = di + static_cast<long long>(bh) * Sq;
   const int offset = Sk - Sq;  // causal: key j is kept for row i if j <= i + offset
 
-  stage<T, D, kTile, kLd, true>(kh, sk, n0, Sk, d, Kt);
-  stage<T, D, kTile, kLd, true>(vh, sv, n0, Sk, d, Vt);
-
-  float dk_acc[4][kCols], dv_acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-
   int m_begin = 0;
   if (causal) {  // the first query that keeps key n0 is n0 - offset
     const int first = n0 - offset > 0 ? n0 - offset : 0;
-    m_begin = first / kQStep * kQStep;
+    m_begin = first / BQ * BQ;
   }
-  for (int m0 = m_begin; m0 < Sq; m0 += kQStep) {
-    __syncthreads();  // the previous step's tiles are consumed
-    stage<T, D, kQStep, kLdQ, true>(qh, sq, m0, Sq, d, Qt);
-    stage<T, D, kQStep, kLdQ, true>(doh, sdo, m0, Sq, d, dOt);
-    stage<T, D, kQStep, kLdQ, false>(qh, sq, m0, Sq, d, Qs);
-    stage<T, D, kQStep, kLdQ, false>(doh, sdo, m0, Sq, d, dOs);
-    if (threadIdx.x < kQStep) {
-      const int row = m0 + threadIdx.x;
-      lse_s[threadIdx.x] = row < Sq ? lse_h[row] * kLog2e : 0.f;
-      di_s[threadIdx.x] = row < Sq ? di_h[row] : 0.f;
-    }
+  auto load_step = [&](int m0, int buf) {
+    load_tile<T, D, BQ>(Qs + buf * BQ * LD, qh, sq, m0, Sq, d, vec);
+    load_tile<T, D, BQ>(dOs + buf * BQ * LD, doh, sdo, m0, Sq, d, vec);
+    load_rows<BQ>(lse_s + buf * BQ, lse_h, m0, Sq);
+    load_rows<BQ>(di_s + buf * BQ, di_h, m0, Sq);
+  };
+  load_tile<T, D, kRows>(Ks, kh, sk, n0, Sk, d, vec);
+  load_tile<T, D, kRows>(Vs, vh, sv, n0, Sk, d, vec);
+  if (m_begin < Sq) load_step(m_begin, 0);
+  ptpu::cp_async_commit();
+
+  float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+
+  const T* k_warp = Ks + warp * 16 * LD;
+  const T* v_warp = Vs + warp * 16 * LD;
+  const int key0 = n0 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
+  int buf = 0;
+  for (int m0 = m_begin; m0 < Sq; m0 += BQ, buf ^= 1) {
+    if (m0 + BQ < Sq) load_step(m0 + BQ, buf ^ 1);
+    ptpu::cp_async_commit();
+    ptpu::cp_async_wait<1>();  // all but the tile just requested
     __syncthreads();
 
-    // S^T = K Q^T and dP^T = V dO^T: keys ty*4..+4 x queries tx*2..+2
-    float s[4][2], dp[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < D; ++c) {
-      const float4 kv = *reinterpret_cast<const float4*>(Kt + c * kLd + ty * 4);
-      const float4 vv = *reinterpret_cast<const float4*>(Vt + c * kLd + ty * 4);
-      const float2 qv = *reinterpret_cast<const float2*>(Qt + c * kLdQ + tx * 2);
-      const float2 ov = *reinterpret_cast<const float2*>(dOt + c * kLdQ + tx * 2);
-      const float ka[4] = {kv.x, kv.y, kv.z, kv.w};
-      const float va[4] = {vv.x, vv.y, vv.z, vv.w};
-      const float qa[2] = {qv.x, qv.y};
-      const float oa[2] = {ov.x, ov.y};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          s[i][j] = fmaf(ka[i], qa[j], s[i][j]);
-          dp[i][j] = fmaf(va[i], oa[j], dp[i][j]);
-        }
-    }
+    const T* q_t = Qs + buf * BQ * LD;
+    const T* do_t = dOs + buf * BQ * LD;
+    const float* lse_t = lse_s + buf * BQ;
+    const float* di_t = di_s + buf * BQ;
 
-    // P and dS, written transposed for the dV and dK products
+    // S^T = K Q^T and dP^T = V dO^T: keys x queries
+    float s[NQ][4], dp[NQ][4];
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int ql = tx * 2 + j, row = m0 + ql;
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    ptpu::mma_nt<T, D, NQ>(s, k_warp, q_t, lane);
+    ptpu::mma_nt<T, D, NQ>(dp, v_warp, do_t, lane);
+
+    // P^T and dS^T (scale included) on the fragments, as A operands
+    const bool edge = m0 + BQ > Sq || n0 + kRows > Sk ||
+                      (causal && n0 + kRows - 1 > m0 + offset);
+    ptpu::RegA<T, NQ> p_a, ds_a;
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
       float p[4], ds[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = n0 + ty * 4 + i;
-        const bool keep =
-            key < Sk && row < Sq && (!causal || key <= row + offset);
-        p[i] = keep ? exp2f(s[i][j] * scale_log2 - lse_s[ql]) : 0.f;
-        ds[i] = p[i] * (dp[i][j] - di_s[ql]);
+      for (int e = 0; e < 4; ++e) {
+        const int ql = j * 8 + 2 * t + (e & 1);
+        p[e] = exp2f(s[j][e] * scale_log2 - lse_t[ql] * kLog2e);
+        if (edge) {
+          const int key = key0 + (e >> 1) * 8, row = m0 + ql;
+          if (!(key < Sk && row < Sq && (!causal || key <= row + offset))) {
+            p[e] = 0.f;
+          }
+        }
+        ds[e] = p[e] * (dp[j][e] - di_t[ql]) * scale;
       }
-      *reinterpret_cast<float4*>(Ps + ql * kLd + ty * 4) =
-          make_float4(p[0], p[1], p[2], p[3]);
-      *reinterpret_cast<float4*>(dSs + ql * kLd + ty * 4) =
-          make_float4(ds[0], ds[1], ds[2], ds[3]);
+      ptpu::set_tile(p_a, j, p);
+      ptpu::set_tile(ds_a, j, ds);
     }
-    __syncthreads();
 
     // dV += P^T dO and dK += dS^T Q over the step's queries
-#pragma unroll 4
-    for (int ql = 0; ql < kQStep; ++ql) {
-      const float4 pv = *reinterpret_cast<const float4*>(Ps + ql * kLd + ty * 4);
-      const float4 sv4 =
-          *reinterpret_cast<const float4*>(dSs + ql * kLd + ty * 4);
-      const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
-      const float sa[4] = {sv4.x, sv4.y, sv4.z, sv4.w};
-      float ob[kCols], qb[kCols];
-      load_cols<D>(dOs + ql * D, tx, ob);
-      load_cols<D>(Qs + ql * D, tx, qb);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          dv_acc[i][c] = fmaf(pa[i], ob[c], dv_acc[i][c]);
-          dk_acc[i][c] = fmaf(sa[i], qb[c], dk_acc[i][c]);
-        }
-    }
+    ptpu::mma_rt<T, NQ, ND>(dv_acc, p_a, do_t, lane);
+    ptpu::mma_rt<T, NQ, ND>(dk_acc, ds_a, q_t, lane);
+    __syncthreads();  // this buffer is refilled two steps on
   }
+  ptpu::cp_async_wait<0>();
 
-  T* dkh = dk + b * sdk.b + h * sdk.h;
-  T* dvh = dv + b * sdv.b + h * sdv.h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = n0 + ty * 4 + i;
-    if (key >= Sk) continue;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int col = out_col<D>(tx, c);
-      if (col < d) {
-        store(dkh + key * sdk.s + col * sdk.d, dk_acc[i][c] * scale);
-        store(dvh + key * sdv.s + col * sdv.d, dv_acc[i][c]);
-      }
-    }
-  }
+  store_rows<T, ND>(dk + b * sdk.b + h * sdk.h, sdk, dk_acc, n0 + warp * 16,
+                    Sk, d, lane);
+  store_rows<T, ND>(dv + b * sdv.b + h * sdv.h, sdv, dv_acc, n0 + warp * 16,
+                    Sk, d, lane);
 }
 
 template <typename T, int D>
@@ -308,121 +313,106 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ di, T* __restrict__ dq,
                         Strides sq, Strides sk, Strides sv, Strides sdo,
                         Strides sdq, int H, int Sq, int Sk, int d,
-                        float scale, float scale_log2, int causal) {
-  constexpr int kCols = D / 16;
+                        float scale, float scale_log2, int causal, int vec) {
+  constexpr int LD = D + ptpu::kPad<T>, BK = kStepRows<T, D>;
+  constexpr int NK = BK / 8, ND = D / 8;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* Qt = smem;                // [D][kLd]
-  float* dOt = Qt + D * kLd;       // [D][kLd]
-  float* Kt = dOt + D * kLd;       // [D][kLd]
-  float* Vt = Kt + D * kLd;        // [D][kLd]
-  float* Ks = Vt + D * kLd;        // [kTile][D]
-  float* dSt = Ks + kTile * D;     // [kTile][kLd]: dS^T as [key][q]
+  T* Qs = reinterpret_cast<T*>(smem4);  // [kRows][LD]
+  T* dOs = Qs + kRows * LD;             // [kRows][LD]
+  T* Ks = dOs + kRows * LD;             // [2][BK][LD]
+  T* Vs = Ks + 2 * BK * LD;             // [2][BK][LD]
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int m0 = blockIdx.x * kTile;
+  const int m0 = blockIdx.x * kRows;
   const T* qh = q + b * sq.b + h * sq.h;
   const T* kh = k + b * sk.b + h * sk.h;
   const T* vh = v + b * sv.b + h * sv.h;
   const T* doh = dout + b * sdo.b + h * sdo.h;
   const int offset = Sk - Sq;  // causal: key j is kept for row i if j <= i + offset
 
-  stage<T, D, kTile, kLd, true>(qh, sq, m0, Sq, d, Qt);
-  stage<T, D, kTile, kLd, true>(doh, sdo, m0, Sq, d, dOt);
-
-  float lse_r[4], di_r[4], acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty * 4 + i;
-    const long long at = static_cast<long long>(bh) * Sq + row;
-    lse_r[i] = row < Sq ? lse[at] * kLog2e : 0.f;
-    di_r[i] = row < Sq ? di[at] : 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
-  }
-
   int n_end = Sk;
   if (causal) {
-    const int last = m0 + kTile - 1 + offset + 1;  // keys the last row keeps
+    const int last = m0 + kRows - 1 + offset + 1;  // keys the last row keeps
     n_end = last < Sk ? last : Sk;
   }
-  for (int n0 = 0; n0 < n_end; n0 += kTile) {
-    __syncthreads();  // the previous step's Kt, Vt, Ks and dSt are consumed
-    stage<T, D, kTile, kLd, true>(kh, sk, n0, Sk, d, Kt);
-    stage<T, D, kTile, kLd, true>(vh, sv, n0, Sk, d, Vt);
-    stage<T, D, kTile, kLd, false>(kh, sk, n0, Sk, d, Ks);
+  auto load_step = [&](int n0, int buf) {
+    load_tile<T, D, BK>(Ks + buf * BK * LD, kh, sk, n0, Sk, d, vec);
+    load_tile<T, D, BK>(Vs + buf * BK * LD, vh, sv, n0, Sk, d, vec);
+  };
+  load_tile<T, D, kRows>(Qs, qh, sq, m0, Sq, d, vec);
+  load_tile<T, D, kRows>(dOs, doh, sdo, m0, Sq, d, vec);
+  load_step(0, 0);
+  ptpu::cp_async_commit();
+
+  // this thread's rows: row0 and row0 + 8
+  const int row0 = m0 + warp * 16 + g;
+  float lse_r[2], di_r[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 8 * half;
+    const long long at = static_cast<long long>(bh) * Sq + row;
+    lse_r[half] = row < Sq ? lse[at] * kLog2e : 0.f;
+    di_r[half] = row < Sq ? di[at] : 0.f;
+  }
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  const T* q_warp = Qs + warp * 16 * LD;
+  const T* do_warp = dOs + warp * 16 * LD;
+  int buf = 0;
+  for (int n0 = 0; n0 < n_end; n0 += BK, buf ^= 1) {
+    if (n0 + BK < n_end) load_step(n0 + BK, buf ^ 1);
+    ptpu::cp_async_commit();
+    ptpu::cp_async_wait<1>();  // all but the tile just requested
     __syncthreads();
 
-    // S = Q K^T and dP = dO V^T: queries ty*4..+4 x keys tx*4..+4
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      const float4 qv = *reinterpret_cast<const float4*>(Qt + c * kLd + ty * 4);
-      const float4 ov = *reinterpret_cast<const float4*>(dOt + c * kLd + ty * 4);
-      const float4 kv = *reinterpret_cast<const float4*>(Kt + c * kLd + tx * 4);
-      const float4 vv = *reinterpret_cast<const float4*>(Vt + c * kLd + tx * 4);
-      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
-      const float oa[4] = {ov.x, ov.y, ov.z, ov.w};
-      const float ka[4] = {kv.x, kv.y, kv.z, kv.w};
-      const float va[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qa[i], ka[j], s[i][j]);
-          dp[i][j] = fmaf(oa[i], va[j], dp[i][j]);
-        }
-    }
+    const T* k_t = Ks + buf * BK * LD;
+    const T* v_t = Vs + buf * BK * LD;
 
-    // dS, written transposed ([key][q]) for the dQ product
+    // S = Q K^T and dP = dO V^T: queries x keys
+    float s[NK][4], dp[NK][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = n0 + tx * 4 + j;
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    ptpu::mma_nt<T, D, NK>(s, q_warp, k_t, lane);
+    ptpu::mma_nt<T, D, NK>(dp, do_warp, v_t, lane);
+
+    // dS (scale included) on the fragments, as the A operand
+    const bool edge = m0 + kRows > Sq || n0 + BK > Sk ||
+                      (causal && n0 + BK - 1 > m0 + offset);
+    ptpu::RegA<T, NK> ds_a;
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
       float ds[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = m0 + ty * 4 + i;
-        const bool keep =
-            key < Sk && row < Sq && (!causal || key <= row + offset);
-        const float p = keep ? exp2f(s[i][j] * scale_log2 - lse_r[i]) : 0.f;
-        ds[i] = p * (dp[i][j] - di_r[i]);
+      for (int e = 0; e < 4; ++e) {
+        const int half = e >> 1;
+        float p = exp2f(s[j][e] * scale_log2 - lse_r[half]);
+        if (edge) {
+          const int key = n0 + j * 8 + 2 * t + (e & 1), row = row0 + 8 * half;
+          if (!(key < Sk && row < Sq && (!causal || key <= row + offset))) {
+            p = 0.f;
+          }
+        }
+        ds[e] = p * (dp[j][e] - di_r[half]) * scale;
       }
-      *reinterpret_cast<float4*>(dSt + (tx * 4 + j) * kLd + ty * 4) =
-          make_float4(ds[0], ds[1], ds[2], ds[3]);
+      ptpu::set_tile(ds_a, j, ds);
     }
-    __syncthreads();
 
     // dQ += dS K over the step's keys
-#pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      const float4 sv4 =
-          *reinterpret_cast<const float4*>(dSt + kk * kLd + ty * 4);
-      const float sa[4] = {sv4.x, sv4.y, sv4.z, sv4.w};
-      float kb[kCols];
-      load_cols<D>(Ks + kk * D, tx, kb);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[i][c] = fmaf(sa[i], kb[c], acc[i][c]);
-    }
+    ptpu::mma_rt<T, NK, ND>(acc, ds_a, k_t, lane);
+    __syncthreads();  // this buffer is refilled two steps on
   }
+  ptpu::cp_async_wait<0>();
 
-  T* dqh = dq + b * sdq.b + h * sdq.h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty * 4 + i;
-    if (row >= Sq) continue;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int col = out_col<D>(tx, c);
-      if (col < d) store(dqh + row * sdq.s + col * sdq.d, acc[i][c] * scale);
-    }
-  }
+  store_rows<T, ND>(dq + b * sdq.b + h * sdq.h, sdq, acc, m0 + warp * 16, Sq,
+                    d, lane);
 }
 
 struct Args {
@@ -435,36 +425,56 @@ struct Args {
   int causal;
 };
 
+// Whether every row of q, k, v and dO is a run of 16-byte vectors that
+// cp.async can copy: 16-byte aligned heads and rows, unit stride along d,
+// and d * sizeof(T) a multiple of 16.
+template <typename T>
+bool vec_rows(const Args& a) {
+  constexpr long long kSize = sizeof(T);
+  if ((a.d * kSize) % 16 != 0) return false;
+  const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
+  for (int i = 0; i < 4; ++i) {
+    const Strides& s = a.st[i];
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0 || s.d != 1 ||
+        (s.s * kSize) % 16 != 0 || (a.B > 1 && (s.b * kSize) % 16 != 0) ||
+        (a.H > 1 && (s.h * kSize) % 16 != 0)) {
+      return false;
+    }
+  }
+  return true;
+}
+
 template <typename T, int D>
 cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
-  const int bytes = dkv_smem_floats<D>() * static_cast<int>(sizeof(float));
+  constexpr int bytes = dkv_smem_bytes<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sk + kTile - 1) / kTile, a.B * a.H);
+  const dim3 grid((a.Sk + kRows - 1) / kRows, a.B * a.H);
   flash_bwd_dkv_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.di,
       static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.st[0], a.st[1],
       a.st[2], a.st[3], a.st[4], a.st[5], a.H, a.Sq, a.Sk, a.d, a.scale,
-      a.scale * kLog2e, a.causal);
+      a.scale * kLog2e, a.causal, vec_rows<T>(a));
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
-  const int bytes = dq_smem_floats<D>() * static_cast<int>(sizeof(float));
+  constexpr int bytes = dq_smem_bytes<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sq + kTile - 1) / kTile, a.B * a.H);
+  const dim3 grid((a.Sq + kRows - 1) / kRows, a.B * a.H);
   flash_bwd_dq_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, a.di,
       static_cast<T*>(a.dq), a.st[0], a.st[1], a.st[2], a.st[3], a.st[4],
-      a.H, a.Sq, a.Sk, a.d, a.scale, a.scale * kLog2e, a.causal);
+      a.H, a.Sq, a.Sk, a.d, a.scale, a.scale * kLog2e, a.causal,
+      vec_rows<T>(a));
   return cudaGetLastError();
 }
 

@@ -3,13 +3,14 @@
 Each kernel is one CUDA C++ source under csrc/ with a plain C interface.
 At first use it is compiled with nvcc for Hopper (sm_90a) into a shared
 library under _build/ and loaded with ctypes. The library's file name
-carries a digest of the source and the flags, so an edited source builds
-anew. Nothing here runs at import: a machine without nvcc or a card imports
+carries a digest of the source, of every shared header (csrc/*.cuh) and of
+the flags, so an edited source or header builds anew. Nothing here runs at import: a machine without nvcc or a card imports
 the package and takes the plain PyTorch paths on CPU tensors.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -38,8 +39,15 @@ def _nvcc():
 
 
 def lib_path(name):
-    with open(os.path.join(CSRC, name + '.cu'), 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
+    """The library kernel `name` builds into: its digest covers the source,
+    every header under csrc/ (any source may include any of them) and the
+    flags."""
+    digest = hashlib.sha256()
+    headers = sorted(glob.glob(os.path.join(CSRC, '*.cuh')))
+    for path in [os.path.join(CSRC, name + '.cu')] + headers:
+        with open(path, 'rb') as f:
+            digest.update(os.path.basename(path).encode() + f.read())
+    digest.update(' '.join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, 'lib%s-%s.so' % (name,
                                                     digest.hexdigest()[:16]))
 

@@ -26,9 +26,11 @@ CUDA cores either way (tensor cores, wgmma and TMA are later work). The
 [Sq, Sk] score matrix never goes to device memory.
 
 The backward kernels do 8·B·H·Sq·Sk·D (dkv) and 6·B·H·Sq·Sk·D (dq)
-operations: 12.9 and 9.7 GFLOP at BERT-base's batch 8, 192 and 144 µs at
-the f32 peak, bound by operations as the forward is (csrc/flash_attn_bwd.cu
-has the design).
+operations: 12.9 and 9.7 GFLOP at BERT-base's batch 8, 13 and 10 µs at the
+bf16 tensor-core peak, 192 and 144 µs at the f32 CUDA-core peak, bound by
+operations as the forward is. They run every product on the tensor cores
+(mma.sync): bf16 with f32 accumulators, f32 in the 3xTF32 split, which
+keeps about f32 accuracy (csrc/flash_attn_bwd.cu has the design).
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version (`flash_attention_reference` with `flash_attention_reference_lse`,
@@ -85,28 +87,33 @@ def _scores(q, k, causal, scale):
 
 
 def _probs_and_ds(q, k, v, do, lse, di, causal, scale):
-    """P recomputed from the log-sum-exp, and dS = P·(dO·Vᵀ - di), f32."""
+    """P recomputed from the log-sum-exp, and dS = scale·P·(dO·Vᵀ - di),
+    each computed in f32 and then rounded to q's dtype, as the TPU kernels
+    round them before their second products (jax/experimental/pallas/ops/
+    tpu/flash_attention.py: p.T.astype :900, ds.T.astype :918, ds.astype
+    :1258, the scale already in ds); a no-op in f32. Returned as f32."""
     p = torch.exp(_scores(q, k, causal, scale) - lse[..., None])
     dp = torch.einsum('bhqd,bhkd->bhqk', do.float(), v.float())
-    return p, p * (dp - di[..., None])
+    ds = p * (dp - di[..., None]) * scale
+    return p.to(q.dtype).float(), ds.to(q.dtype).float()
 
 
 def flash_attn_bwd_dkv_reference(q, k, v, do, lse, di, causal=False,
                                  scale=1.0):
-    """The plain version of K2-bwd-dkv: (dK, dV) in q's dtype, computed in
-    f32 as the kernel computes them: dV = Pᵀ·dO, dK = scale·dSᵀ·Q."""
+    """The plain version of K2-bwd-dkv: (dK, dV) in q's dtype, dV = Pᵀ·dO
+    and dK = dSᵀ·Q in f32 from P and dS rounded as _probs_and_ds says."""
     p, ds = _probs_and_ds(q, k, v, do, lse, di, causal, scale)
     dv = torch.einsum('bhqk,bhqd->bhkd', p, do.float())
-    dk = torch.einsum('bhqk,bhqd->bhkd', ds, q.float()) * scale
+    dk = torch.einsum('bhqk,bhqd->bhkd', ds, q.float())
     return dk.to(q.dtype), dv.to(q.dtype)
 
 
 def flash_attn_bwd_dq_reference(q, k, v, do, lse, di, causal=False,
                                 scale=1.0):
-    """The plain version of K2-bwd-dq: dQ = scale·dS·K in q's dtype,
-    computed in f32."""
+    """The plain version of K2-bwd-dq: dQ = dS·K in q's dtype, in f32 from
+    dS rounded as _probs_and_ds says."""
     _, ds = _probs_and_ds(q, k, v, do, lse, di, causal, scale)
-    return (torch.einsum('bhqk,bhkd->bhqd', ds, k.float()) * scale).to(q.dtype)
+    return torch.einsum('bhqk,bhkd->bhqd', ds, k.float()).to(q.dtype)
 
 
 def tolerance(v):
@@ -123,10 +130,12 @@ def tolerance(v):
 
 def grad_tolerance(ref):
     """A backward kernel's absolute tolerance against its plain version,
-    scaled by max|ref| of the gradient compared. Both compute in f32 from
-    the same inputs, LSE and di, so they differ by summation order and
-    exp2 against exp (f32: 1e-5) and, in bf16, by where the output's one
-    rounding lands (2**-7, one bf16 ulp of the largest value)."""
+    scaled by max|ref| of the gradient compared. Both start from the same
+    inputs, LSE and di and accumulate in f32, so they differ by summation
+    order, exp2 against exp and, in f32, the kernel's 3xTF32 products
+    (about 2**-22 of each product; f32: 1e-5). In bf16 both round P, dS
+    and the output to bf16, so they differ by where the output's rounding
+    lands (2**-7, one bf16 ulp of the largest value)."""
     rel = 1e-5 if ref.dtype == torch.float32 else 2.0 ** -7
     return rel * float(ref.float().abs().max())
 
@@ -260,8 +269,11 @@ def flash_attn_bwd_dkv(q, k, v, do, lse, di, causal=False, scale=1.0):
     """(dK, dV) of flash_attn_fwd, [B, H, Sk, D] in q's dtype, from q, k, v,
     the output's gradient dO [B, H, Sq, D] (any strides), and the f32
     [B, H, Sq] log-sum-exp of the forward and di = rowsum(dO·O). On CUDA
-    tensors this launches K2-bwd-dkv or raises. dK and dV are [B, H, Sk, D]
-    views of [B, Sk, H, D] memory, so the head split's gradient is a view."""
+    tensors this launches K2-bwd-dkv or raises: bf16 inputs multiply bf16
+    operands on the tensor cores with f32 accumulation, f32 inputs use the
+    3xTF32 split there (about f32 accuracy; csrc/flash_attn_bwd.cu). dK
+    and dV are [B, H, Sk, D] views of [B, Sk, H, D] memory, so the head
+    split's gradient is a view."""
     _check_bwd('flash_attn_bwd_dkv', q, k, v, do, lse, di, causal)
     if q.device.type in ('cpu', 'meta'):
         return flash_attn_bwd_dkv_reference(q, k, v, do, lse, di, causal,
@@ -285,7 +297,8 @@ def flash_attn_bwd_dkv(q, k, v, do, lse, di, causal=False, scale=1.0):
 def flash_attn_bwd_dq(q, k, v, do, lse, di, causal=False, scale=1.0):
     """dQ of flash_attn_fwd, [B, H, Sq, D] in q's dtype (a view of
     [B, Sq, H, D] memory), from the same inputs as flash_attn_bwd_dkv. On
-    CUDA tensors this launches K2-bwd-dq or raises."""
+    CUDA tensors this launches K2-bwd-dq or raises, with the arithmetic of
+    flash_attn_bwd_dkv."""
     _check_bwd('flash_attn_bwd_dq', q, k, v, do, lse, di, causal)
     if q.device.type in ('cpu', 'meta'):
         return flash_attn_bwd_dq_reference(q, k, v, do, lse, di, causal,

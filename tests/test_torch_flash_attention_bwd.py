@@ -11,9 +11,13 @@ paddle_tpu's fused_multihead_attention op.
    and _flash_attention_bwd_dq. The port's flash_attention_reference_lse,
    flash_attn_bwd_dkv_reference and flash_attn_bwd_dq_reference, fed the
    same q, k, v, dO and di = rowsum(dO·O), must give the same LSE, dK, dV
-   and dQ. Tolerance 1e-5 of each tensor's largest value: f32 on both
-   sides, the kernels sum block by block and the plain versions in one
-   product.
+   and dQ, in f32 and in bf16. Tolerance 1e-5 of each tensor's largest
+   value for the LSE (f32 from the same inputs in both dtypes) and for the
+   f32 gradients: the kernels sum block by block and the plain versions in
+   one product. bf16 gradients: 2**-7 (one bf16 ulp of the largest value),
+   because both round P, dS and the gradient to bf16 from f32 values that
+   differ in summation order, so an entry may land one bf16 step apart;
+   these cases land within 1.7e-3.
 2. paddle_tpu's fused_multihead_attention lowering on the CPU is the
    composition (scale on q, masked softmax, two einsums); jax.vjp of it is
    the gradient the JAX package's training takes here. FlashAttention on
@@ -58,13 +62,17 @@ def _close(got, want, rel, name):
     assert err <= tol, '%s: max abs err %r > %r' % (name, err, tol)
 
 
-@pytest.mark.parametrize('b,h,s,d,causal', [
-    (1, 2, 256, 64, False),
-    (1, 2, 256, 64, True),
-    (2, 2, 256, 32, True),
-])
-def test_plain_versions_match_jax_tpu_kernels(b, h, s, d, causal):
-    q, k, v, do = _arrays((b, h, s, d), (b, h, s, d), seed=s + d)
+_TPU_CASES = [(1, 2, 256, 64, False), (1, 2, 256, 64, True),
+              (2, 2, 256, 32, True)]
+
+
+@pytest.mark.parametrize('b,h,s,d,causal,dtype', [
+    pytest.param(*case, dtype, id='-'.join(
+        [str(x) for x in case] + ([] if dtype == 'float32' else [dtype])))
+    for dtype in ('float32', 'bfloat16') for case in _TPU_CASES])
+def test_plain_versions_match_jax_tpu_kernels(b, h, s, d, causal, dtype):
+    arrays = _arrays((b, h, s, d), (b, h, s, d), seed=s + d)
+    q, k, v, do = (jnp.asarray(a, jnp.dtype(dtype)) for a in arrays)
     scale = d ** -0.5
 
     def f(q, k, v):
@@ -73,21 +81,25 @@ def test_plain_versions_match_jax_tpu_kernels(b, h, s, d, causal):
 
     with pltpu.force_tpu_interpret_mode():
         out, vjp = jax.vjp(f, q, k, v)
-        dq, dk, dv = vjp(jnp.asarray(do))
+        dq, dk, dv = vjp(do)
         _, l, m = jfa._flash_attention(q, k, v, None, None, True, causal,
                                        scale, _BLOCKS, False)
-    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tdo = (torch.from_numpy(np.asarray(a, np.float32)).to(tdt)
+                       for a in (q, k, v, do))
     lse = fa.flash_attention_reference_lse(tq, tk, causal, scale)
     _close(lse, np.asarray(m) + np.log(np.asarray(l)), 1e-5, 'lse')
     # di from the TPU kernel's own output, as JAX's backward computes it
-    di = (tdo * torch.from_numpy(np.array(out))).sum(-1)
+    di = (tdo.float() * torch.from_numpy(np.asarray(out, np.float32))).sum(-1)
     got_dk, got_dv = fa.flash_attn_bwd_dkv_reference(tq, tk, tv, tdo, lse,
                                                      di, causal, scale)
     got_dq = fa.flash_attn_bwd_dq_reference(tq, tk, tv, tdo, lse, di,
                                             causal, scale)
-    _close(got_dq, dq, 1e-5, 'dq')
-    _close(got_dk, dk, 1e-5, 'dk')
-    _close(got_dv, dv, 1e-5, 'dv')
+    rel = 1e-5 if dtype == 'float32' else 2.0 ** -7
+    for name, got, want in (('dq', got_dq, dq), ('dk', got_dk, dk),
+                            ('dv', got_dv, dv)):
+        assert got.dtype == tdt, (name, got.dtype)
+        _close(got.float(), want, rel, name)
 
 
 class _Ctx(object):

@@ -9,7 +9,9 @@ Run on a machine with an NVIDIA GPU (no jax needed):
 
 Without a card the tests skip. Tolerances: flash_attention.grad_tolerance
 for the gradients (1e-5 of the largest value in f32, 2**-7 in bf16; its
-docstring says why) and 1e-5 of the largest |lse| for the log-sum-exp.
+docstring says why) and 1e-5 of the largest |lse| for the log-sum-exp;
+two launches on the same inputs, and the kernels' two ways of filling
+their tiles (cp.async and plain loads), agree bit for bit.
 """
 import numpy as np
 import pytest
@@ -78,10 +80,48 @@ def _check_backward(b, h, sq, sk, d, causal, dtype):
     (2, 4, 512, 512, 32, False),
     (2, 4, 512, 512, 128, True),
     (1, 2, 77, 300, 40, False),     # D not a template width
+    (2, 4, 65, 65, 64, False),      # one row past a 64-row tile in both kernels
+    (2, 4, 65, 65, 128, True),      # ... and past D=128's 32-row steps
 ])
 def test_backward_kernels_match_plain(dtype, b, h, sq, sk, d, causal):
     _need_card()
     _check_backward(b, h, sq, sk, d, causal, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_two_launches_are_bit_identical(dtype):
+    """No atomics and a fixed order of summation: the same inputs give the
+    same bits, launch after launch."""
+    _need_card()
+    q, k, v, do = _tensors(2, 12, 300, 300, 64, dtype, seed=2)
+    out, lse = fa.flash_attn_fwd(q, k, v, True, 0.125, return_lse=True)
+    di = (do.float() * out.float()).sum(-1)
+    runs = [fa.flash_attn_bwd_dkv(q, k, v, do, lse, di, True, 0.125)
+            + (fa.flash_attn_bwd_dq(q, k, v, do, lse, di, True, 0.125),)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, first, second in zip(('dk', 'dv', 'dq'), *runs):
+        assert torch.equal(first, second), name
+
+
+@pytest.mark.cuda
+def test_strided_rows_take_the_plain_load_path():
+    """d-strided operands (no 16-byte rows) take the kernels' plain loads
+    instead of cp.async; the result is the same function."""
+    _need_card()
+    q, k, v, do = _tensors(1, 4, 130, 130, 64, torch.float32, seed=3)
+    qs = torch.empty(1, 4, 130, 128, device='cuda')[..., ::2]
+    qs.copy_(q)
+    out, lse = fa.flash_attn_fwd(q, k, v, False, 0.125, return_lse=True)
+    di = (do.float() * out.float()).sum(-1)
+    got = fa.flash_attn_bwd_dkv(qs, k, v, do, lse, di, False, 0.125) + (
+        fa.flash_attn_bwd_dq(qs, k, v, do, lse, di, False, 0.125),)
+    want = fa.flash_attn_bwd_dkv(q, k, v, do, lse, di, False, 0.125) + (
+        fa.flash_attn_bwd_dq(q, k, v, do, lse, di, False, 0.125),)
+    torch.cuda.synchronize()
+    for name, a, b in zip(('dk', 'dv', 'dq'), got, want):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
