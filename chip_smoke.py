@@ -62,8 +62,13 @@ KERNEL_REPS = 50
 SPIN_CYCLES = 100_000_000  # ~50 ms at the H100's ~2 GHz SM clock
 # H100 SXM peaks (NVIDIA H100 data sheet)
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+F32_OPS_PER_S = 67e12       # f32 on the CUDA cores
+TF32_OPS_PER_S = 495e12     # TF32 on the tensor cores
 BF16_OPS_PER_S = 989e12
+# the K2 kernels' f32 products run in the 3xTF32 split: three TF32
+# products for each f32 one, so the least time of an f32 product is its
+# operations at a third of the TF32 rate
+F32_3XTF32_OPS_PER_S = TF32_OPS_PER_S / 3
 L2_BYTES = 50 * 2 ** 20
 
 # the (C, H, W) of ResNet-50's 53 batch_norm outputs at 224x224, with counts
@@ -396,16 +401,22 @@ def _qkv(b, h, sq, sk, d, dtype, gen):
 def phase_flash_vs_plain():
     """flash_attn_fwd vs flash_attention_reference at K2_CASES, f32 and
     bf16, scale D**-0.5. Tolerance: fa.tolerance, 1e-5 * max|v| in f32
-    (summation order) and 2**-6 * max|v| in bf16 (the plain version rounds
-    the scores and P to bf16, the kernel does not)."""
+    (summation order and the 3xTF32 products) and 2**-6 * max|v| in bf16
+    (the plain version rounds q*scale and the scores to bf16, the kernel
+    does not). A second launch on the same inputs must give the same bits
+    (no atomics)."""
     gen = torch.Generator(device='cuda').manual_seed(SEED + 5)
     max_abs = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for b, h, sq, sk, d, causal in K2_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = _qkv(b, h, sq, sk, d, dtype, gen)
             out = fa.flash_attn_fwd(q, k, v, causal, d ** -0.5)
+            again = fa.flash_attn_fwd(q, k, v, causal, d ** -0.5)
             ref = fa.flash_attention_reference(q, k, v, causal, d ** -0.5)
             torch.cuda.synchronize()
+            check(torch.equal(out, again), 'flash_attn_fwd differs between '
+                  'two launches at %s causal=%s %s' % ((b, h, sq, sk, d),
+                                                       causal, dtype))
             err = float((out.float() - ref.float()).abs().max())
             tol = fa.tolerance(v)
             max_abs[dtype] = max(max_abs[dtype], err)
@@ -547,13 +558,16 @@ def phase_flash_times():
     """flash_attn_fwd, its plain version and scaled_dot_product_attention
     at the BERT-base attention shapes (batch 1 and 8, S=512, non-causal),
     f32 and bf16, beside the bound: max(bytes of q, k, v, o / HBM rate,
-    4*B*H*S*S*D operations / the dtype's peak rate)."""
+    4*B*H*S*S*D operations / the dtype's peak rate: the tensor cores' bf16
+    rate, and for f32 the 3xTF32 rate, a third of TF32's), with the f32
+    CUDA-core bound beside it, the kernel's TFLOP/s and its time as a
+    ratio to SDPA's."""
     gen = torch.Generator(device='cuda').manual_seed(SEED + 8)
     h, s, d = BERT['n_head'], BERT['max_len'], BERT['d_model'] // BERT['n_head']
     scale = d ** -0.5
     rows = {}
     for b in BERT_BATCHES:
-        for dtype, peak in ((torch.float32, F32_OPS_PER_S),
+        for dtype, peak in ((torch.float32, F32_3XTF32_OPS_PER_S),
                             (torch.bfloat16, BF16_OPS_PER_S)):
             size = dtype.itemsize
             nbytes = 4 * b * h * s * d * size
@@ -572,13 +586,21 @@ def phase_flash_times():
             bound = max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3
             by = 'operations' if ops / peak > nbytes / HBM_BYTES_PER_S \
                 else 'bytes'
+            cuda_core = max(nbytes / HBM_BYTES_PER_S,
+                            ops / F32_OPS_PER_S) * 1e3
             key = (b, str(dtype)[6:])
             rows[key] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                             bound_ms=bound, bound_by=by)
+                             bound_ms=bound, bound_by=by,
+                             tflops=ops / ms * 1e-9, vs_sdpa=ms / lib)
+            if dtype == torch.float32:
+                rows[key]['cuda_core_bound_ms'] = cuda_core
             print('k2_time shape=%s dtype=%s kernel_ms=%r bound_ms=%r (%s) '
-                  'plain_ms=%r sdpa_ms=%r bound_share=%.3f tflops=%.2f' % (
+                  'plain_ms=%r sdpa_ms=%r bound_share=%.3f tflops=%.2f '
+                  'kernel/sdpa=%.3f%s' % (
                       (b, h, s, s, d), key[1], ms, bound, by, plain, lib,
-                      bound / ms, ops / ms * 1e-9))
+                      bound / ms, ops / ms * 1e-9, ms / lib,
+                      ' cuda_core_bound_ms=%r' % cuda_core
+                      if dtype == torch.float32 else ''))
             del sets
     return rows
 
@@ -816,18 +838,19 @@ def phase_flash_bwd_times():
     """K2-bwd-dkv, K2-bwd-dq and their plain versions at the batch-8
     BERT-base training shape, f32 and bf16, beside each kernel's bound:
     max(bytes of q, k, v, dO, lse, di read and the gradients written /
-    HBM rate, 8 (dkv) or 6 (dq) * B*H*S*S*D operations / the dtype's peak),
-    and each kernel's TFLOP/s. The library's yardstick is
-    scaled_dot_product_attention's backward (autograd of it, forward and
-    backward, less its forward), which computes dQ, dK and dV in one call,
-    so the pair dkv + dq is also given as a ratio to it."""
+    HBM rate, 8 (dkv) or 6 (dq) * B*H*S*S*D operations / the dtype's peak:
+    bf16 on the tensor cores, f32 at the 3xTF32 rate, with the f32
+    CUDA-core bound beside it), and each kernel's TFLOP/s. The library's
+    yardstick is scaled_dot_product_attention's backward (autograd of it,
+    forward and backward, less its forward), which computes dQ, dK and dV
+    in one call, so the pair dkv + dq is also given as a ratio to it."""
     gen = torch.Generator(device='cuda').manual_seed(SEED + 12)
     b, h, s = TRAIN_BATCH, BERT['n_head'], BERT['max_len']
     d = BERT['d_model'] // h
     scale = d ** -0.5
     numel = b * h * s * d
     rows = {}
-    for dtype, peak in ((torch.float32, F32_OPS_PER_S),
+    for dtype, peak in ((torch.float32, F32_3XTF32_OPS_PER_S),
                         (torch.bfloat16, BF16_OPS_PER_S)):
         size = dtype.itemsize
         copies = max(2, math.ceil(2 * L2_BYTES / (4 * numel * size)))
@@ -864,12 +887,19 @@ def phase_flash_bwd_times():
             rows[name, str(dtype)[6:]] = dict(
                 ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
                 bound_by=by, tflops=ops / ms * 1e-9)
+            cuda_core = ''
+            if dtype == torch.float32:
+                rows[name, 'float32']['cuda_core_bound_ms'] = max(
+                    nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+                cuda_core = ' cuda_core_bound_ms=%r' % (
+                    rows[name, 'float32']['cuda_core_bound_ms'])
             print('k2_bwd_time %s shape=%s dtype=%s kernel_ms=%r '
                   'bound_ms=%r (%s) plain_ms=%r sdpa_bwd_ms=%r (dq, dk and '
                   'dv together; sdpa fwd+bwd %r, fwd %r) bound_share=%.3f '
-                  'tflops=%.2f' % (name, (b, h, s, s, d), str(dtype)[6:], ms,
-                                   bound, by, plain, lib, lib_all, lib_fwd,
-                                   bound / ms, ops / ms * 1e-9))
+                  'tflops=%.2f%s' % (name, (b, h, s, s, d), str(dtype)[6:],
+                                     ms, bound, by, plain, lib, lib_all,
+                                     lib_fwd, bound / ms, ops / ms * 1e-9,
+                                     cuda_core))
         pair = (rows['flash_attn_bwd_dkv', str(dtype)[6:]]['ms']
                 + rows['flash_attn_bwd_dq', str(dtype)[6:]]['ms'])
         for name in ('flash_attn_bwd_dkv', 'flash_attn_bwd_dq'):
@@ -974,6 +1004,7 @@ def main():
             'ms': row['ms'], 'plain_ms': row['plain_ms'],
             'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
             'library_ms': row['library_ms'], 'tflops': row['tflops'],
+            'cuda_core_bound_ms': row['cuda_core_bound_ms'],
             'pair_vs_sdpa_bwd': row['pair_vs_sdpa_bwd'],
             'library_call': 'scaled_dot_product_attention backward '
                             '(dq, dk and dv together)',
@@ -1003,7 +1034,9 @@ def main():
                   BERT['d_model'] // BERT['n_head']],
         'ms': k2['ms'], 'plain_ms': k2['plain_ms'],
         'bound_ms': k2['bound_ms'], 'bound_by': k2['bound_by'],
-        'library_ms': k2['library_ms'],
+        'library_ms': k2['library_ms'], 'tflops': k2['tflops'],
+        'vs_sdpa': k2['vs_sdpa'],
+        'cuda_core_bound_ms': k2['cuda_core_bound_ms'],
         'by_shape': {'%d/%s' % key: row for key, row in k2_rows.items()}}]
         + bwd_entries}))
     print(card_line())

@@ -77,10 +77,10 @@
 //   strides the wrapper passes (it allocates [B, S, H, D] memory).
 // Resources (nvcc 12.9 -Xptxas -v, sm_90a), D = 32 / 64 / 128:
 //   dkv bf16: 166 / 166 / 246 registers, 31 / 55 / 68.5 KB shared memory;
-//   dkv f32:  165 / 254 / 255 registers, 36.5 / 68.5 / 99.2 KB (D = 128
+//   dkv f32:  166 / 254 / 255 registers, 36.5 / 68.5 / 99.2 KB (D = 128
 //             spills 540 bytes);
 //   dq bf16:  128 / 128 / 127 registers, 30 / 54 / 68 KB;
-//   dq f32:   128 / 254 / 250 registers, 36 / 68 / 99 KB.
+//   dq f32:   126 / 255 / 254 registers, 36 / 68 / 99 KB.
 // At D = 64 that is 3 blocks (12 warps) an SM for bf16 dkv, 4 for bf16 dq
 // and 2 for f32. Each launch raises the dynamic shared-memory limit first.
 //
@@ -93,6 +93,7 @@
 
 #include <cstdint>
 
+#include "attn_tiles.cuh"
 #include "mma_frag.cuh"
 
 namespace {
@@ -102,46 +103,15 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kWarps;  // keys of a dkv block, queries of a dq one
 constexpr float kLog2e = 1.4426950408889634f;
 
-struct Strides {
-  long long b, h, s, d;  // in elements
-};
+using ptpu::load_tile;
+using ptpu::store_rows;
+using ptpu::Strides;
 
 // Query (dkv) or key (dq) rows a loop step takes: 64, halved at D = 128,
 // where the accumulators are largest, and halved again for f32, whose tf32
 // products also hold a partial sum (mma_frag.cuh).
 template <typename T, int D>
 constexpr int kStepRows = (D <= 64 ? 64 : 32) / (sizeof(T) == 4 ? 2 : 1);
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-// Rows [r0, r0 + ROWS) of one head of x into dst, rows of D + kPad<T>
-// elements, zero past `rows` and past `d`. vec: 16-byte cp.async (the
-// caller commits and waits); else plain loads and stores.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(T* __restrict__ dst,
-                                          const T* __restrict__ x, Strides st,
-                                          int r0, int rows, int d, bool vec) {
-  constexpr int LD = D + ptpu::kPad<T>;
-  if (vec) {
-    constexpr int kChunk = 16 / static_cast<int>(sizeof(T));
-    constexpr int kPerRow = D / kChunk;
-    for (int i = threadIdx.x; i < ROWS * kPerRow; i += kThreads) {
-      const int r = i / kPerRow, c = (i % kPerRow) * kChunk;
-      const bool ok = r0 + r < rows && c < d;
-      ptpu::cp_async16(dst + r * LD + c, ok ? x + (r0 + r) * st.s + c : x, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < ROWS * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      T val = T(0.f);
-      if (r0 + r < rows && c < d) val = x[(r0 + r) * st.s + c * st.d];
-      dst[r * LD + c] = val;
-    }
-  }
-}
 
 // ROWS f32 values x[r0..] into dst, zero past `rows`, by 4-byte cp.async.
 template <int ROWS>
@@ -151,28 +121,6 @@ __device__ __forceinline__ void load_rows(float* __restrict__ dst,
   for (int i = threadIdx.x; i < ROWS; i += kThreads) {
     const bool ok = r0 + i < rows;
     ptpu::cp_async4(dst + i, ok ? x + r0 + i : x, ok);
-  }
-}
-
-// A warp's accumulator, 16 rows x D, into out's rows r0 .. r0 + 15,
-// skipping rows past `rows` and columns past d.
-template <typename T, int ND>
-__device__ __forceinline__ void store_rows(T* __restrict__ out, Strides st,
-                                           const float (&acc)[ND][4], int r0,
-                                           int rows, int d, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = r0 + g + 8 * half;
-    if (row >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < ND; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = j * 8 + 2 * t + e;
-        if (col < d) store(out + row * st.s + col * st.d, acc[j][2 * half + e]);
-      }
-    }
   }
 }
 
@@ -229,13 +177,15 @@ __global__ void __launch_bounds__(kThreads)
     m_begin = first / BQ * BQ;
   }
   auto load_step = [&](int m0, int buf) {
-    load_tile<T, D, BQ>(Qs + buf * BQ * LD, qh, sq, m0, Sq, d, vec);
-    load_tile<T, D, BQ>(dOs + buf * BQ * LD, doh, sdo, m0, Sq, d, vec);
+    load_tile<T, D, BQ, kThreads>(
+        Qs + buf * BQ * LD, qh, sq, m0, Sq, d, vec);
+    load_tile<T, D, BQ, kThreads>(
+        dOs + buf * BQ * LD, doh, sdo, m0, Sq, d, vec);
     load_rows<BQ>(lse_s + buf * BQ, lse_h, m0, Sq);
     load_rows<BQ>(di_s + buf * BQ, di_h, m0, Sq);
   };
-  load_tile<T, D, kRows>(Ks, kh, sk, n0, Sk, d, vec);
-  load_tile<T, D, kRows>(Vs, vh, sv, n0, Sk, d, vec);
+  load_tile<T, D, kRows, kThreads>(Ks, kh, sk, n0, Sk, d, vec);
+  load_tile<T, D, kRows, kThreads>(Vs, vh, sv, n0, Sk, d, vec);
   if (m_begin < Sq) load_step(m_begin, 0);
   ptpu::cp_async_commit();
 
@@ -338,11 +288,11 @@ __global__ void __launch_bounds__(kThreads)
     n_end = last < Sk ? last : Sk;
   }
   auto load_step = [&](int n0, int buf) {
-    load_tile<T, D, BK>(Ks + buf * BK * LD, kh, sk, n0, Sk, d, vec);
-    load_tile<T, D, BK>(Vs + buf * BK * LD, vh, sv, n0, Sk, d, vec);
+    load_tile<T, D, BK, kThreads>(Ks + buf * BK * LD, kh, sk, n0, Sk, d, vec);
+    load_tile<T, D, BK, kThreads>(Vs + buf * BK * LD, vh, sv, n0, Sk, d, vec);
   };
-  load_tile<T, D, kRows>(Qs, qh, sq, m0, Sq, d, vec);
-  load_tile<T, D, kRows>(dOs, doh, sdo, m0, Sq, d, vec);
+  load_tile<T, D, kRows, kThreads>(Qs, qh, sq, m0, Sq, d, vec);
+  load_tile<T, D, kRows, kThreads>(dOs, doh, sdo, m0, Sq, d, vec);
   load_step(0, 0);
   ptpu::cp_async_commit();
 
@@ -425,19 +375,13 @@ struct Args {
   int causal;
 };
 
-// Whether every row of q, k, v and dO is a run of 16-byte vectors that
-// cp.async can copy: 16-byte aligned heads and rows, unit stride along d,
-// and d * sizeof(T) a multiple of 16.
+// Whether every row of q, k, v and dO is a run of 16-byte vectors
+// (attn_tiles.cuh).
 template <typename T>
 bool vec_rows(const Args& a) {
-  constexpr long long kSize = sizeof(T);
-  if ((a.d * kSize) % 16 != 0) return false;
   const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
   for (int i = 0; i < 4; ++i) {
-    const Strides& s = a.st[i];
-    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0 || s.d != 1 ||
-        (s.s * kSize) % 16 != 0 || (a.B > 1 && (s.b * kSize) % 16 != 0) ||
-        (a.H > 1 && (s.h * kSize) % 16 != 0)) {
+    if (!ptpu::rows_are_vectors<T>(ptrs[i], a.st[i], a.B, a.H, a.d)) {
       return false;
     }
   }

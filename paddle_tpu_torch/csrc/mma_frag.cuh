@@ -24,16 +24,16 @@
 //   (FlashAttention-2's accumulator-to-operand reuse), X in shared memory,
 //   row-major [k][n] (dV += P^T dO, dK += dS^T Q, dQ += dS K).
 // Tiles in shared memory have rows of D + kPad<T> elements: 16 bytes of
-// padding make ldmatrix (bf16; 8 rows of 16 bytes a phase) and the tf32
-// fragment loads (f32; rows a multiple of 32 banks plus 4 apart) free of
-// bank conflicts.
+// padding make ldmatrix (either dtype; 8 rows of 16 bytes a phase) and
+// mma_rt's tf32 fragment loads (f32; rows a multiple of 32 banks plus 4
+// apart) free of bank conflicts.
 //
 // bf16 operands run m16n8k16 with f32 accumulators; the accumulator is
 // rounded to bf16 (round to nearest even) when it becomes an A operand
 // (set_tile).
 // f32 operands run m16n8k8 TF32 in the 3xTF32 split: x = hi + lo with
 // hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest, ties away
-// (cvt.rna), and a*b ~ a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, accumulated in
+// (tf32_rna), and a*b ~ a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, accumulated in
 // f32. hi carries 11 significant bits and lo the next 11, so each operand
 // keeps ~22 of f32's 24 bits and the dropped a_lo*b_lo term is ~2^-22 of
 // the product: about f32 accuracy from TF32 tensor cores.
@@ -124,10 +124,16 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// x rounded to tf32 (10 explicit mantissa bits), to nearest, ties away
+// from zero: half of the 13 dropped bits added to the magnitude, then
+// cleared. This is cvt.rna.tf32.f32 for every finite x and for infinities
+// (a carry into the exponent rounds up to the next power of two or to
+// infinity) in two integer operations; sm_90 has no single instruction
+// for the cvt, which also screens NaN. A NaN may come out as an infinity
+// here, but its split's lo part, x - hi, is NaN, so NaN still reaches
+// the product.
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
@@ -197,36 +203,44 @@ template <typename T, int KD, int NT>
 __device__ __forceinline__ void mma_nt(float (&acc)[NT][4],
                                        const T* __restrict__ A,
                                        const T* __restrict__ B, int lane) {
+  static_assert(NT % 2 == 0, "B tiles are loaded two at a time");
   constexpr int LD = KD + kPad<T>;
+  // ldmatrix.x4 row addresses: lane l reads row l % 8 of matrix l / 8, a
+  // row of 16 bytes: 8 bf16 or 4 f32 (kChunk). A: matrices (rows 0-7 |
+  // 8-15) x (the first | second kChunk of k) give a0..a3. B: n rows 0-7
+  // at both chunks of k (b0, b1 of tile 2jp), then n rows 8-15 (tile
+  // 2jp + 1). With 32-bit elements a lane receives element (g, t) of each
+  // 8 x 4 matrix, which is the tf32 fragment map, so f32 loads as bf16
+  // does.
+  constexpr int kChunk = 16 / static_cast<int>(sizeof(T));
+  const T* a_ptr = A + (lane & 15) * LD + (lane >> 4) * kChunk;
+  const T* b_ptr = B + ((lane & 7) + (lane >> 4) * 8) * LD +
+                   ((lane >> 3) & 1) * kChunk;
   if constexpr (std::is_same_v<T, float>) {
     // 3xTF32, the small terms of every k first, then the big ones (see
     // the note on accumulation above)
-    const int g = lane >> 2, t = lane & 3;
 #pragma unroll
     for (int pass = 0; pass < 2; ++pass) {
 #pragma unroll
       for (int kk = 0; kk < KD / 8; ++kk) {
-        const float* a_row = A + g * LD + kk * 8 + t;
-        const float a[4] = {a_row[0], a_row[8 * LD], a_row[4],
-                            a_row[8 * LD + 4]};
+        uint32_t ar[4];
+        ldmatrix_x4(ar, a_ptr + kk * 8);
+        const float a[4] = {__uint_as_float(ar[0]), __uint_as_float(ar[1]),
+                            __uint_as_float(ar[2]), __uint_as_float(ar[3])};
         uint32_t a_hi[4], a_lo[4];
         split4(a, a_hi, a_lo);
 #pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const float* b_row = B + (j * 8 + g) * LD + kk * 8 + t;
-          mma_tf32x3_pass(acc[j], a_hi, a_lo, b_row[0], b_row[4], pass);
+        for (int jp = 0; jp < NT / 2; ++jp) {
+          uint32_t b[4];
+          ldmatrix_x4(b, b_ptr + jp * 16 * LD + kk * 8);
+          mma_tf32x3_pass(acc[2 * jp], a_hi, a_lo, __uint_as_float(b[0]),
+                          __uint_as_float(b[1]), pass);
+          mma_tf32x3_pass(acc[2 * jp + 1], a_hi, a_lo, __uint_as_float(b[2]),
+                          __uint_as_float(b[3]), pass);
         }
       }
     }
   } else {
-    static_assert(NT % 2 == 0, "bf16 B tiles are loaded two at a time");
-    // ldmatrix.x4 row addresses: lane l reads row l % 8 of matrix l / 8.
-    // A: matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15) give a0..a3.
-    const T* a_ptr = A + (lane & 15) * LD + (lane >> 4) * 8;
-    // B: n rows 0-7 at k 0-7 and 8-15 (b0, b1 of tile 2jp), then n rows
-    // 8-15 (tile 2jp + 1).
-    const T* b_ptr = B + ((lane & 7) + (lane >> 4) * 8) * LD +
-                     ((lane >> 3) & 1) * 8;
 #pragma unroll
     for (int kk = 0; kk < KD / 16; ++kk) {
       uint32_t a[4];

@@ -18,19 +18,19 @@ outside its kernels (:273-275), then runs the two backward kernels.
 
 Bound on an H100 SXM: 4·B·H·Sq·Sk·D operations (two products; the exp and
 the rescaling are lower order) against the bytes of Q, K, V and O read or
-written once. BERT-base at batch 8, S=512, f32 does 6.44 GFLOP a launch,
-96 µs at the 67 TFLOP/s f32 CUDA-core peak, and moves 50 MB, 15 µs at
-3.35 TB/s: bound by operations. In bf16 the operations' bound is the
-989 TFLOP/s tensor-core peak; this first kernel computes in f32 on the
-CUDA cores either way (tensor cores, wgmma and TMA are later work). The
-[Sq, Sk] score matrix never goes to device memory.
+written once. BERT-base at batch 8, S=512 does 6.44 GFLOP a launch. All
+three kernels run every product on the tensor cores (mma.sync): bf16 with
+f32 accumulators, f32 in the 3xTF32 split (three TF32 products for each
+f32 one), which keeps about f32 accuracy (csrc/mma_frag.cuh). In bf16 the
+forward's bound is its 25 MB at 3.35 TB/s (7.5 µs; its operations take
+6.5 µs at 989 TFLOP/s); in f32, its operations at a third of the
+495 TFLOP/s TF32 rate (39 µs; 96 µs at the 67 TFLOP/s of f32 on the CUDA
+cores). The [Sq, Sk] score matrix never goes to device memory.
 
 The backward kernels do 8·B·H·Sq·Sk·D (dkv) and 6·B·H·Sq·Sk·D (dq)
 operations: 12.9 and 9.7 GFLOP at BERT-base's batch 8, 13 and 10 µs at the
-bf16 tensor-core peak, 192 and 144 µs at the f32 CUDA-core peak, bound by
-operations as the forward is. They run every product on the tensor cores
-(mma.sync): bf16 with f32 accumulators, f32 in the 3xTF32 split, which
-keeps about f32 accuracy (csrc/flash_attn_bwd.cu has the design).
+bf16 tensor-core peak, 78 and 59 µs at the f32 3xTF32 rate, bound by
+operations as the forward is (csrc/flash_attn_bwd.cu has the design).
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version (`flash_attention_reference` with `flash_attention_reference_lse`,
@@ -119,11 +119,14 @@ def flash_attn_bwd_dq_reference(q, k, v, do, lse, di, causal=False,
 def tolerance(v):
     """The kernel's absolute tolerance against flash_attention_reference,
     scaled by max|v| (every output row is a convex combination of v's rows).
-    f32: 1e-5, for summation order and exp2 vs exp; both versions land
-    within 2e-7 * max|v| of a float64 evaluation at the BERT-base shapes
-    (CPU). bf16: 2**-6, because the plain version rounds q*scale, the
-    scores, P and O to bf16 where the kernel rounds only O: a relative
-    2**-9 on scores of magnitude up to ~8 moves P by up to ~1.6%."""
+    f32: 1e-5, for summation order, exp2 vs exp and the kernel's 3xTF32
+    products; the plain version lands within 2e-7 * max|v| of a float64
+    evaluation at the BERT-base shapes, and so does an emulation of the
+    kernel's arithmetic at [1, 2, 512, 64] (CPU,
+    tests/test_torch_flash_attention_tf32x3.py).
+    bf16: 2**-6, because the plain version rounds q*scale, the scores, P
+    and O to bf16 where the kernel rounds only P and O: a relative 2**-9
+    on scores of magnitude up to ~8 moves P by up to ~1.6%."""
     rel = 1e-5 if v.dtype == torch.float32 else 2.0 ** -6
     return rel * float(v.abs().max())
 
@@ -238,11 +241,14 @@ def flash_attn_fwd(q, k, v, causal=False, scale=1.0, return_lse=False):
     kept for query i when j <= i + Sk - Sq. With return_lse, also each
     query row's log-sum-exp of the scaled scores, f32 [B, H, Sq].
 
-    On CUDA tensors this launches the kernel or raises; it never falls back.
-    The output is a [B, H, Sq, D] view of memory laid out [B, Sq, H, D], so
-    the head merge that follows it (transpose [0, 2, 1, 3], reshape) is a
-    view too. The kernel applies `scale` to the f32 scores, not to q in its
-    own dtype as the plain version does."""
+    On CUDA tensors this launches the kernel or raises; it never falls back:
+    bf16 inputs multiply bf16 operands on the tensor cores with f32
+    accumulation (P rounded to bf16 for P·V, as the TPU kernel does), f32
+    inputs use the 3xTF32 split there (about f32 accuracy). The output is a
+    [B, H, Sq, D] view of memory laid out [B, Sq, H, D], so the head merge
+    that follows it (transpose [0, 2, 1, 3], reshape) is a view too. The
+    kernel applies `scale` to the f32 scores, not to q in its own dtype as
+    the plain version does."""
     _check(q, k, v, causal)
     if q.device.type in ('cpu', 'meta'):
         out = flash_attention_reference(q, k, v, causal, scale)

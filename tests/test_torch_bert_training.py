@@ -18,7 +18,19 @@ orders):
   that is rounding noise in both packages can take a different step; the
   largest relative gap seen here was under 5e-6 of a tensor's largest
   value.
+
+What the tests take from paddle_tpu (its program, its state before, during
+and after the steps, its losses and gradients) is computed once, by this
+file run as a script in a fresh interpreter: a test file that ran earlier
+in the same pytest worker can leave jax's caches or config, or paddle_tpu's
+compile cache, in a state that breaks a later JAX run there ("Expected
+args to execute_sharded_on_local_devices to have 8 shards").
 """
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 
@@ -52,40 +64,94 @@ def _build(pkg, builder):
     return main, startup, feeds, loss
 
 
-@pytest.fixture(scope='module')
-def jax_run():
-    """paddle_tpu's program, its initial state, and per step: the loss and
-    GRADS after it; then its final state."""
-    main, startup, feeds, loss = _build(fluid, jax_bert)
-    scope = fluid.Scope()
-    exe = fluid.Executor(fluid.CPUPlace())
-    steps = []
-    with fluid.scope_guard(scope):
-        exe.run(startup)
-        state = _jax_state(main, scope)
-        for i in range(STEPS):
-            out = exe.run(main, feed=_feed(i), fetch_list=[loss] + GRADS)
-            steps.append([np.asarray(o) for o in out])
-        final = _jax_state(main, scope)
-    return dict(main=main, feeds=feeds, state=state, steps=steps,
-                final=final)
-
-
 def _jax_state(main, scope):
     return {v.name: np.array(scope.find_var(v.name).get_tensor())
             for v in main.list_vars() if v.persistable}
 
 
+def _jax_reference(root):
+    """paddle_tpu's side of the tests, written under root: its program's
+    ops (type, inputs, outputs) and feeds (program.json); its initial
+    state, and per step the loss and GRADS after it, then its final state
+    (run.npz); and the state after two steps taken by a program built anew
+    from that initial state (mid.npz)."""
+    main, startup, feeds, loss = _build(fluid, jax_bert)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CPUPlace())
+    arrays = {}
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        state = _jax_state(main, scope)
+        for i in range(STEPS):
+            out = exe.run(main, feed=_feed(i), fetch_list=[loss] + GRADS)
+            for j, o in enumerate(out):
+                arrays['step%d/%d' % (i, j)] = np.asarray(o)
+        final = _jax_state(main, scope)
+    arrays.update({'state/' + n: a for n, a in state.items()})
+    arrays.update({'final/' + n: a for n, a in final.items()})
+    np.savez(os.path.join(root, 'run.npz'), **arrays)
+    with open(os.path.join(root, 'program.json'), 'w') as f:
+        json.dump({'ops': [(op.type, op.inputs, op.outputs)
+                           for op in main.global_block().ops],
+                   'feeds': feeds}, f)
+
+    main, startup, _, loss = _build(fluid, jax_bert)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CPUPlace())
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        for name, arr in state.items():
+            scope.var(name).get_tensor().set(arr)
+        for i in range(2):
+            exe.run(main, feed=_feed(i), fetch_list=[loss])
+        np.savez(os.path.join(root, 'mid.npz'), **_jax_state(main, scope))
+
+
+def _json_round_trip(x):
+    return json.loads(json.dumps(x))
+
+
+@pytest.fixture(scope='module')
+def jax_run(tmp_path_factory):
+    """paddle_tpu's program (ops and feeds), its initial state, and per
+    step: the loss and GRADS after it; then its final state, and its state
+    after two steps from the initial one. Computed by _jax_reference in a
+    fresh interpreter (this file run as a script, with the environment the
+    tests run in)."""
+    root = str(tmp_path_factory.mktemp('jax_reference'))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get('PYTHONPATH')) if p))
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), root],
+                       cwd=repo, env=env, capture_output=True, text=True,
+                       timeout=900)
+    assert r.returncode == 0, r.stdout[-4000:] + r.stderr[-4000:]
+    with open(os.path.join(root, 'program.json')) as f:
+        program = json.load(f)
+    with np.load(os.path.join(root, 'run.npz')) as f:
+        arrays = dict(f)
+    with np.load(os.path.join(root, 'mid.npz')) as f:
+        mid = dict(f)
+    steps = [[arrays['step%d/%d' % (i, j)] for j in range(1 + len(GRADS))]
+             for i in range(STEPS)]
+    part = {key: {n.split('/', 1)[1]: a for n, a in arrays.items()
+                  if n.startswith(key + '/')} for key in ('state', 'final')}
+    return dict(ops=program['ops'], feeds=program['feeds'],
+                state=part['state'], steps=steps, final=part['final'],
+                mid=mid)
+
+
 def test_same_program_in_both_packages(jax_run):
     main, _, feeds, loss = _build(ptt, ptt_bert)
-    jmain = jax_run['main']
+    jops = jax_run['ops']
     assert [op.type for op in main.global_block().ops] == \
-        [op.type for op in jmain.global_block().ops]
-    for a, b in zip(main.global_block().ops, jmain.global_block().ops):
-        assert (a.inputs, a.outputs) == (b.inputs, b.outputs), a.type
+        [t for t, _, _ in jops]
+    for a, (t, ins, outs) in zip(main.global_block().ops, jops):
+        # compared as JSON, the form paddle_tpu's side arrives in
+        assert _json_round_trip([a.inputs, a.outputs]) == [ins, outs], t
     assert sorted(v.name for v in main.list_vars() if v.persistable) == \
         sorted(jax_run['state'])
-    assert feeds == jax_run['feeds']
+    assert _json_round_trip(feeds) == jax_run['feeds']
     assert loss.shape == (1,)
     types = {op.type for op in main.global_block().ops}
     assert {'fused_multihead_attention_grad', 'lookup_table_grad', 'adam',
@@ -133,16 +199,7 @@ def test_training_steps_match_jax(jax_run):
 def test_state_taken_mid_training_continues_in_the_port(jax_run):
     """paddle_tpu trains two steps; its whole state (moments, beta powers,
     learning rate included) goes to the port, which takes the last two."""
-    main, startup, _, loss = _build(fluid, jax_bert)
-    scope = fluid.Scope()
-    exe = fluid.Executor(fluid.CPUPlace())
-    with fluid.scope_guard(scope):
-        exe.run(startup)
-        for name, arr in jax_run['state'].items():
-            scope.var(name).get_tensor().set(arr)
-        for i in range(2):
-            exe.run(main, feed=_feed(i), fetch_list=[loss])
-        mid = _jax_state(main, scope)
+    mid = jax_run['mid']
     assert float(mid['fc_0.w_0_beta2_pow_acc_0'][0]) == \
         pytest.approx(0.999 ** 3)
     steps, final = _port_steps(mid, 2, STEPS - 2)
@@ -161,3 +218,7 @@ def test_unported_options_raise():
             ptt.unique_name.guard():
         with pytest.raises(NotImplementedError, match='checkpoints'):
             ptt_bert.build_bert_pretrain(checkpoints=True, **CFG)
+
+
+if __name__ == '__main__':
+    _jax_reference(sys.argv[1])

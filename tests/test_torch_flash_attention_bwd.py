@@ -18,6 +18,12 @@ paddle_tpu's fused_multihead_attention op.
    because both round P, dS and the gradient to bf16 from f32 values that
    differ in summation order, so an entry may land one bf16 step apart;
    these cases land within 1.7e-3.
+   The port's forward plain versions, flash_attention_reference and
+   flash_attention_reference_lse, are held against that kernel's own
+   output O and log-sum-exp (ln l + m) in f32 and bf16, with the kernel's
+   tolerance (flash_attention.tolerance: 1e-5 of max|v| in f32, 2**-6 in
+   bf16, where the plain version rounds q·scale, the scores and P to bf16
+   and the TPU kernel only P) and 1e-5 of the largest |lse|.
 2. paddle_tpu's fused_multihead_attention lowering on the CPU is the
    composition (scale on q, masked softmax, two einsums); jax.vjp of it is
    the gradient the JAX package's training takes here. FlashAttention on
@@ -100,6 +106,30 @@ def test_plain_versions_match_jax_tpu_kernels(b, h, s, d, causal, dtype):
                             ('dv', got_dv, dv)):
         assert got.dtype == tdt, (name, got.dtype)
         _close(got.float(), want, rel, name)
+
+
+@pytest.mark.parametrize('b,h,s,d,causal,dtype', [
+    pytest.param(*case, dtype, id='-'.join(
+        [str(x) for x in case] + ([] if dtype == 'float32' else [dtype])))
+    for dtype in ('float32', 'bfloat16') for case in _TPU_CASES])
+def test_plain_forward_matches_jax_tpu_forward_kernel(b, h, s, d, causal,
+                                                      dtype):
+    arrays = _arrays((b, h, s, d), (b, h, s, d), seed=s + d + 1)
+    q, k, v = (jnp.asarray(a, jnp.dtype(dtype)) for a in arrays[:3])
+    scale = d ** -0.5
+    with pltpu.force_tpu_interpret_mode():
+        out, l, m = jfa._flash_attention(q, k, v, None, None, True, causal,
+                                         scale, _BLOCKS, False)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(np.asarray(a, np.float32)).to(tdt)
+                  for a in (q, k, v))
+    got = fa.flash_attention_reference(tq, tk, tv, causal, scale)
+    assert got.dtype == tdt
+    err = float((got.float() - torch.from_numpy(
+        np.asarray(out, np.float32))).abs().max())
+    assert err <= fa.tolerance(tv), ('out', err, fa.tolerance(tv))
+    lse = fa.flash_attention_reference_lse(tq, tk, causal, scale)
+    _close(lse, np.asarray(m) + np.log(np.asarray(l)), 1e-5, 'lse')
 
 
 class _Ctx(object):

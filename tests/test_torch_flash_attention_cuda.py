@@ -6,7 +6,10 @@ Run on a machine with an NVIDIA GPU (no jax needed):
     python -m pytest --noconftest tests/test_torch_flash_attention_cuda.py
 
 Without a card the tests skip. The tolerance is flash_attention.tolerance:
-1e-5 * max|v| in f32, 2**-6 * max|v| in bf16 (its docstring says why).
+1e-5 * max|v| in f32, 2**-6 * max|v| in bf16 (its docstring says why), and
+1e-5 of the largest |lse| for the log-sum-exp. Two launches on the same
+inputs, and the kernel's two ways of filling its tiles (cp.async and plain
+loads), agree bit for bit.
 """
 import numpy as np
 import pytest
@@ -46,18 +49,78 @@ def _qkv(b, h, sq, sk, d, dtype, seed=0):
     (2, 4, 512, 512, 32, False),
     (2, 4, 512, 512, 128, False),
     (1, 2, 77, 300, 40, False),     # D not a template width
+    (2, 4, 65, 65, 64, False),      # one row and one key past a 64-row tile
+    (2, 4, 65, 65, 128, True),      # ... and past f32's 32-key steps at D=128
+    (2, 4, 128, 512, 32, True),     # D 32 and 128 under the offset mask
+    (2, 4, 128, 512, 128, True),
+    (1, 3, 70, 90, 13, True),       # rows of no 16-byte vectors: plain loads
 ])
 def test_kernel_matches_plain(dtype, b, h, sq, sk, d, causal):
     _need_card()
     q, k, v = _qkv(b, h, sq, sk, d, dtype)
     before = fa.flash_attn_fwd.launches
-    out = fa.flash_attn_fwd(q, k, v, causal=causal, scale=d ** -0.5)
+    out, lse = fa.flash_attn_fwd(q, k, v, causal=causal, scale=d ** -0.5,
+                                 return_lse=True)
     torch.cuda.synchronize()
     assert fa.flash_attn_fwd.launches == before + 1
     assert out.shape == (b, h, sq, d) and out.dtype == dtype
     ref = fa.flash_attention_reference(q, k, v, causal, d ** -0.5)
     err = float((out.float() - ref.float()).abs().max())
     assert err <= fa.tolerance(v), (err, fa.tolerance(v))
+    want_lse = fa.flash_attention_reference_lse(q, k, causal, d ** -0.5)
+    assert float((lse - want_lse).abs().max()) <= \
+        1e-5 * float(want_lse.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_two_launches_are_bit_identical(dtype):
+    """A fixed order of summation and no atomics: the same inputs give the
+    same bits, launch after launch."""
+    _need_card()
+    q, k, v = _qkv(2, 12, 300, 300, 64, dtype, seed=2)
+    runs = [fa.flash_attn_fwd(q, k, v, True, 0.125, return_lse=True)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, first, second in zip(('out', 'lse'), *runs):
+        assert torch.equal(first, second), name
+
+
+def _strided(x):
+    """x again, as a view whose stride along d is 2: no 16-byte rows."""
+    y = torch.empty(x.shape[:-1] + (2 * x.shape[-1],), dtype=x.dtype,
+                    device=x.device)[..., ::2]
+    y.copy_(x)
+    return y
+
+
+def _misaligned(x):
+    """x again, contiguous from an address one element past a 16-byte
+    boundary."""
+    y = torch.empty(x.numel() + 1, dtype=x.dtype,
+                    device=x.device)[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('layout', [_strided, _misaligned])
+def test_rows_without_vectors_take_the_plain_load_path(dtype, layout):
+    """A d-strided or misaligned operand has no 16-byte rows, so the kernel
+    fills its tiles by plain loads instead of cp.async; the tiles, and so
+    the bits of the result, are the same."""
+    _need_card()
+    q, k, v = (t.contiguous() for t in _qkv(1, 4, 130, 130, 64, dtype,
+                                            seed=3))
+    want = fa.flash_attn_fwd(q, k, v, False, 0.125, return_lse=True)
+    for i in range(3):
+        args = [q, k, v]
+        args[i] = layout(args[i])
+        got = fa.flash_attn_fwd(*args, False, 0.125, return_lse=True)
+        torch.cuda.synchronize()
+        for name, a, b in zip(('out', 'lse'), got, want):
+            assert torch.equal(a, b), (layout.__name__, i, name)
 
 
 @pytest.mark.cuda

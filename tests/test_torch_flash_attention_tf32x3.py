@@ -1,11 +1,13 @@
-"""The arithmetic of K2's f32 backward kernels, emulated on the CPU.
+"""The arithmetic of K2's f32 kernels, backward and forward, emulated on
+the CPU.
 
 csrc/flash_attn_bwd.cu runs every f32 product on the tensor cores in the
 3xTF32 split: each f32 operand x becomes hi = tf32(x) and lo = tf32(x - hi),
 rounded to nearest with ties away from zero (PTX cvt.rna.tf32.f32: 10
-explicit mantissa bits kept), and a·b is taken as a_lo·b_hi + a_hi·b_lo +
-a_hi·b_hi with f32 accumulation. Here numpy rounds f32 to TF32 the same way
-and torch forms each product of the backward (S, dP, dV, dK, dQ) from the
+explicit mantissa bits kept; csrc/mma_frag.cuh computes it with the two
+integer operations tf32_rna uses here), and a·b is taken as a_lo·b_hi +
+a_hi·b_lo + a_hi·b_hi with f32 accumulation. Here numpy rounds f32 to
+TF32 the same way and torch forms each product of the backward (S, dP, dV, dK, dQ) from the
 split in f32; the dQ, dK and dV that come out lie within grad_tolerance's
 1e-5 of the largest value of a float64 evaluation, at the BERT-base head
 shape [1, 12, 512, 64]. The same emulation with plain TF32 (one product of
@@ -18,6 +20,16 @@ number of mma calls into one accumulator. The last test models that, one
 terms of every k first, then the big ones; each step's dK, dV or dQ in a
 fresh partial added in f32) to the same 1e-5, where the plain order (three
 mma per k into one accumulator) lands several times further off.
+
+The forward kernel (csrc/flash_attn_fwd.cu) is emulated the same way, tile
+by tile over 64 keys at [1, 2, 512, 64]: S = Q Kᵀ in the kernel order, the
+online softmax in f32 in the log2 domain with the rescale of O, and each
+tile's P V in a fresh partial added to the rescaled O. Its output lies
+within flash_attention.tolerance (1e-5 of max|v|) of a float64 evaluation,
+at 1-2% of it; plain TF32 misses it 6-20 times over. The plain order
+(three mma per k, every tile's P V into O itself) lands 4-8 times further
+off than the kernel order, though at this scale of the tolerance (max|v|,
+where O is a convex combination of v's rows) it stays inside, at 6-7%.
 """
 import numpy as np
 import pytest
@@ -135,13 +147,13 @@ def _rz(x):
     return y.astype(np.float64)
 
 
-def _mm_rz(a, b, kernel_order, step=None):
+def _mm_rz(a, b, kernel_order, step=None, init=None):
     """a @ b as a chain of m16n8k8 TF32 mma calls on the 3xTF32 split,
     each adding 8 exact products to the accumulator and rounding toward
     zero. kernel_order: the small terms of every k first, then the big
     ones, and a fresh partial every `step` of k added to the sum in f32
     (mma_frag.cuh); else a_lo·b_hi, a_hi·b_lo, a_hi·b_hi per k into one
-    accumulator."""
+    accumulator, which holds `init` (f32) before the first mma if given."""
     a_hi, a_lo = (t.numpy().astype(np.float64) for t in _split(a))
     b_hi, b_lo = (t.numpy().astype(np.float64) for t in _split(b))
     depth = a.shape[-1]
@@ -155,7 +167,7 @@ def _mm_rz(a, b, kernel_order, step=None):
                 (a_hi, b_hi, k) for k in blocks]
         else:
             seq = [(x, y, k) for k in blocks for x, y in terms]
-        acc = 0.0
+        acc = 0.0 if init is None else init.numpy().astype(np.float64)
         for x, y, k in seq:
             acc = _rz(acc + x[..., k:k + 8] @ y[..., k:k + 8, :])
         total = acc if total is None else (total + acc).astype(
@@ -181,3 +193,60 @@ def test_kernel_order_holds_the_tolerance_under_round_toward_zero():
         tol = fa.grad_tolerance(ref.float())
         assert errs[True][i] <= tol / 4, (name, errs[True][i], tol)
         assert errs[False][i] > 3 * errs[True][i], (name, errs)
+
+
+def _forward(q, k, v, causal, scale, mm_s, pv, bk=64):
+    """softmax(scale·q·kᵀ)·v in the forward kernel's order of work: tiles of
+    bk keys, S = mm_s(q, kᵀ) scaled into the log2 domain in f32, the
+    running max m and sum l of each row, O rescaled by exp2(m_old - m_new)
+    and then O = pv(O, P, v_tile); O / l at the end. A row with no key kept
+    so far takes m = 0 for its p, as the kernel's guard does."""
+    sq, sk = q.shape[-2], k.shape[-2]
+    scale_log2 = torch.tensor(scale * 1.4426950408889634, dtype=torch.float32)
+    m = torch.full(q.shape[:-1], float('-inf'))
+    l = torch.zeros(q.shape[:-1])
+    out = torch.zeros(q.shape)
+    rows = torch.arange(sq)[:, None]
+    for n0 in range(0, sk, bk):
+        k_t, v_t = k[..., n0:n0 + bk, :], v[..., n0:n0 + bk, :]
+        s = mm_s(q, k_t.transpose(-1, -2).contiguous()) * scale_log2
+        if causal:
+            keys = torch.arange(n0, n0 + k_t.shape[-2])[None, :]
+            s = s.masked_fill(keys > rows + sk - sq, float('-inf'))
+        m_new = torch.maximum(m, s.amax(-1))
+        m_use = torch.where(m_new == float('-inf'), torch.zeros(()), m_new)
+        alpha = torch.exp2(m - m_use)
+        p = torch.exp2(s - m_use[..., None])
+        l = l * alpha + p.sum(-1)
+        out = pv(out * alpha[..., None], p, v_t)
+        m = m_new
+    return out / l[..., None]
+
+
+@pytest.mark.parametrize('causal', [False, True])
+def test_forward_kernel_order_holds_the_f32_tolerance(causal):
+    rng = np.random.RandomState(2)
+    q, k, v = (torch.from_numpy(rng.randn(1, 2, 512, 64).astype(np.float32))
+               for _ in range(3))
+    scale = 0.125
+    want = fa.flash_attention_reference(q.double(), k.double(), v.double(),
+                                        causal, scale)
+    tol = fa.tolerance(v)
+    variants = {
+        # S in the kernel order; each tile's P V in a fresh partial
+        'kernel': (lambda a, b: _mm_rz(a, b, True),
+                   lambda o, p, v_t: o + _mm_rz(p, v_t, True)),
+        # three mma per k, and P V accumulated into O itself
+        'plain_order': (lambda a, b: _mm_rz(a, b, False),
+                        lambda o, p, v_t: _mm_rz(p, v_t, False, init=o)),
+        # one TF32 product, no split
+        'tf32': (lambda a, b: _mm(a, b, 1),
+                 lambda o, p, v_t: o + _mm(p, v_t, 1)),
+    }
+    err = {}
+    for name, (mm_s, pv) in variants.items():
+        got = _forward(q, k, v, causal, scale, mm_s, pv)
+        err[name] = float((got.double() - want).abs().max())
+    assert err['kernel'] <= tol / 10, (err, tol)
+    assert err['plain_order'] > 2 * err['kernel'], (err, tol)
+    assert err['tf32'] > 3 * tol, (err, tol)

@@ -7,9 +7,18 @@ every BN apply does real work. The port's Predictor loads that same
 directory, and its logits match the JAX Predictor's at rtol 1e-4, with an
 absolute floor of 1e-4 of the largest logit (the two frameworks sum the
 convolutions in different orders, through ~50 layers).
+
+What the module's tests take from paddle_tpu (the saved directories, the
+parameters, the JAX Predictor's and Executor's logits) is computed once,
+by this file run as a script in a fresh interpreter: a test file that ran
+earlier in the same pytest worker can leave jax's caches or config, or
+paddle_tpu's compile cache, in a state that breaks a later JAX run there
+("Expected args to execute_sharded_on_local_devices to have 8 shards").
 """
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -64,35 +73,73 @@ def _close(got, want):
                                atol=1e-4 * np.abs(want).max())
 
 
-@pytest.fixture(scope='module')
-def jax_saved(tmp_path_factory):
-    """{model name: (dir, persistables as numpy)} saved by paddle_tpu."""
-    out = {}
-    for name in MODELS:
-        main, startup, logits = _build(fluid, jax_resnet, name)
-        scope = fluid.Scope()
-        exe = fluid.Executor(fluid.CPUPlace())
-        d = str(tmp_path_factory.mktemp(name))
-        with fluid.scope_guard(scope):
-            exe.run(startup)
-            _randomize_bn(main, scope, seed=len(out))
-            fluid.io.save_inference_model(d, ['data'], [logits], exe, main)
-        params = {v.name: np.asarray(scope.find_var(v.name).get_tensor())
-                  for v in main.list_vars() if v.persistable}
-        out[name] = (d, params)
-    return out
-
-
 def _image(batch, side, seed=0):
     return np.random.RandomState(seed).randn(batch, 3, side, side).astype(
         np.float32)
 
 
+def _jax_reference(root):
+    """paddle_tpu's side of the module's tests, written under root/<model>:
+    the saved inference directory (dir/), the persistables (params.npz),
+    the JAX Predictor's logits on _image(2, side) and the JAX Executor's
+    logits on _image(3, side, seed=1) from a program built anew with those
+    parameters set (logits.npz)."""
+    for i, name in enumerate(sorted(MODELS)):
+        side = MODELS[name][2]
+        d = os.path.join(root, name, 'dir')
+        main, startup, logits = _build(fluid, jax_resnet, name)
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CPUPlace())
+        with fluid.scope_guard(scope):
+            exe.run(startup)
+            _randomize_bn(main, scope, seed=i)
+            fluid.io.save_inference_model(d, ['data'], [logits], exe, main)
+        params = {v.name: np.asarray(scope.find_var(v.name).get_tensor())
+                  for v in main.list_vars() if v.persistable}
+        predicted, = jax_create_predictor(JaxConfig(d).disable_gpu()).run(
+            [_image(2, side)])
+        jmain, _, jlogits = _build(fluid, jax_resnet, name)
+        jscope = fluid.Scope()
+        with fluid.scope_guard(jscope):
+            for n, arr in params.items():
+                jscope.var(n).get_tensor().set(arr)
+            executed, = fluid.Executor(fluid.CPUPlace()).run(
+                jmain, feed={'data': _image(3, side, seed=1)},
+                fetch_list=[jlogits])
+        np.savez(os.path.join(root, name, 'params.npz'), **params)
+        np.savez(os.path.join(root, name, 'logits.npz'),
+                 predicted=np.asarray(predicted),
+                 executed=np.asarray(executed))
+
+
+@pytest.fixture(scope='module')
+def jax_saved(tmp_path_factory):
+    """{model name: (dir, persistables, logits)} from paddle_tpu, computed
+    by _jax_reference in a fresh interpreter (this file run as a script,
+    with the environment the tests run in)."""
+    root = str(tmp_path_factory.mktemp('jax_reference'))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get('PYTHONPATH')) if p))
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), root],
+                       cwd=repo, env=env, capture_output=True, text=True,
+                       timeout=900)
+    assert r.returncode == 0, r.stdout[-4000:] + r.stderr[-4000:]
+    out = {}
+    for name in MODELS:
+        with np.load(os.path.join(root, name, 'params.npz')) as f:
+            params = dict(f)
+        with np.load(os.path.join(root, name, 'logits.npz')) as f:
+            logits = dict(f)
+        out[name] = (os.path.join(root, name, 'dir'), params, logits)
+    return out
+
+
 @pytest.mark.parametrize('name', sorted(MODELS))
 def test_port_predictor_loads_jax_saved_dir(jax_saved, name):
-    d, _ = jax_saved[name]
+    d, _, jax_logits = jax_saved[name]
     x = _image(2, MODELS[name][2])
-    want, = jax_create_predictor(JaxConfig(d).disable_gpu()).run([x])
+    want = jax_logits['predicted']
     pred = ptt.inference.create_predictor(
         ptt.inference.Config(d).disable_gpu())
     assert pred.get_input_names() == ['data']
@@ -104,15 +151,10 @@ def test_port_predictor_loads_jax_saved_dir(jax_saved, name):
 
 @pytest.mark.parametrize('name', sorted(MODELS))
 def test_params_from_numpy_into_port_built_program(jax_saved, name):
-    _, params = jax_saved[name]
+    _, params, jax_logits = jax_saved[name]
     x = _image(3, MODELS[name][2], seed=1)
-    jmain, _, jlogits = _build(fluid, jax_resnet, name)
-    jscope = fluid.Scope()
-    with fluid.scope_guard(jscope):
-        for n, arr in params.items():
-            jscope.var(n).get_tensor().set(arr)
-        want, = fluid.Executor(fluid.CPUPlace()).run(
-            jmain, feed={'data': x}, fetch_list=[jlogits])
+    # paddle_tpu's Executor on a program built anew with these parameters
+    want = jax_logits['executed']
 
     main, _, logits = _build(ptt, ptt_resnet, name)
     scope = ptt.Scope()
@@ -123,7 +165,7 @@ def test_params_from_numpy_into_port_built_program(jax_saved, name):
 
 
 def test_params_from_numpy_checks_names_and_shapes(jax_saved):
-    _, params = jax_saved['resnet20_cifar']
+    _, params, _ = jax_saved['resnet20_cifar']
     main, _, _ = _build(ptt, ptt_resnet, 'resnet20_cifar')
     extra = dict(params, stray=np.zeros(1, np.float32))
     with pytest.raises(KeyError, match='stray'):
@@ -173,3 +215,7 @@ def test_port_saved_dir_round_trip(tmp_path):
         d['random_seed'] = 0
         return d
     assert model('port') == model('jax')
+
+
+if __name__ == '__main__':
+    _jax_reference(sys.argv[1])
