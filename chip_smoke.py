@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """On-card smoke run of paddle_tpu_torch: ResNet-50 and BERT-base served,
-and BERT-base trained, on one NVIDIA GPU.
+and BERT-base and ResNet-50 trained, on one NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -8,7 +8,8 @@ Run from the repository root on a machine with a CUDA card:
 
 It builds the port's CUDA kernels from paddle_tpu_torch/csrc/ (bn_apply,
 flash_attn_fwd and flash_attn_bwd, one nvcc each, in parallel) and holds
-each against its plain PyTorch version on the card. Then it drives three
+each against its plain PyTorch version on the card (bn_apply and its
+backward, which is plain torch, at batch 16 and 128). Then it drives four
 paths, with random weights from a seed, f32 and TF32 off:
 
 - ResNet-50 (depth 50, 224x224, 1000 classes) served through
@@ -21,15 +22,22 @@ paths, with random weights from a seed, f32 and TF32 off:
   Adam.minimize) -> Executor.run(startup) -> Executor.run(main, feed,
   fetch_list=[loss]), batch 8, 2 warm-up and 10 timed steps on one fixed
   batch, with 12 launches of each backward kernel (flash_attn_bwd_dkv,
-  flash_attn_bwd_dq) and 24 of flash_attn_fwd per step.
+  flash_attn_bwd_dq) and 24 of flash_attn_fwd per step;
+- ResNet-50 (depth 50, 224x224, 1000 classes, space-to-depth stem) trained
+  through build_train_net (softmax cross-entropy, top-1 accuracy,
+  Momentum(0.1, 0.9)) -> Executor.run(startup) -> Executor.run(main, feed,
+  fetch_list=[avg_loss, acc]), batch 128, 2 warm-up, 10 timed and 18 more
+  steps on one fixed batch, with 106 bn_apply launches per step (the 53
+  batch_norm ops and the forward each batch_norm_grad re-runs).
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after. The run compares GPU and CPU outputs of each served
-model and the loss and gradients of one training step, times the kernels
-(CUDA events), the requests and the steps (host clock), and profiles a few
-requests and steps. Every check that fails raises, so the exit code is 0
-only when all phases passed. Without a card it exits 1 and prints no
-result.
+model, the loss and gradients of one step of each trained model, and
+ResNet-50's backward with card and CPU fed the card's forward values,
+times the kernels (CUDA events), the requests and the steps (host
+clock), and profiles a few requests and steps. Every check that fails
+raises, so the exit code is 0 only when all phases passed. Without a
+card it exits 1 and prints no result.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit from nvidia-smi, and the one before that the
@@ -50,7 +58,7 @@ import torch.nn.functional as F
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch import kernels
 from paddle_tpu_torch.models.bert import bert_mlm_logits, build_bert_pretrain
-from paddle_tpu_torch.models.resnet import resnet_imagenet
+from paddle_tpu_torch.models.resnet import build_train_net, resnet_imagenet
 from paddle_tpu_torch.ops import bn_apply as bn_mod
 from paddle_tpu_torch.ops import flash_attention as fa
 
@@ -77,6 +85,9 @@ BN_SHAPES = [((256, 14, 14), 11), ((128, 28, 28), 7), ((1024, 14, 14), 7),
              ((256, 56, 56), 4), ((2048, 7, 7), 4), ((64, 112, 112), 1),
              ((128, 56, 56), 1), ((256, 28, 28), 1), ((512, 14, 14), 1)]
 BN_BATCH = 16
+# threads of bn_apply's largest grid (csrc/bn_apply.cu: kMaxBlocks blocks of
+# kThreads), each moving one 16-byte vector a pass of its grid-stride loop
+BN_GRID_THREADS = (1 << 16) * 256
 
 # BERT-base (models/bert.py defaults) at its published maximum length
 BERT = dict(vocab=30522, max_len=512, d_model=768, d_ff=3072, n_head=12,
@@ -99,6 +110,18 @@ K2_BWD_CASES = [(8, 12, 512, 512, 64, False), (1, 12, 512, 512, 64, False),
 TRAIN_BATCH = 8
 TRAIN_WARMUP_STEPS = 2
 TRAIN_STEPS = 10
+# ResNet-50 training as bench.py:431 bench_resnet builds it
+RESNET_TRAIN = dict(dshape=(3, 224, 224), class_dim=1000, depth=50,
+                    imagenet=True, lr=0.1, s2d_stem=True)
+RESNET_TRAIN_BATCH = 128
+# untimed steps after the timed ones: at lr 0.1 the loss of a random
+# ResNet-50 on one fixed batch rises for a few steps before it falls
+RESNET_MORE_STEPS = 18
+RESNET_GATE_BATCH = 4
+# K1 and its backward are held against their plain versions at the batch of
+# ResNet-50 serving and at that of its training, where the largest BN
+# outputs take the kernel's grid-stride loop through a second pass
+BN_CHECK_BATCHES = (BN_BATCH, RESNET_TRAIN_BATCH)
 
 
 def check(cond, msg):
@@ -113,35 +136,113 @@ def card_line():
     return r.stdout.strip().splitlines()[0]
 
 
+def _grid_passes(x):
+    """Passes of bn_apply's grid-stride loop over x (16-byte vectors)."""
+    return math.ceil(x.numel() * x.element_size() // 16 / BN_GRID_THREADS)
+
+
 def phase_kernel_vs_plain():
-    """bn_apply vs bn_apply_reference at every ResNet-50 BN shape, batch 16,
-    f32 and bf16, act None and relu. Tolerance: 1 ulp (one_ulp_bound)."""
+    """bn_apply vs bn_apply_reference at every ResNet-50 BN shape, at each
+    batch of BN_CHECK_BATCHES, f32 and bf16, act None and relu. Tolerance:
+    1 ulp (one_ulp_bound). At least one case must take the kernel's
+    grid-stride loop through more than one pass."""
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     max_abs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for (c, h, w), _ in BN_SHAPES:
-        x32 = torch.randn(BN_BATCH, c, h, w, device='cuda', generator=gen)
+    passes = 0
+    for batch in BN_CHECK_BATCHES:
+        for (c, h, w), _ in BN_SHAPES:
+            shape = (batch, c, h, w)
+            x32 = torch.randn(shape, device='cuda', generator=gen)
+            k = torch.rand(c, device='cuda', generator=gen) + 0.5
+            b = torch.randn(c, device='cuda', generator=gen)
+            for dtype in (torch.float32, torch.bfloat16):
+                x = x32.to(dtype)
+                passes = max(passes, _grid_passes(x))
+                for act in (None, 'relu'):
+                    y = bn_mod.bn_apply(x, k, b, act)
+                    ref = bn_mod.bn_apply_reference(x, k, b, act)
+                    torch.cuda.synchronize()
+                    err = (y.float() - ref.float()).abs()
+                    bound = bn_mod.one_ulp_bound(x, k, b)
+                    ulps = float((err / bound.clamp_min(1e-30)).max())
+                    abs_err = float(err.max())
+                    max_abs[dtype] = max(max_abs[dtype], abs_err)
+                    print('kernel_check shape=%s dtype=%s act=%s '
+                          'grid_passes=%d max_abs_err=%r max_err_ulps=%.3f'
+                          % (shape, str(dtype)[6:], act, _grid_passes(x),
+                             abs_err, ulps))
+                    check(bool((err <= bound).all()),
+                          'bn_apply differs from its plain version by more '
+                          'than 1 ulp at %s %s act=%s' % (shape, dtype, act))
+                del x, y, ref, err, bound
+    check(passes > 1, 'no check took bn_apply\'s grid-stride loop through '
+          'a second pass')
+    return max_abs
+
+
+def phase_kernel_bwd_vs_plain():
+    """BnApplyFunction's dx, dk, db (the kernel's forward, then the plain
+    backward ported from pallas_bn.py:68) vs autograd through
+    bn_apply_reference, both on the card, at every ResNet-50 BN shape, at
+    each batch of BN_CHECK_BATCHES, f32 and bf16, act None and relu.
+    Tolerances:
+    bn_mod.backward_bounds (dx is one multiply: one rounding of x's dtype;
+    dk and db are f32 sums of L = N·H·W terms: L·2^-24 of the sum of
+    their magnitudes, plus the rounding of the plain version's gradients
+    to x's dtype; with relu, the terms where the masks differ, which may
+    happen only where the plain |y| is within the forward's one-ulp
+    bound)."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 14)
+    worst = collections.defaultdict(float)
+    max_abs = collections.defaultdict(float)
+    shapes = [(batch, c, h, w) for batch in BN_CHECK_BATCHES
+              for (c, h, w), _ in BN_SHAPES]
+    for shape in shapes:
+        c = shape[1]
+        x32 = torch.randn(shape, device='cuda', generator=gen)
+        dy32 = torch.randn(shape, device='cuda', generator=gen)
         k = torch.rand(c, device='cuda', generator=gen) + 0.5
         b = torch.randn(c, device='cuda', generator=gen)
         for dtype in (torch.float32, torch.bfloat16):
-            x = x32.to(dtype)
+            x, dy = x32.to(dtype), dy32.to(dtype)
             for act in (None, 'relu'):
-                y = bn_mod.bn_apply(x, k, b, act)
-                ref = bn_mod.bn_apply_reference(x, k, b, act)
-                torch.cuda.synchronize()
-                err = (y.float() - ref.float()).abs()
-                bound = bn_mod.one_ulp_bound(x, k, b)
-                ulps = float((err / bound.clamp_min(1e-30)).max())
-                abs_err = float(err.max())
-                max_abs[dtype] = max(max_abs[dtype], abs_err)
-                print('kernel_check shape=%s dtype=%s act=%s max_abs_err=%r '
-                      'max_err_ulps=%.3f' % ((BN_BATCH, c, h, w),
-                                             str(dtype)[6:], act, abs_err,
-                                             ulps))
-                check(bool((err <= bound).all()),
-                      'bn_apply differs from its plain version by more than '
-                      '1 ulp at %s %s act=%s' % ((BN_BATCH, c, h, w), dtype,
-                                                 act))
-    return max_abs
+                out = []
+                for fn in (bn_mod.bn_apply, bn_mod.bn_apply_reference):
+                    leaves = [t.detach().clone().requires_grad_()
+                              for t in (x, k, b)]
+                    y = fn(*leaves, act)
+                    out.append((y.detach(),) + torch.autograd.grad(
+                        y, leaves, dy))
+                (y, dx, dk, db), (ry, rdx, rdk, rdb) = out
+                differ, dx_tol, dk_tol, db_tol = bn_mod.backward_bounds(
+                    x, k, b, dy, y, ry, rdk, rdb, act)
+                where = '%s %s act=%s' % (shape, dtype, act)
+                check(bool((ry.float().abs()[differ] <= bn_mod.one_ulp_bound(
+                    x, k, b)[differ]).all()), 'bn_apply relu masks differ '
+                      'beyond the forward bound at ' + where)
+                ratios = {}
+                for name, got, ref, tol in (
+                        ('dx', dx, rdx, dx_tol), ('dk', dk, rdk, dk_tol),
+                        ('db', db, rdb, db_tol)):
+                    err = (got.float() - ref.float()).abs()
+                    if name == 'dx':
+                        err = err.masked_fill(differ, 0)
+                    ratios[name] = float((err / tol.clamp_min(1e-30)).max())
+                    worst[name, dtype] = max(worst[name, dtype], ratios[name])
+                    max_abs[name, dtype] = max(max_abs[name, dtype],
+                                               float(err.max()))
+                    check(bool((err <= tol).all()), 'bn_apply %s differs '
+                          'from its plain version at %s' % (name, where))
+                print('kernel_bwd_check shape=%s dtype=%s act=%s '
+                      'grid_passes=%d masks_differ=%d %s' % (
+                          shape, str(dtype)[6:], act, _grid_passes(x),
+                          int(differ.sum()), ' '.join(
+                              '%s_err/tol=%.3g' % kv
+                              for kv in ratios.items())))
+    worst = {'%s/%s' % (n, str(d)[6:]): r for (n, d), r in worst.items()}
+    print('kernel_bwd_check worst err/tol: %s' % json.dumps(worst))
+    return {'%s/%s' % (n, str(d)[6:]): e for (n, d), e in max_abs.items()}, \
+        worst
 
 
 def build_and_save(dirname):
@@ -356,7 +457,8 @@ def phase_profile(pred, images):
 def _profile(run_once, label, what):
     """Device time by kernel over 3 calls of run_once (torch.profiler; only
     the CUDA kernels' own rows, so no op is counted twice), each kernel with
-    the torch ops that launched it."""
+    the torch ops that launched it. Returns {kernel name: device ms} over
+    the 3 calls, or None where the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -373,7 +475,7 @@ def _profile(run_once, label, what):
     if not rows:
         print('profile %s: no device time in the trace (not measured)'
               % label)
-        return
+        return None
     ops = collections.defaultdict(collections.Counter)
     for e in prof.events():
         for k in e.kernels:
@@ -387,6 +489,7 @@ def _profile(run_once, label, what):
         print('profile %s kernel=%r calls=%d device_ms=%r share=%.3f ops=%s'
               % (label, key[:160], count, dev_us * 1e-3,
                  dev_us * 1e-6 / busy_s, dict(ops[key])))
+    return {key: dev_us * 1e-3 for dev_us, _, key in rows}
 
 
 def _qkv(b, h, sq, sk, d, dtype, gen):
@@ -800,20 +903,43 @@ def phase_training_gpu_vs_cpu(main, startup, loss):
     ~6e-3 of their largest value (CPU), while the head's layer_norm scale
     moves by ~1e-6. A fixed tolerance would be either too loose for the
     one or too tight for the others."""
-    gpu_scope = fluid.Scope()
-    gpu = fluid.Executor(fluid.CUDAPlace(0))
-    cpu = fluid.Executor(fluid.CPUPlace())
-    gpu.run(startup, scope=gpu_scope)
-    state = fluid.weights.state_to_numpy(main, gpu_scope)
-    rng = np.random.RandomState(SEED + 13)
-    perturbed = {n: a * (1 + 1e-7 * rng.randn(*a.shape)).astype(a.dtype)
-                 for n, a in state.items()}
     ln = max((p.name for p in main.all_parameters()
               if p.name.startswith('layer_norm_') and p.name.endswith('.w_0')),
              key=lambda n: int(n.split('_')[2].split('.')[0]))
     names = [loss.name, 'word_emb@GRAD', 'fc_0.w_0@GRAD', ln + '@GRAD']
     gen = torch.Generator(device='cuda').manual_seed(SEED + 11)
-    feed = _train_feed(1, gen)
+    for name, g, w, err, top, noise, tol in _gpu_vs_cpu_step(
+            main, startup, names, _train_feed(1, gen), SEED + 13):
+        print('bert_training_gpu_vs_cpu batch=1 %s shape=%s max_abs_err=%r '
+              'max_abs=%r rel=%r one_ulp_perturbation_moves=%r tolerance=%r'
+              % (name, tuple(w.shape), err, top, err / top, noise, tol))
+        check(g.shape == w.shape and np.isfinite(g).all() and err <= tol,
+              'GPU and CPU %s differ: %r > %r' % (name, err, tol))
+
+
+def _perturbed(arrays, seed):
+    """Every float array scaled by 1 + 1e-7·N(0, 1): about one f32 ulp."""
+    rng = np.random.RandomState(seed)
+    return {n: (a * (1 + 1e-7 * rng.randn(*a.shape))).astype(a.dtype)
+            if a.dtype.kind == 'f' else a for n, a in arrays.items()}
+
+
+def _gpu_vs_cpu_step(main, startup, names, feed, seed):
+    """One training step from one initial state, the startup program run
+    on the card and carried to CPU scopes with weights.py, fetching
+    `names`: on the card, on the CPU, and on the CPU again from the state
+    with every tensor scaled by 1 + 1e-7·N(0, 1) from `seed` (about one
+    f32 ulp). Returns, for each name, (name, GPU value, CPU value, the
+    largest |GPU - CPU|, the largest |CPU|, what the perturbation moved it,
+    its tolerance: max(1e-5 of the largest |CPU|, 4 times that move))."""
+    gpu_scope = fluid.Scope()
+    gpu = fluid.Executor(fluid.CUDAPlace(0))
+    cpu = fluid.Executor(fluid.CPUPlace())
+    gpu.run(startup, scope=gpu_scope)
+    state = fluid.weights.state_to_numpy(main, gpu_scope)
+    rng = np.random.RandomState(seed)
+    perturbed = {n: a * (1 + 1e-7 * rng.randn(*a.shape)).astype(a.dtype)
+                 for n, a in state.items()}
     got = gpu.run(main, feed=feed, fetch_list=names, scope=gpu_scope)
     cpu_feed = {k: t.cpu() for k, t in feed.items()}
     want, moved = [], []
@@ -822,16 +948,250 @@ def phase_training_gpu_vs_cpu(main, startup, loss):
         fluid.weights.params_from_numpy(st, main, scope)
         (want if st is state else moved).extend(
             cpu.run(main, feed=cpu_feed, fetch_list=names, scope=scope))
+    rows = []
     for name, g, w, m in zip(names, got, want, moved):
         err = float(np.abs(g - w).max())
         top = float(np.abs(w).max())
         noise = float(np.abs(m - w).max())
+        rows.append((name, g, w, err, top, noise, max(1e-5 * top, 4 * noise)))
+    return rows
+
+
+def build_resnet_training():
+    """Full-width ResNet-50 training as bench.py:431 builds it: the s2d
+    stem, softmax cross-entropy, top-1 accuracy and Momentum(0.1, 0.9),
+    seeded initialization."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, _, loss, acc = build_train_net(**RESNET_TRAIN)
+    return main, startup, loss, acc
+
+
+def _resnet_feed(bs, gen):
+    return {'data': torch.randn(bs, *RESNET_TRAIN['dshape'], device='cuda',
+                                generator=gen),
+            'label': torch.randint(0, RESNET_TRAIN['class_dim'], (bs, 1),
+                                   device='cuda', generator=gen)}
+
+
+def phase_resnet_training(main, startup, loss, acc):
+    """Train ResNet-50 on the card: TRAIN_WARMUP_STEPS, then TRAIN_STEPS
+    timed steps (host clock around Executor.run and a sync), then
+    RESNET_MORE_STEPS untimed ones, all on one fixed batch of
+    RESNET_TRAIN_BATCH, fetching the loss and the accuracy. Every step
+    after the warm-up launches bn_apply twice per batch_norm op (the op
+    and the forward its batch_norm_grad re-runs under autograd) and no
+    flash-attention kernel. The loss is finite at every step and lower at
+    the last than at the first. Momentum(0.1, 0.9) makes the loss rise
+    for a few steps before it falls, and cuDNN's sums are not
+    deterministic, so the path differs from run to run: two runs on one
+    NVIDIA H100 80GB HBM3 (700 W) had 6.60 and 6.29 at step 12, 5.00 and
+    5.61 at step 22, from 7.61."""
+    ops = main.global_block().ops
+    n_bn = sum(op.type == 'batch_norm' for op in ops)
+    n_bn_grad = sum(op.type == 'batch_norm_grad' for op in ops)
+    check(n_bn == n_bn_grad == 53, 'the ResNet-50 training program has %d '
+          'batch_norm and %d batch_norm_grad ops' % (n_bn, n_bn_grad))
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 15)
+    feed = _resnet_feed(RESNET_TRAIN_BATCH, gen)
+    losses, accs = [], []
+    exe.run(startup, scope=scope)
+
+    def step():
+        return exe.run(main, feed=feed, fetch_list=[loss, acc], scope=scope,
+                       return_numpy=False)
+
+    for _ in range(TRAIN_WARMUP_STEPS):
+        out = step()
+        losses.append(float(out[0].reshape(-1)[0]))
+        accs.append(float(out[1].reshape(-1)[0]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    want = {'bn_apply': 2 * n_bn, 'flash_attn_fwd': 0,
+            'flash_attn_bwd_dkv': 0, 'flash_attn_bwd_dq': 0}
+    reset_launches()
+    times = []
+    for i in range(TRAIN_STEPS + RESNET_MORE_STEPS):
+        before = read_launches()
+        t0 = time.perf_counter()
+        out = step()
+        if i < TRAIN_STEPS:
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        after = read_launches()
+        launched = {k: after[k] - before[k] for k in after}
+        check(launched == want, 'a ResNet-50 training step launched %s, not '
+              '%s' % (launched, want))
+        losses.append(float(out[0].reshape(-1)[0]))
+        accs.append(float(out[1].reshape(-1)[0]))
+        if i == TRAIN_STEPS - 1:
+            counts = read_launches()
+            peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses), 'non-finite loss: %s'
+          % losses)
+    check(losses[-1] < losses[0], 'the loss did not fall: %s' % losses)
+    p50 = float(np.percentile(times, 50))
+    print('resnet_training batch=%d 224x224 classes=%d s2d_stem f32 lr=%r '
+          'momentum=0.9 ops=%d losses=%s accuracies=%s' % (
+              RESNET_TRAIN_BATCH, RESNET_TRAIN['class_dim'],
+              RESNET_TRAIN['lr'], len(ops),
+              json.dumps([round(x, 5) for x in losses]),
+              json.dumps([round(x, 4) for x in accs])))
+    print('resnet_training launches over %d timed steps: %s (per step: %s; '
+          'the same in each of the %d untimed steps)' % (
+              TRAIN_STEPS, json.dumps(counts), json.dumps(want),
+              RESNET_MORE_STEPS))
+    print('resnet_training step p50_ms=%r p90_ms=%r img_per_s=%r '
+          'peak_allocated_gb=%.2f (host clock, %d steps, each ending in a '
+          'sync)' % (p50 * 1e3, float(np.percentile(times, 90)) * 1e3,
+                     RESNET_TRAIN_BATCH / p50, peak / 2 ** 30, TRAIN_STEPS))
+    return exe, scope, feed, counts
+
+
+def phase_resnet_training_profile(exe, main, loss, acc, scope, feed):
+    """Device time by kernel over 3 ResNet-50 training steps; K1's time a
+    step, its share, and its bound a step: the bytes of its 106 launches
+    (x read and y written at each of the 53 BN shapes, twice) at the HBM
+    rate. Returns K1's {'ms', 'bound_ms'} a step, or None when the trace
+    holds no device time."""
+    per_kernel = _profile(
+        lambda: exe.run(main, feed=feed, fetch_list=[loss, acc],
+                        scope=scope, return_numpy=False),
+        'resnet50 training batch=%d' % RESNET_TRAIN_BATCH, 'steps')
+    if not per_kernel:
+        return None
+    k1 = sum(ms for name, ms in per_kernel.items() if 'bn_apply' in name) / 3
+    nbytes = 2 * sum(count * 4 * (2 * RESNET_TRAIN_BATCH * c * h * w + 2 * c)
+                     for (c, h, w), count in BN_SHAPES)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print('profile resnet50 training: bn_apply device_ms_per_step=%r '
+          'share=%.3f bound_ms_per_step=%r (bytes) bound_share=%.3f' % (
+              k1, 3 * k1 / sum(per_kernel.values()), bound, bound / k1))
+    return {'ms': k1, 'bound_ms': bound}
+
+
+def phase_resnet_training_gpu_vs_cpu(main, startup, loss):
+    """One ResNet-50 training step at batch RESNET_GATE_BATCH from one
+    initial state (the startup program run on the card, carried to a CPU
+    scope with weights.py): the loss and the gradient of every parameter
+    (the 53 conv filters, the 53 BN scales and biases, the fc weight and
+    bias), GPU against CPU. A Function that lost the kernel's autograd
+    history would give zero BN and filter gradients on the card.
+
+    The tolerance of each is measured in the same run, as for BERT
+    (_gpu_vs_cpu_step): 4 times what a one-ulp perturbation of the state
+    moves it on the CPU, and never less than 1e-5 of its largest value."""
+    names = [loss.name] + [p.name + '@GRAD' for p in main.all_parameters()]
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 17)
+    rows = _gpu_vs_cpu_step(main, startup, names,
+                            _resnet_feed(RESNET_GATE_BATCH, gen), SEED + 16)
+    first_conv = next(op.input('Filter')[0] for op in main.global_block().ops
+                      if op.type == 'conv2d')
+    shown = {loss.name, first_conv + '@GRAD', 'batch_norm_0.w_0@GRAD',
+             'batch_norm_0.b_0@GRAD', 'batch_norm_52.w_0@GRAD',
+             'batch_norm_52.b_0@GRAD', 'fc_0.w_0@GRAD'}
+    worst = (0.0, '')
+    failed = []
+    for name, g, w, err, top, noise, tol in rows:
+        if name in shown:
+            print('resnet_training_gpu_vs_cpu batch=%d %s shape=%s '
+                  'max_abs_err=%r max_abs=%r rel=%r '
+                  'one_ulp_perturbation_moves=%r tolerance=%r' % (
+                      RESNET_GATE_BATCH, name, tuple(w.shape), err, top,
+                      err / top, noise, tol))
+        ok = g.shape == w.shape and np.isfinite(g).all() and err <= tol \
+            and (top > 0 or name == loss.name)
+        if not ok:
+            failed.append((name, err, tol, top))
+        worst = max(worst, (err / tol, name))
+    print('resnet_training_gpu_vs_cpu batch=%d tensors=%d worst err/tol=%.3f '
+          '(%s)' % (RESNET_GATE_BATCH, len(names), worst[0], worst[1]))
+    check(not failed, 'GPU and CPU ResNet-50 training step differ (name, '
+          'err, tolerance, largest value): %s' % failed[:10])
+
+
+def _update_program(main):
+    """The backward and Momentum ops of `main` (those with an op_role, as
+    append_backward and the optimizer mark them) as a program of their
+    own, and what they read that none of them writes and that is not
+    persistable: the step's forward values and feeds."""
+    persist = {v.name for v in main.list_vars() if v.persistable}
+    update = main.clone()
+    ops = [op for op in update.global_block().ops if op.attrs.get('op_role')]
+    update.global_block().ops = ops
+    written, fed = set(), []
+    for op in ops:
+        for n in op.input_arg_names():
+            if n and n not in written and n not in persist and n not in fed:
+                fed.append(n)
+        written.update(op.output_arg_names())
+    return update, fed
+
+
+def phase_resnet_backward_gpu_vs_cpu(main, startup):
+    """The backward and Momentum ops of one ResNet-50 training step at
+    batch RESNET_GATE_BATCH, card against CPU, both from one initial state
+    and fed the card's forward values of the step. Fed the same values,
+    both take the same relu masks and BN batch statistics, so their
+    gradients differ only by the order of their sums: the convolutions'
+    gradients, the forward each batch_norm_grad re-runs (K1 on the card)
+    and the BN gradients' reductions. Every parameter gradient is held to
+    max(1e-5 of its largest value, 4 times what a one-ulp perturbation of
+    the state and the fed values moves it on the card and on the CPU
+    together), measured here. Prints err/|max| of every BN scale and bias
+    gradient."""
+    update, fed_names = _update_program(main)
+    grads = [p.name + '@GRAD' for p in main.all_parameters()]
+    gpu = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    gpu.run(startup, scope=scope)
+    state = fluid.weights.state_to_numpy(main, scope)
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 18)
+    fed = dict(zip(fed_names, gpu.run(
+        main, feed=_resnet_feed(RESNET_GATE_BATCH, gen),
+        fetch_list=fed_names, scope=scope)))
+    del scope
+    runs = {}
+    for place, device in ((fluid.CUDAPlace(0), 'cuda'),
+                          (fluid.CPUPlace(), 'cpu')):
+        exe = fluid.Executor(place)
+        for key, st, fd in (('step', state, fed),
+                            ('moved', _perturbed(state, SEED + 19),
+                             _perturbed(fed, SEED + 20))):
+            scope = fluid.Scope()
+            fluid.weights.params_from_numpy(st, main, scope, device=device)
+            before = bn_mod.bn_apply.launches
+            runs[device, key] = exe.run(update, feed=fd, fetch_list=grads,
+                                        scope=scope)
+            if device == 'cuda':
+                check(bn_mod.bn_apply.launches - before == 53,
+                      'the backward launched bn_apply %d times, not 53'
+                      % (bn_mod.bn_apply.launches - before))
+    failed, bn_rel = [], {}
+    worst = (0.0, '')
+    for j, name in enumerate(grads):
+        g, w = runs['cuda', 'step'][j], runs['cpu', 'step'][j]
+        noise = float(np.abs(runs['cuda', 'moved'][j] - g).max()) + \
+            float(np.abs(runs['cpu', 'moved'][j] - w).max())
+        err, top = float(np.abs(g - w).max()), float(np.abs(w).max())
         tol = max(1e-5 * top, 4 * noise)
-        print('bert_training_gpu_vs_cpu batch=1 %s shape=%s max_abs_err=%r '
-              'max_abs=%r rel=%r one_ulp_perturbation_moves=%r tolerance=%r'
-              % (name, tuple(w.shape), err, top, err / top, noise, tol))
-        check(g.shape == w.shape and np.isfinite(g).all() and err <= tol,
-              'GPU and CPU %s differ: %r > %r' % (name, err, tol))
+        if name.startswith('batch_norm_'):
+            bn_rel[name[:-5]] = round(err / top, 9) if top > 0 else None
+        if not (g.shape == w.shape and np.isfinite(g).all() and top > 0
+                and err <= tol):
+            failed.append((name, err, tol, top))
+        worst = max(worst, (err / tol, name))
+    print('resnet_backward_gpu_vs_cpu batch=%d fed the card\'s forward '
+          'values: tensors=%d worst err/tol=%.3f (%s)' % (
+              RESNET_GATE_BATCH, len(grads), worst[0], worst[1]))
+    print('resnet_backward_gpu_vs_cpu BN scale/bias gradients err/|max|: %s'
+          % json.dumps(bn_rel))
+    check(not failed, 'GPU and CPU ResNet-50 backward differ (name, err, '
+          'tolerance, largest value): %s' % failed[:10])
 
 
 def phase_flash_bwd_times():
@@ -931,6 +1291,7 @@ def main():
     print('build all kernels %.1fs' % (time.perf_counter() - t0))
 
     max_abs = phase_kernel_vs_plain()
+    bn_bwd_abs, bn_bwd_worst = phase_kernel_bwd_vs_plain()
     k2_abs = phase_flash_vs_plain()
     bwd_abs = phase_flash_bwd_vs_plain()
     with tempfile.TemporaryDirectory() as d:
@@ -967,6 +1328,24 @@ def main():
     del train_scope, train_feed  # the trained parameters and Adam state
     phase_training_gpu_vs_cpu(train_main, train_startup, train_loss)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r_main, r_startup, r_loss, r_acc = build_resnet_training()
+    print('model resnet50 training 224x224 classes=%d s2d_stem f32 ops=%d '
+          'parameters=%d persistable_vars=%d build_s=%.1f' % (
+              RESNET_TRAIN['class_dim'], len(r_main.global_block().ops),
+              len(r_main.all_parameters()),
+              sum(v.persistable for v in r_main.list_vars()),
+              time.perf_counter() - t0))
+    r_exe, r_scope, r_feed, resnet_train_counts = phase_resnet_training(
+        r_main, r_startup, r_loss, r_acc)
+    k1_training = phase_resnet_training_profile(r_exe, r_main, r_loss,
+                                                r_acc, r_scope, r_feed)
+    del r_scope, r_feed  # the trained parameters and velocities
+    torch.cuda.empty_cache()
+    phase_resnet_training_gpu_vs_cpu(r_main, r_startup, r_loss)
+    torch.cuda.empty_cache()
+    phase_resnet_backward_gpu_vs_cpu(r_main, r_startup)
+    torch.cuda.empty_cache()
     totals = phase_kernel_times()
     k2_rows = phase_flash_times()
     bwd_rows = phase_flash_bwd_times()
@@ -974,7 +1353,8 @@ def main():
     phase_bert_profile(bert_pred, bert_feeds)
 
     paths = {'resnet50_serving': resnet_counts, 'bert_serving': bert_counts,
-             'bert_training': train_counts}
+             'bert_training': train_counts,
+             'resnet50_training': resnet_train_counts}
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}
@@ -1019,6 +1399,12 @@ def main():
         'launches_by_path': by_path('bn_apply'),
         'max_abs_err': max_abs[torch.float32],
         'max_abs_err_bf16': max_abs[torch.bfloat16],
+        'backward': 'plain torch (pallas_bn.py:68 is plain JAX)',
+        'max_abs_err_backward': bn_bwd_abs,
+        'backward_err_over_tolerance': bn_bwd_worst,
+        'resnet50_training_step': dict(
+            k1_training or {},
+            launches=resnet_train_counts['bn_apply'] // TRAIN_STEPS),
         'ms': totals['ms'], 'plain_ms': totals['plain_ms'],
         'bound_ms': totals['bound_ms'], 'bound_by': 'bytes',
         'library_ms': totals['library_ms']}, {

@@ -1,8 +1,9 @@
 """fluid.layers namespace (ref: python/paddle/fluid/layers/__init__.py),
-holding the layers the serving slices need. Importing it installs the
+holding the layers the ported slices need. Importing it installs the
 Variable operators (math_op_patch), as the reference does."""
 from . import math_op_patch
 from .io import data  # noqa: F401
+from .metric_op import accuracy  # noqa: F401
 from .nn import *  # noqa: F401,F403
 from .tensor import range  # noqa: F401
 

@@ -1,5 +1,6 @@
 """Neural-network layer functions (ref: python/paddle/fluid/layers/nn.py;
-paddle_tpu/layers/nn.py:25,52,71,182,234,275,388,510,842,867,900,1955).
+paddle_tpu/layers/nn.py:25,52,71,182,234,275,370,388,510,691,842,849,867,
+900,1008,1955).
 
 The port's copies of the layers the serving and training slices need. Each appends the
 same ops with the same attrs and names as its paddle_tpu counterpart, so a
@@ -17,7 +18,7 @@ from ..param_attr import ParamAttr
 __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
            'relu', 'elementwise_add', 'reshape', 'transpose',
            'fused_multihead_attention', 'softmax_with_cross_entropy',
-           'reduce_sum']
+           'reduce_sum', 'mean', 'softmax', 'topk', 'pad']
 
 
 def _single(v, n):
@@ -268,4 +269,40 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
         type='reduce_sum', inputs={'X': input}, outputs={'Out': out},
         attrs={'dim': dim if dim is not None else [0],
                'keep_dim': keep_dim, 'reduce_all': dim is None})
+    return out
+
+
+def mean(x, name=None):
+    helper = LayerHelper('mean', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type='mean', inputs={'X': x}, outputs={'Out': out},
+                     attrs={})
+    return out
+
+
+def softmax(input, use_cudnn=True, name=None, axis=-1):
+    helper = LayerHelper('softmax', name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type='softmax', inputs={'X': input},
+                     outputs={'Out': out}, attrs={'axis': axis})
+    return out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper('top_k', name=name)
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference('int64')
+    helper.append_op(type='top_k', inputs={'X': input},
+                     outputs={'Out': values, 'Indices': indices},
+                     attrs={'k': k})
+    values.stop_gradient = True
+    indices.stop_gradient = True
+    return values, indices
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper('pad', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type='pad', inputs={'X': x}, outputs={'Out': out},
+                     attrs={'paddings': paddings, 'pad_value': pad_value})
     return out

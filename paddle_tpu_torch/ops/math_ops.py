@@ -1,7 +1,8 @@
-"""Elementwise, activation, matmul, reduction and loss op lowerings
-(ref: operators/elementwise/, activation_op.cc, mul_op.cc, reduce_ops/,
-sum_op.cc, softmax_with_cross_entropy_op.cc;
-paddle_tpu/ops/math_ops.py:27,70,216,262,306,368)."""
+"""Elementwise, activation, matmul, reduction, softmax and loss op
+lowerings (ref: operators/elementwise/, activation_op.cc, mul_op.cc,
+reduce_ops/, mean_op.cc, sum_op.cc, softmax_op.cc,
+softmax_with_cross_entropy_op.cc;
+paddle_tpu/ops/math_ops.py:27,70,216,262,287,306,335,368)."""
 from __future__ import annotations
 
 import numpy as np
@@ -73,6 +74,20 @@ def _reduce_sum(ctx, ins):
     return {'Out': [torch.sum(x, dim=dims, keepdim=keep)]}
 
 
+def _promote_f32(x):
+    """bf16 to f32 for sums and exponentials, as paddle_tpu's
+    amp.promote_f32 does; every other dtype as it is."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
+@register('mean')
+def _mean(ctx, ins):
+    """The mean of every element as a [1] tensor (mean_op.cc's shape),
+    accumulated in f32 for a bf16 x, and left in f32 as the reference
+    leaves it."""
+    return {'Out': [torch.mean(_promote_f32(X(ins))).reshape(1)]}
+
+
 @register('sum')
 def _sum(ctx, ins):
     """The sum of the X inputs: how append_backward adds the gradients of
@@ -82,6 +97,15 @@ def _sum(ctx, ins):
     for x in xs[1:]:
         out = out + x
     return {'Out': [out]}
+
+
+@register('softmax')
+def _softmax(ctx, ins):
+    """softmax over `axis` (default the last), exp and sum in f32 for a
+    bf16 x, the result cast back to x's dtype."""
+    x = X(ins)
+    return {'Out': [torch.softmax(_promote_f32(x), dim=ctx.attr('axis', -1))
+                    .to(x.dtype)]}
 
 
 @register('softmax_with_cross_entropy')

@@ -95,7 +95,9 @@ def _batch_norm(ctx, ins):
     the stats' dtype as paddle_tpu/ops/nn_ops.py:358-366 does. With
     is_test or use_global_stats, m and v are the running stats; otherwise
     they are this batch's, reduced in f32 in plain torch, and the running
-    stats move by `momentum`. The apply is the bn_apply kernel."""
+    stats move by `momentum`. The apply is the bn_apply kernel, through
+    BnApplyFunction: under the generic batch_norm_grad, dk and db flow back
+    into Scale and Bias, and into X through the batch mean and `inv`."""
     x = X(ins)
     scale, bias = ins['Scale'][0], ins['Bias'][0]
     mean, var = ins['Mean'][0], ins['Variance'][0]

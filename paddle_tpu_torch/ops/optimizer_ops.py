@@ -1,5 +1,5 @@
-"""Optimizer op lowerings (ref: operators/optimizers/adam_op.h;
-paddle_tpu/ops/optimizer_ops.py:79).
+"""Optimizer op lowerings (ref: operators/optimizers/momentum_op.h,
+adam_op.h; paddle_tpu/ops/optimizer_ops.py:37,79).
 
 Each writes its outputs under the names of its state inputs (ParamOut is
 Param, Moment1Out is Moment1, ...); the interpreter rebinds those names
@@ -10,6 +10,23 @@ from __future__ import annotations
 import torch
 
 from ..core.registry import register
+
+
+@register('momentum', no_grad=True)
+def _momentum(ctx, ins):
+    """Dense momentum, as the JAX lowering's dense branch computes it:
+    v = mu·v + g, then p -= lr·v, or with use_nesterov
+    p -= (g + mu·v)·lr. Sparse (SelectedRows) gradients cannot reach it,
+    since lookup_table_grad refuses is_sparse."""
+    p, g, v = ins['Param'][0], ins['Grad'][0], ins['Velocity'][0]
+    mu = ctx.attr('mu')
+    lr = ins['LearningRate'][0].reshape(())
+    v_out = mu * v + g
+    if ctx.attr('use_nesterov', False):
+        p_out = p - (g + mu * v_out) * lr
+    else:
+        p_out = p - lr * v_out
+    return {'ParamOut': [p_out], 'VelocityOut': [v_out]}
 
 
 @register('adam', no_grad=True)

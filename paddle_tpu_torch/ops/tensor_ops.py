@@ -1,7 +1,8 @@
-"""Tensor op lowerings: the startup program's init ops, range, and the
-reshape2/transpose2 views (ref: operators/fill_constant_op.cc,
+"""Tensor op lowerings: the startup program's init ops, range, the
+reshape2/transpose2 views, pad and top_k (ref: operators/fill_constant_op.cc,
 uniform_random_op.cc, gaussian_random_op.cc, range_op.cc, reshape_op.cc,
-transpose_op.cc; paddle_tpu/ops/tensor_ops.py:28,95,116,46,282,298).
+transpose_op.cc, pad_op.cc, top_k_op.cc;
+paddle_tpu/ops/tensor_ops.py:28,95,116,46,282,298,470,539).
 
 Random ops draw from the torch.Generator that ctx.rng() seeds for the op.
 torch's streams differ from JAX's threefry streams, so the two packages
@@ -128,3 +129,24 @@ def _transpose2(ctx, ins):
     takes the strides as they are."""
     x = X(ins)
     return {'Out': [x.permute(*ctx.attr('axis'))], 'XShape': [_xshape(x)]}
+
+
+@register('pad')
+def _pad(ctx, ins):
+    """Constant padding of every dim: `paddings` is [lo0, hi0, lo1, hi1,
+    ...] in dim order, filled with pad_value."""
+    x = X(ins)
+    p = ctx.attr('paddings')
+    flat = []
+    for i in reversed(range(x.ndim)):  # F.pad takes the last dim first
+        flat += [int(p[2 * i]), int(p[2 * i + 1])]
+    return {'Out': [torch.nn.functional.pad(
+        x, flat, value=float(ctx.attr('pad_value', 0.0)))]}
+
+
+@register('top_k')
+def _top_k(ctx, ins):
+    """The k largest values along the last dim, largest first, and their
+    indices as int64."""
+    vals, idx = torch.topk(X(ins), int(ctx.attr('k', 1)), dim=-1)
+    return {'Out': [vals], 'Indices': [idx]}

@@ -1,13 +1,14 @@
 """Optimizers: the port's copy of paddle_tpu/optimizer.py's `Optimizer`
-(:22-141) and `AdamOptimizer` (:248-297).
+(:22-141), `MomentumOptimizer` (:158-184) and `AdamOptimizer` (:248-297).
 
 `minimize` = append_backward + the optimizer's update ops, appended to the
 same program, with the JAX package's var names: the global learning-rate
 var `learning_rate_<n>` and per-parameter accumulators
-`<param>_<acc>_<n>` (moment1, moment2, beta1_pow_acc, beta2_pow_acc), all
-persistable and initialized by the startup program. Gradient clipping,
-regularization, per-parameter learning rates and remat checkpoints are not
-ported yet: asking for any of them raises.
+`<param>_<acc>_<n>` (Momentum's velocity; Adam's moment1, moment2,
+beta1_pow_acc, beta2_pow_acc), all persistable and initialized by the
+startup program. Gradient clipping, regularization, per-parameter learning
+rates and remat checkpoints are not ported yet: asking for any of them
+raises.
 """
 from __future__ import annotations
 
@@ -118,6 +119,35 @@ class Optimizer(object):
             params_grads
 
 
+class MomentumOptimizer(Optimizer):
+    _velocity_acc_str = "velocity"
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 regularization=None, name=None):
+        super().__init__(learning_rate, regularization, name)
+        self.type = "momentum"
+        self._momentum = momentum
+        self._use_nesterov = bool(use_nesterov)
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._velocity_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        velocity = self._get_accumulator(self._velocity_acc_str, param)
+        lr = self._create_param_lr(param_and_grad)
+        return block.append_op(
+            type=self.type,
+            inputs={"Param": [param.name], "Grad": [grad.name],
+                    "Velocity": [velocity.name], "LearningRate": [lr.name]},
+            outputs={"ParamOut": [param.name],
+                     "VelocityOut": [velocity.name]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov,
+                   'op_role': OP_ROLE_OPTIMIZE},
+            infer_shape=False)
+
+
 class AdamOptimizer(Optimizer):
     _moment1_acc_str = "moment1"
     _moment2_acc_str = "moment2"
@@ -167,4 +197,5 @@ class AdamOptimizer(Optimizer):
             infer_shape=False)
 
 
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

@@ -1,5 +1,5 @@
-"""The training slice's ops, each as a one-op program with its gradient op,
-in both packages on the CPU.
+"""The training slices' ops (BERT's, then ResNet-50's), each as a one-op
+program with its gradient op, in both packages on the CPU.
 
 Each case builds the forward op over data vars and, where it has inputs to
 differentiate, the `<type>_grad` op that append_backward would emit (the
@@ -9,12 +9,15 @@ cotangents fed as `<out>@GRAD` data vars. paddle_tpu derives a generic
 grad op's lowering with jax.vjp of its forward lowering
 (paddle_tpu/core/lowering.py:236); the port re-runs its own forward
 lowering under torch autograd (paddle_tpu_torch/core/lowering.py). The
-explicit lookup_table_grad and one adam step run as themselves. The same
-numpy inputs and cotangents go to both, and the forward outputs and the
-gradients are compared.
+explicit lookup_table_grad, one adam step, momentum steps and the
+no-grad accuracy op run as themselves. The same numpy inputs and
+cotangents go to both, and the forward outputs and the gradients are
+compared.
 
 Tolerance: rtol 1e-5 with an absolute floor of 1e-6 of the largest value
 compared: f32 on both sides, the same arithmetic summed in other orders.
+Integer outputs (top_k's indices, accuracy's counts) compare by value:
+paddle_tpu gives int32 indices where the port gives int64.
 """
 import numpy as np
 import pytest
@@ -64,6 +67,51 @@ def _adam_case():
         {'ParamOut': 'p_out', 'Moment1Out': 'm1_out', 'Moment2Out': 'm2_out',
          'Beta1PowOut': 'b1p_out', 'Beta2PowOut': 'b2p_out'},
         {'beta1': 0.9, 'beta2': 0.999, 'epsilon': 1e-8, 'lazy_mode': False})
+
+
+def _momentum_case(use_nesterov):
+    return _case('momentum', {
+        'Param': ('p', _r(3, 4, seed=1)), 'Grad': ('g', _r(3, 4, seed=2)),
+        'Velocity': ('v', 0.1 * _r(3, 4, seed=3)),
+        'LearningRate': ('lr', np.array([0.1], np.float32))},
+        {'ParamOut': 'p_out', 'VelocityOut': 'v_out'},
+        {'mu': 0.9, 'use_nesterov': use_nesterov})
+
+
+def _pool_case(x, **attrs):
+    base = {'pooling_type': 'max', 'ksize': [3, 3], 'strides': [2, 2],
+            'paddings': [1, 1], 'global_pooling': False, 'ceil_mode': False,
+            'exclusive': True}
+    base.update(attrs)
+    return _case('pool2d', {'X': ('x', x)}, {'Out': 'out'}, base, diff=['x'])
+
+
+def _tied(*shape, seed=0):
+    """relu of rounded normals: mostly 0 and small integers, so most pool
+    windows hold ties for their max, as after a relu in ResNet's stem."""
+    return np.maximum(np.round(_r(*shape, seed=seed)), 0.0).astype(
+        np.float32)
+
+
+def _batch_norm_case(x, c_axis=1):
+    c = x.shape[c_axis]
+    return _case('batch_norm', {
+        'X': ('x', x), 'Scale': ('scale', _r(c, seed=1, low=0.5)),
+        'Bias': ('bias', _r(c, seed=2)), 'Mean': ('mean', _r(c, seed=3)),
+        'Variance': ('variance', _r(c, seed=4, low=0.5))},
+        {'Y': 'y', 'MeanOut': 'mean_out', 'VarianceOut': 'variance_out',
+         'SavedMean': 'saved_mean', 'SavedVariance': 'saved_variance'},
+        {'momentum': 0.9, 'epsilon': 1e-5, 'is_test': False,
+         'data_layout': 'NCHW' if c_axis == 1 else 'NHWC',
+         'use_global_stats': False},
+        diff=['x', 'scale', 'bias'], cot=['Y'])
+
+
+def _accuracy_case(indices, label):
+    return _case('accuracy', {
+        'Out': ('values', _r(*indices.shape, seed=5)),
+        'Indices': ('indices', indices), 'Label': ('label', label)},
+        {'Accuracy': 'acc', 'Correct': 'correct', 'Total': 'total'})
 
 
 _LABELS = np.array([[3], [-100], [0], [6], [-100], [2]], np.int64)
@@ -144,6 +192,39 @@ CASES = {
     'lookup_table_grad_padding_idx': _lookup_grad_case(
         np.array([[1, 3, 3], [0, 3, 9]], np.int64), 3),
     'adam': _adam_case(),
+    'mean': _case('mean', {'X': ('x', _r(4, 3, 5))}, {'Out': 'out'},
+                  diff=['x']),
+    'softmax_last_axis': _case('softmax', {'X': ('x', _r(6, 10))},
+                               {'Out': 'out'}, {'axis': -1}, diff=['x']),
+    'softmax_axis1': _case('softmax', {'X': ('x', _r(2, 5, 3))},
+                           {'Out': 'out'}, {'axis': 1}, diff=['x']),
+    'pad_s2d_stem': _case(
+        'pad', {'X': ('x', _r(2, 3, 6, 6))}, {'Out': 'out'},
+        {'paddings': [0, 0, 0, 0, 3, 3, 3, 3], 'pad_value': 0.0},
+        diff=['x']),
+    'pad_uneven_value': _case(
+        'pad', {'X': ('x', _r(3, 4))}, {'Out': 'out'},
+        {'paddings': [1, 0, 2, 3], 'pad_value': -1.5}, diff=['x']),
+    'top_k_1': _case('top_k', {'X': ('x', _r(6, 10))},
+                     {'Out': 'out', 'Indices': 'indices'}, {'k': 1}),
+    'top_k_3': _case('top_k', {'X': ('x', _r(5, 2, 9))},
+                     {'Out': 'out', 'Indices': 'indices'}, {'k': 3}),
+    'accuracy_top1': _accuracy_case(
+        np.array([[3], [1], [0], [7], [2], [2]], np.int64),
+        np.array([[3], [2], [0], [7], [9], [1]], np.int64)),
+    'accuracy_top3': _accuracy_case(
+        np.array([[3, 1, 0], [1, 2, 5], [4, 6, 8]], np.int64),
+        np.array([[0], [9], [8]], np.int64)),
+    'momentum': _momentum_case(False),
+    'momentum_nesterov': _momentum_case(True),
+    'pool2d_max_ties': _pool_case(_tied(2, 3, 9, 9)),
+    'pool2d_max_ties_even_edge': _pool_case(_tied(2, 2, 8, 8, seed=1)),
+    'pool2d_max_random': _pool_case(_r(2, 3, 9, 9)),
+    'pool2d_global_avg': _pool_case(_r(2, 4, 5, 5), pooling_type='avg',
+                                    global_pooling=True),
+    'batch_norm_train': _batch_norm_case(_r(4, 3, 5, 5)),
+    'batch_norm_train_offset': _batch_norm_case(3.0 + _r(2, 6, 7, 7)),
+    'batch_norm_train_nhwc': _batch_norm_case(_r(3, 4, 4, 5), c_axis=3),
 }
 
 
