@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of paddle_tpu_torch: ResNet-50 and BERT-base served,
-and BERT-base and ResNet-50 trained, on one NVIDIA GPU.
+and BERT-base and ResNet-50 trained in f32 and in bf16 mixed precision, on
+one NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -9,8 +10,9 @@ Run from the repository root on a machine with a CUDA card:
 It builds the port's CUDA kernels from paddle_tpu_torch/csrc/ (bn_apply,
 flash_attn_fwd and flash_attn_bwd, one nvcc each, in parallel) and holds
 each against its plain PyTorch version on the card (bn_apply and its
-backward, which is plain torch, at batch 16 and 128). Then it drives four
-paths, with random weights from a seed, f32 and TF32 off:
+backward, which is plain torch, at batch 16 and 128, and in bf16 at 256).
+Then it drives six paths, with random weights from a seed, TF32 off and
+bf16 GEMMs reducing in f32:
 
 - ResNet-50 (depth 50, 224x224, 1000 classes) served through
   save_inference_model -> create_predictor(Config(dir)) -> Predictor.run,
@@ -28,14 +30,21 @@ paths, with random weights from a seed, f32 and TF32 off:
   Momentum(0.1, 0.9)) -> Executor.run(startup) -> Executor.run(main, feed,
   fetch_list=[avg_loss, acc]), batch 128, 2 warm-up, 10 timed and 18 more
   steps on one fixed batch, with 106 bn_apply launches per step (the 53
-  batch_norm ops and the forward each batch_norm_grad re-runs).
+  batch_norm ops and the forward each batch_norm_grad re-runs);
+- the same two training programs marked for bf16 mixed precision by
+  contrib.mixed_precision.enable_bf16, as bench.py marks them: BERT-base
+  at batch 8 and ResNet-50 at batch 256, each with the launch counts
+  above, every launch bf16, and the loss, every parameter gradient,
+  parameter and optimizer state f32.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after. The run compares GPU and CPU outputs of each served
-model, the loss and gradients of one step of each trained model, and
-ResNet-50's backward with card and CPU fed the card's forward values,
-times the kernels (CUDA events), the requests and the steps (host
-clock), and profiles a few requests and steps. Every check that fails
+model, the loss and gradients of one step of each trained model (f32 and
+bf16; each tolerance 4 times the one-ulp noise measured over NOISE_DRAWS
+draws on each side), and ResNet-50's backward with card and CPU fed the
+card's forward values (f32 and bf16), times the kernels (CUDA events),
+the requests and the steps (host clock), and profiles a few requests and
+steps. Every check that fails
 raises, so the exit code is 0 only when all phases passed. Without a
 card it exits 1 and prints no result.
 
@@ -46,6 +55,8 @@ kernels' summary as JSON.
 import collections
 import json
 import math
+import os
+import platform
 import subprocess
 import sys
 import tempfile
@@ -57,6 +68,7 @@ import torch.nn.functional as F
 
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch import kernels
+from paddle_tpu_torch.contrib import mixed_precision
 from paddle_tpu_torch.models.bert import bert_mlm_logits, build_bert_pretrain
 from paddle_tpu_torch.models.resnet import build_train_net, resnet_imagenet
 from paddle_tpu_torch.ops import bn_apply as bn_mod
@@ -118,10 +130,18 @@ RESNET_TRAIN_BATCH = 128
 # ResNet-50 on one fixed batch rises for a few steps before it falls
 RESNET_MORE_STEPS = 18
 RESNET_GATE_BATCH = 4
+# bf16 mixed precision (contrib.mixed_precision.enable_bf16 on the programs
+# above): ResNet-50 at bench.py:431's defaults, bf16 at batch 256
+RESNET_AMP_BATCH = 256
+# one-ulp draws of the GPU-vs-CPU gates' noise, on each side
+NOISE_DRAWS = 3
 # K1 and its backward are held against their plain versions at the batch of
-# ResNet-50 serving and at that of its training, where the largest BN
-# outputs take the kernel's grid-stride loop through a second pass
-BN_CHECK_BATCHES = (BN_BATCH, RESNET_TRAIN_BATCH)
+# ResNet-50 serving and at those of its f32 and AMP training, where the
+# largest BN outputs take the kernel's grid-stride loop through 2 (f32 at
+# 128, bf16 at 256) and more passes: (batch, dtypes)
+BN_CHECKS = ((BN_BATCH, (torch.float32, torch.bfloat16)),
+             (RESNET_TRAIN_BATCH, (torch.float32, torch.bfloat16)),
+             (RESNET_AMP_BATCH, (torch.bfloat16,)))
 
 
 def check(cond, msg):
@@ -136,6 +156,24 @@ def card_line():
     return r.stdout.strip().splitlines()[0]
 
 
+def host_line():
+    """The host CPU (architecture, model where /proc/cpuinfo names it,
+    CPUs) and the threads torch uses on it: the CPU side of every
+    GPU-vs-CPU gate runs there."""
+    fields = {}
+    try:
+        with open('/proc/cpuinfo') as f:
+            for line in f:
+                key, _, value = line.partition(':')
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    model = (fields.get('model name') or fields.get('Model')
+             or fields.get('CPU part') or 'model unknown')
+    return '%s %s, %d CPUs, %d torch threads' % (
+        platform.machine(), model, os.cpu_count(), torch.get_num_threads())
+
+
 def _grid_passes(x):
     """Passes of bn_apply's grid-stride loop over x (16-byte vectors)."""
     return math.ceil(x.numel() * x.element_size() // 16 / BN_GRID_THREADS)
@@ -143,19 +181,19 @@ def _grid_passes(x):
 
 def phase_kernel_vs_plain():
     """bn_apply vs bn_apply_reference at every ResNet-50 BN shape, at each
-    batch of BN_CHECK_BATCHES, f32 and bf16, act None and relu. Tolerance:
+    batch and dtype of BN_CHECKS, act None and relu. Tolerance:
     1 ulp (one_ulp_bound). At least one case must take the kernel's
     grid-stride loop through more than one pass."""
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     max_abs = {torch.float32: 0.0, torch.bfloat16: 0.0}
     passes = 0
-    for batch in BN_CHECK_BATCHES:
+    for batch, dtypes in BN_CHECKS:
         for (c, h, w), _ in BN_SHAPES:
             shape = (batch, c, h, w)
             x32 = torch.randn(shape, device='cuda', generator=gen)
             k = torch.rand(c, device='cuda', generator=gen) + 0.5
             b = torch.randn(c, device='cuda', generator=gen)
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in dtypes:
                 x = x32.to(dtype)
                 passes = max(passes, _grid_passes(x))
                 for act in (None, 'relu'):
@@ -175,6 +213,7 @@ def phase_kernel_vs_plain():
                           'bn_apply differs from its plain version by more '
                           'than 1 ulp at %s %s act=%s' % (shape, dtype, act))
                 del x, y, ref, err, bound
+            del x32
     check(passes > 1, 'no check took bn_apply\'s grid-stride loop through '
           'a second pass')
     return max_abs
@@ -184,7 +223,7 @@ def phase_kernel_bwd_vs_plain():
     """BnApplyFunction's dx, dk, db (the kernel's forward, then the plain
     backward ported from pallas_bn.py:68) vs autograd through
     bn_apply_reference, both on the card, at every ResNet-50 BN shape, at
-    each batch of BN_CHECK_BATCHES, f32 and bf16, act None and relu.
+    each batch and dtype of BN_CHECKS, act None and relu.
     Tolerances:
     bn_mod.backward_bounds (dx is one multiply: one rounding of x's dtype;
     dk and db are f32 sums of L = N·H·W terms: L·2^-24 of the sum of
@@ -195,15 +234,15 @@ def phase_kernel_bwd_vs_plain():
     gen = torch.Generator(device='cuda').manual_seed(SEED + 14)
     worst = collections.defaultdict(float)
     max_abs = collections.defaultdict(float)
-    shapes = [(batch, c, h, w) for batch in BN_CHECK_BATCHES
+    shapes = [((batch, c, h, w), dtypes) for batch, dtypes in BN_CHECKS
               for (c, h, w), _ in BN_SHAPES]
-    for shape in shapes:
+    for shape, dtypes in shapes:
         c = shape[1]
         x32 = torch.randn(shape, device='cuda', generator=gen)
         dy32 = torch.randn(shape, device='cuda', generator=gen)
         k = torch.rand(c, device='cuda', generator=gen) + 0.5
         b = torch.randn(c, device='cuda', generator=gen)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             x, dy = x32.to(dtype), dy32.to(dtype)
             for act in (None, 'relu'):
                 out = []
@@ -284,10 +323,16 @@ WRAPPERS = {'bn_apply': bn_mod.bn_apply,
 def reset_launches():
     for fn in WRAPPERS.values():
         fn.launches = 0
+        fn.launches_by_dtype = dict.fromkeys(fn.launches_by_dtype, 0)
 
 
 def read_launches():
     return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def read_launches_by_dtype():
+    return {name: dict(fn.launches_by_dtype)
+            for name, fn in WRAPPERS.items()}
 
 
 def phase_serving(dirname, n_bn):
@@ -413,38 +458,41 @@ def _busy_ms(fn, inputs):
     return busy_us * 1e-3 / KERNEL_REPS
 
 
-def phase_kernel_times():
+def phase_kernel_times(batch=BN_BATCH, dtype=torch.float32):
     """bn_apply, its plain version and torch.addcmul at each ResNet-50 BN
-    shape (batch 16, f32, act None as the model runs it), beside the
-    shape's bound: max(bytes / HBM rate, operations / f32 rate)."""
+    shape (act None as the model runs it; batch 16 f32 as served, batch 256
+    bf16 as AMP training runs it), beside the shape's bound: max(bytes /
+    HBM rate, operations / f32 rate), x read and y written in `dtype`, k
+    and b read in f32."""
     gen = torch.Generator(device='cuda').manual_seed(SEED + 4)
+    size = dtype.itemsize
     totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     for (c, h, w), count in BN_SHAPES:
-        numel = BN_BATCH * c * h * w
-        copies = max(2, math.ceil(2 * L2_BYTES / (numel * 4)))
-        xs = [torch.randn(BN_BATCH, c, h, w, device='cuda', generator=gen)
-              for _ in range(copies)]
+        numel = batch * c * h * w
+        copies = max(2, math.ceil(2 * L2_BYTES / (numel * size)))
+        xs = [torch.randn(batch, c, h, w, device='cuda',
+                          generator=gen).to(dtype) for _ in range(copies)]
         k = torch.rand(c, device='cuda', generator=gen) + 0.5
         b = torch.randn(c, device='cuda', generator=gen)
-        k4, b4 = k.view(1, c, 1, 1), b.view(1, c, 1, 1)
+        k4, b4 = (t.to(dtype).view(1, c, 1, 1) for t in (k, b))
         before = bn_mod.bn_apply.launches
         ms = _time_ms(lambda x: bn_mod.bn_apply(x, k, b), xs)
         check(bn_mod.bn_apply.launches - before == KERNEL_REPS + 2,
               'timing loop did not launch the kernel')
         plain = _time_ms(lambda x: bn_mod.bn_apply_reference(x, k, b), xs)
         lib = _time_ms(lambda x: torch.addcmul(b4, x, k4), xs)
-        nbytes = 2 * numel * 4 + 2 * c * 4
+        nbytes = 2 * numel * size + 2 * c * 4
         bound = max(nbytes / HBM_BYTES_PER_S, 2 * numel / F32_OPS_PER_S) * 1e3
-        print('kernel_time shape=%s count=%d kernel_ms=%r bound_ms=%r '
-              'plain_ms=%r library_ms=%r bound_share=%.3f' % (
-                  (BN_BATCH, c, h, w), count, ms, bound, plain, lib,
-                  bound / ms))
+        print('kernel_time shape=%s dtype=%s count=%d kernel_ms=%r '
+              'bound_ms=%r plain_ms=%r library_ms=%r bound_share=%.3f' % (
+                  (batch, c, h, w), str(dtype)[6:], count, ms, bound, plain,
+                  lib, bound / ms))
         for key, v in (('ms', ms), ('plain_ms', plain), ('library_ms', lib),
                        ('bound_ms', bound)):
             totals[key] += count * v
         del xs
-    print('kernel_time all 53 BN applies of one batch-16 request: %s'
-          % json.dumps(totals))
+    print('kernel_time all 53 BN applies of one batch-%d %s pass: %s'
+          % (batch, str(dtype)[6:], json.dumps(totals)))
     return totals
 
 
@@ -452,6 +500,12 @@ def phase_profile(pred, images):
     """Device time by kernel over 3 batch-16 ResNet-50 requests."""
     _profile(lambda: pred.run([images[16]], return_numpy=False),
              'resnet50 batch=16', 'requests')
+
+
+# kernel-name fragments of cuDNN's convolutions (with their layout
+# transposes) and cuBLAS's GEMMs, for the profiles' library share
+_LIBRARY_KERNELS = ('cudnn', 'xmma', 'gemm', 'cutlass', 'nvjet', 'wgrad',
+                    'dgrad', 'fprop', 'sm80_', 'sm90_')
 
 
 def _profile(run_once, label, what):
@@ -481,10 +535,12 @@ def _profile(run_once, label, what):
         for k in e.kernels:
             ops[k.name][e.name] += 1
     busy_s = sum(r[0] for r in rows) * 1e-6
+    library = sum(r[0] for r in rows if any(
+        t in r[2] for t in _LIBRARY_KERNELS)) * 1e-6
     print('profile %s 3 %s (profiler on): wall_ms=%r '
-          'device_busy_ms=%r idle_share=%.3f' % (
+          'device_busy_ms=%r idle_share=%.3f cudnn_cublas_share=%.3f' % (
               label, what, wall * 1e3, busy_s * 1e3,
-              max(0.0, 1 - busy_s / wall)))
+              max(0.0, 1 - busy_s / wall), library / busy_s))
     for dev_us, count, key in rows[:12]:
         print('profile %s kernel=%r calls=%d device_ms=%r share=%.3f ops=%s'
               % (label, key[:160], count, dev_us * 1e-3,
@@ -734,9 +790,13 @@ def phase_flash_bwd_vs_plain():
     docstring says why) and 1e-5 of the largest |lse|. A second launch of
     each backward kernel on the same inputs must give the same bits (no
     atomics).
-    Then one FlashAttention forward and backward on the card against the
-    same function on the CPU, f32, at the batch-1 BERT-base shape, within
-    1e-5 of each tensor's largest value."""
+    Then one FlashAttention forward and backward on the card, f32, at the
+    batch-1 BERT-base shape, against the same function evaluated in float64
+    on the CPU (_attention_f64), within 1e-5 of each tensor's largest value.
+    The port's CPU path (FlashAttention on CPU tensors, f32) is printed
+    against the same float64 values: its f32 arithmetic is the host's (its
+    BLAS and its matmul precision), and tests/test_torch_attention.py holds
+    it against the JAX op."""
     gen = torch.Generator(device='cuda').manual_seed(SEED + 9)
     max_abs = collections.defaultdict(float)
     for b, h, sq, sk, d, causal in K2_BWD_CASES:
@@ -792,25 +852,49 @@ def phase_flash_bwd_vs_plain():
         leaves = [t.detach().to(device).requires_grad_() for t in (q, k, v)]
         out = fa.FlashAttention.apply(*leaves, False, d ** -0.5)
         out.backward(do.to(device))
-        results.append([out.detach()] + [t.grad for t in leaves])
-    for name, got, want in zip(('out', 'dq', 'dk', 'dv'), *results):
-        err = float((got.cpu() - want).abs().max())
+        results.append([out.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    exact = _attention_f64(q, k, v, do, d ** -0.5)
+    for name, got, cpu, want in zip(('out', 'dq', 'dk', 'dv'), *results,
+                                    exact):
+        err = float((got.double() - want).abs().max())
+        cpu_err = float((cpu.double() - want).abs().max())
         scale_ = float(want.abs().max())
-        print('k2_autograd_gpu_vs_cpu shape=%s %s max_abs_err=%r max_abs=%r '
-              'tolerance_rel=1e-5' % ((b, h, s, d), name, err, scale_))
+        print('k2_autograd_gpu_vs_f64 shape=%s %s max_abs_err=%r max_abs=%r '
+              'err/tol=%.3g tolerance_rel=1e-5 cpu_f32_max_abs_err=%r' % (
+                  (b, h, s, d), name, err, scale_, err / (1e-5 * scale_),
+                  cpu_err))
         check(err <= 1e-5 * scale_, 'FlashAttention %s on the card differs '
-              'from the CPU by %r of %r' % (name, err, scale_))
+              'from its float64 evaluation by %r of %r' % (name, err, scale_))
     return max_abs
 
 
-def build_bert_training():
+def _attention_f64(q, k, v, do, scale):
+    """O = softmax(scale·q·kᵀ)·v and its dQ, dK, dV for the output gradient
+    dO, in float64 on the CPU: the exact values the f32 paths approximate."""
+    q, k, v, do = (t.detach().cpu().double() for t in (q, k, v, do))
+    p = torch.softmax(torch.einsum('bhqd,bhkd->bhqk', q, k) * scale, dim=-1)
+    out = p @ v
+    ds = p * (do @ v.transpose(-1, -2) - (do * out).sum(-1, keepdim=True))
+    ds = ds * scale
+    return out, ds @ k, ds.transpose(-1, -2) @ q, p.transpose(-1, -2) @ do
+
+
+def _mark(main, amp):
+    """enable_bf16(main) for an AMP path, as bench.py marks its programs."""
+    if amp:
+        mixed_precision.enable_bf16(main)
+    return main
+
+
+def build_bert_training(amp=False):
     """Full-width BERT-base pretraining at S=512: the masked-LM loss and
-    Adam(lr 1e-4).minimize, dropout 0, seeded initialization."""
+    Adam(lr 1e-4).minimize, dropout 0, seeded initialization; with amp,
+    marked for bf16 by contrib.mixed_precision.enable_bf16."""
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = SEED
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
         _, loss = build_bert_pretrain(dropout=0.0, lr=1e-4, **BERT)
-    return main, startup, loss
+    return _mark(main, amp), startup, loss
 
 
 def _train_feed(bs, gen):
@@ -827,13 +911,44 @@ def _train_feed(bs, gen):
                             < 0.15).float()}
 
 
-def phase_bert_training(main, startup, loss):
+def _precision(amp):
+    return 'bf16' if amp else 'f32'
+
+
+def _check_amp_dtypes(label, main, scope, fetched):
+    """The reference's dtypes on the card (paddle_tpu/core/amp.py): the loss
+    and every <param>@GRAD fetched from a step are f32, and so is every
+    float persistable (parameters, optimizer and BN state) in the scope
+    after it."""
+    bad = [(n, str(t.dtype)) for n, t in fetched.items()
+           if t.dtype != torch.float32]
+    for v in main.list_vars():
+        t = scope.get(v.name) if v.persistable else None
+        if t is not None and t.is_floating_point() \
+                and t.dtype != torch.float32:
+            bad.append((v.name, str(t.dtype)))
+    check(not bad, '%s: tensors that should be f32 are not: %s'
+          % (label, bad[:10]))
+    print('%s dtypes: loss and %d parameter gradients f32; every float '
+          'persistable f32' % (label, len(fetched) - 1))
+
+
+def _by_dtype_step(before, after):
+    return {name: {dt: after[name][dt] - before[name][dt]
+                   for dt in after[name]} for name in after}
+
+
+def phase_bert_training(main, startup, loss, amp=False):
     """Train BERT-base on the card: TRAIN_WARMUP_STEPS, then TRAIN_STEPS
     timed steps (host clock around Executor.run and a sync), all on one
     fixed batch of TRAIN_BATCH. The loss is finite at every step and lower
     at the last than at the first; every timed step launches each backward
     kernel once per layer, flash_attn_fwd twice per layer (the forward op
-    and the grad op's recomputed forward) and bn_apply never."""
+    and the grad op's recomputed forward) and bn_apply never, every launch
+    in the path's dtype (bf16 with amp). With amp, the last warm-up step
+    also fetches every parameter gradient for the dtype gate, which also
+    reads the state after the warm-up steps."""
+    label = 'bert_training' + ('_bf16' if amp else '')
     ops = main.global_block().ops
     n_layer = BERT['n_layer']
     for t in ('fused_multihead_attention', 'fused_multihead_attention_grad'):
@@ -843,21 +958,28 @@ def phase_bert_training(main, startup, loss):
     scope = fluid.Scope()
     gen = torch.Generator(device='cuda').manual_seed(SEED + 10)
     feed = _train_feed(TRAIN_BATCH, gen)
+    grads = [p.name + '@GRAD' for p in main.all_parameters()] if amp else []
     losses = []
     exe.run(startup, scope=scope)
-    for _ in range(TRAIN_WARMUP_STEPS):
-        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
-                       return_numpy=False)
-        losses.append(float(out.reshape(-1)[0]))
+    for i in range(TRAIN_WARMUP_STEPS):
+        out = exe.run(main, feed=feed, scope=scope, return_numpy=False,
+                      fetch_list=[loss] + (
+                          grads if i == TRAIN_WARMUP_STEPS - 1 else []))
+        losses.append(float(out[0].reshape(-1)[0]))
+    if amp:
+        _check_amp_dtypes(label, main, scope, dict(zip([loss.name] + grads,
+                                                       out)))
+    del out
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
+    dtype = 'bfloat16' if amp else 'float32'
     want = {'bn_apply': 0, 'flash_attn_fwd': 2 * n_layer,
             'flash_attn_bwd_dkv': n_layer, 'flash_attn_bwd_dq': n_layer}
     reset_launches()
     times = []
     for _ in range(TRAIN_STEPS):
-        before = read_launches()
+        before, before_dt = read_launches(), read_launches_by_dtype()
         t0 = time.perf_counter()
         out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
                        return_numpy=False)
@@ -867,6 +989,9 @@ def phase_bert_training(main, startup, loss):
         step = {k: after[k] - before[k] for k in after}
         check(step == want, 'a training step launched %s, not %s'
               % (step, want))
+        by_dt = _by_dtype_step(before_dt, read_launches_by_dtype())
+        check(all(by_dt[k][dtype] == want[k] for k in want),
+              '%s: a step launched %s, not all %s' % (label, by_dt, dtype))
         losses.append(float(out.reshape(-1)[0]))
     counts = read_launches()
     peak = torch.cuda.max_memory_allocated()
@@ -875,97 +1000,152 @@ def phase_bert_training(main, startup, loss):
     check(losses[-1] < losses[0], 'the loss did not fall: %s' % losses)
     tokens = TRAIN_BATCH * BERT['max_len']
     p50 = float(np.percentile(times, 50))
-    print('bert_training batch=%d S=%d f32 lr=1e-4 ops=%d losses=%s'
-          % (TRAIN_BATCH, BERT['max_len'], len(ops),
+    print('%s batch=%d S=%d %s lr=1e-4 ops=%d losses=%s'
+          % (label, TRAIN_BATCH, BERT['max_len'], _precision(amp), len(ops),
              json.dumps([round(x, 5) for x in losses])))
-    print('bert_training launches over %d timed steps: %s (per step: %s)'
-          % (TRAIN_STEPS, json.dumps(counts), json.dumps(want)))
-    print('bert_training step p50_ms=%r p90_ms=%r tokens_per_s=%r '
+    print('%s launches over %d timed steps: %s (per step: %s; by dtype: %s)'
+          % (label, TRAIN_STEPS, json.dumps(counts), json.dumps(want),
+             json.dumps(read_launches_by_dtype())))
+    print('%s step p50_ms=%r p90_ms=%r tokens_per_s=%r '
           'peak_allocated_gb=%.2f (host clock, %d steps, each ending in a '
-          'sync)' % (p50 * 1e3, float(np.percentile(times, 90)) * 1e3,
+          'sync)' % (label, p50 * 1e3, float(np.percentile(times, 90)) * 1e3,
                      tokens / p50, peak / 2 ** 30, TRAIN_STEPS))
     return exe, scope, feed, counts
 
 
-def phase_training_gpu_vs_cpu(main, startup, loss):
+def _bert_training_profile(exe, main, loss, scope, feed, amp):
+    """Device time by kernel over 3 BERT-base training steps, and K2's
+    share (the flash-attention kernels' rows)."""
+    per_kernel = _profile(
+        lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                        return_numpy=False),
+        'bert training %s batch=%d S=%d' % (_precision(amp), TRAIN_BATCH,
+                                            BERT['max_len']), 'steps')
+    if per_kernel:
+        k2 = sum(ms for name, ms in per_kernel.items()
+                 if 'flash_fwd_kernel' in name or 'flash_bwd_' in name)
+        print('profile bert training %s: K2 device_ms_per_step=%r share=%.3f'
+              % (_precision(amp), k2 / 3, k2 / sum(per_kernel.values())))
+
+
+def phase_training_gpu_vs_cpu(main, startup, loss, amp=False):
     """One training step at full width, batch 1, from one initial state
     (the startup program run on the card, carried to a CPU scope with
     weights.py): the loss and the gradients of word_emb, the first layer's
     Q weight and the last layer_norm's scale, GPU against CPU.
 
-    The tolerance of each is measured in the same run: the CPU step is
-    taken again from the state with every tensor scaled by 1 + 1e-7·N(0, 1)
-    (about one f32 ulp), and the GPU may differ from the CPU by at most 4
-    times what that perturbation moves the tensor, and never less than
-    1e-5 of its largest value. At random initialization the gradients that
-    reach the bottom of the 12 layers (word_emb, the first Q weight) are
+    The tolerance of each is measured in the same run (_gpu_vs_cpu_step):
+    the step is taken again on each side from the state moved by one ulp
+    (f32, or bf16 with amp) in NOISE_DRAWS draws, and the GPU may differ
+    from the CPU by at most 4 times the largest move of the tensor on the
+    card plus the largest on the CPU, and never less than 1e-5 of its
+    largest value. At random initialization the gradients that reach the
+    bottom of the 12 layers (word_emb, the first Q weight) are
     ill-conditioned in f32: a one-ulp perturbation moves them by ~1e-3 to
     ~6e-3 of their largest value (CPU), while the head's layer_norm scale
     moves by ~1e-6. A fixed tolerance would be either too loose for the
     one or too tight for the others."""
+    label = 'bert_training%s_gpu_vs_cpu' % ('_bf16' if amp else '')
     ln = max((p.name for p in main.all_parameters()
               if p.name.startswith('layer_norm_') and p.name.endswith('.w_0')),
              key=lambda n: int(n.split('_')[2].split('.')[0]))
     names = [loss.name, 'word_emb@GRAD', 'fc_0.w_0@GRAD', ln + '@GRAD']
     gen = torch.Generator(device='cuda').manual_seed(SEED + 11)
+    worst = (0.0, '')
     for name, g, w, err, top, noise, tol in _gpu_vs_cpu_step(
-            main, startup, names, _train_feed(1, gen), SEED + 13):
-        print('bert_training_gpu_vs_cpu batch=1 %s shape=%s max_abs_err=%r '
-              'max_abs=%r rel=%r one_ulp_perturbation_moves=%r tolerance=%r'
-              % (name, tuple(w.shape), err, top, err / top, noise, tol))
+            main, startup, names, _train_feed(1, gen), SEED + 13, amp):
+        print('%s batch=1 %s shape=%s max_abs_err=%r max_abs=%r rel=%r '
+              'one_ulp_noise=%r tolerance=%r' % (
+                  label, name, tuple(w.shape), err, top, err / top, noise,
+                  tol))
         check(g.shape == w.shape and np.isfinite(g).all() and err <= tol,
               'GPU and CPU %s differ: %r > %r' % (name, err, tol))
+        worst = max(worst, (err / tol, name))
+    print('%s batch=1 worst err/tol=%.3f (%s)' % (label, worst[0], worst[1]))
 
 
-def _perturbed(arrays, seed):
-    """Every float array scaled by 1 + 1e-7·N(0, 1): about one f32 ulp."""
+def _ulp_moved(a, rng, amp):
+    """a moved by about one ulp of the path's compute dtype, at random:
+    f32 scaled by 1 + 1e-7·N(0, 1); with amp, one bf16 ulp at each
+    element's magnitude, up or down (a bf16 value lands on its neighbour,
+    an f32 parameter on a value whose bf16 cast does). numpy arrays and
+    torch tensors (bf16 ones too) alike."""
+    if isinstance(a, torch.Tensor):
+        if not a.is_floating_point():
+            return a
+        m, e = torch.frexp(a.float())
+        sign = torch.from_numpy(rng.choice([-1.0, 1.0], tuple(a.shape))).to(
+            device=a.device, dtype=torch.float32)
+        if amp:
+            step = torch.where(m == 0, 0.0, torch.ldexp(torch.ones_like(m),
+                                                        e - 8))
+            return (a.float() + sign * step).to(a.dtype)
+        noise = torch.from_numpy(rng.randn(*a.shape)).to(
+            device=a.device, dtype=torch.float32)
+        return (a.float() * (1 + 1e-7 * noise)).to(a.dtype)
+    if a.dtype.kind != 'f':
+        return a
+    if amp:
+        m, e = np.frexp(a.astype(np.float64))
+        step = np.where(m == 0, 0.0, np.ldexp(1.0, e - 8))
+        return (a + rng.choice([-1.0, 1.0], a.shape) * step).astype(a.dtype)
+    return (a * (1 + 1e-7 * rng.randn(*a.shape))).astype(a.dtype)
+
+
+def _perturbed(arrays, seed, amp=False):
+    """Every float array or tensor moved by one ulp (_ulp_moved)."""
     rng = np.random.RandomState(seed)
-    return {n: (a * (1 + 1e-7 * rng.randn(*a.shape))).astype(a.dtype)
-            if a.dtype.kind == 'f' else a for n, a in arrays.items()}
+    return {n: _ulp_moved(a, rng, amp) for n, a in arrays.items()}
 
 
-def _gpu_vs_cpu_step(main, startup, names, feed, seed):
+def _gpu_vs_cpu_step(main, startup, names, feed, seed, amp=False):
     """One training step from one initial state, the startup program run
     on the card and carried to CPU scopes with weights.py, fetching
-    `names`: on the card, on the CPU, and on the CPU again from the state
-    with every tensor scaled by 1 + 1e-7·N(0, 1) from `seed` (about one
-    f32 ulp). Returns, for each name, (name, GPU value, CPU value, the
-    largest |GPU - CPU|, the largest |CPU|, what the perturbation moved it,
-    its tolerance: max(1e-5 of the largest |CPU|, 4 times that move))."""
+    `names`: on the card and on the CPU, and on each again from the state
+    moved by one ulp (_perturbed, f32 or with amp bf16) in NOISE_DRAWS
+    draws from `seed`. Returns, for each name, (name, GPU value, CPU value,
+    the largest |GPU - CPU|, the largest |CPU|, the noise: the largest
+    move over the draws on the card plus the largest on the CPU, its
+    tolerance: max(1e-5 of the largest |CPU|, 4 times the noise))."""
     gpu_scope = fluid.Scope()
     gpu = fluid.Executor(fluid.CUDAPlace(0))
     cpu = fluid.Executor(fluid.CPUPlace())
     gpu.run(startup, scope=gpu_scope)
     state = fluid.weights.state_to_numpy(main, gpu_scope)
-    rng = np.random.RandomState(seed)
-    perturbed = {n: a * (1 + 1e-7 * rng.randn(*a.shape)).astype(a.dtype)
-                 for n, a in state.items()}
-    got = gpu.run(main, feed=feed, fetch_list=names, scope=gpu_scope)
+    del gpu_scope
     cpu_feed = {k: t.cpu() for k, t in feed.items()}
-    want, moved = [], []
-    for st in (state, perturbed):
-        scope = fluid.Scope()
-        fluid.weights.params_from_numpy(st, main, scope)
-        (want if st is state else moved).extend(
-            cpu.run(main, feed=cpu_feed, fetch_list=names, scope=scope))
+    runs = {}
+    t0 = time.perf_counter()
+    for i in range(NOISE_DRAWS + 1):
+        st = state if i == 0 else _perturbed(state, seed + i, amp)
+        for exe, device, fd in ((gpu, 'cuda', feed), (cpu, 'cpu', cpu_feed)):
+            scope = fluid.Scope()
+            fluid.weights.params_from_numpy(st, main, scope, device=device)
+            runs[device, i] = exe.run(main, feed=fd, fetch_list=names,
+                                      scope=scope)
+    print('gpu_vs_cpu step %s: %d draws on each side, %.1f s' % (
+        _precision(amp), NOISE_DRAWS, time.perf_counter() - t0))
     rows = []
-    for name, g, w, m in zip(names, got, want, moved):
+    for j, name in enumerate(names):
+        g, w = runs['cuda', 0][j], runs['cpu', 0][j]
+        noise = sum(max(float(np.abs(runs[d, i][j] - runs[d, 0][j]).max())
+                        for i in range(1, NOISE_DRAWS + 1))
+                    for d in ('cuda', 'cpu'))
         err = float(np.abs(g - w).max())
         top = float(np.abs(w).max())
-        noise = float(np.abs(m - w).max())
         rows.append((name, g, w, err, top, noise, max(1e-5 * top, 4 * noise)))
     return rows
 
 
-def build_resnet_training():
+def build_resnet_training(amp=False):
     """Full-width ResNet-50 training as bench.py:431 builds it: the s2d
     stem, softmax cross-entropy, top-1 accuracy and Momentum(0.1, 0.9),
-    seeded initialization."""
+    seeded initialization; with amp, marked for bf16 by enable_bf16."""
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = SEED
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
         _, _, loss, acc = build_train_net(**RESNET_TRAIN)
-    return main, startup, loss, acc
+    return _mark(main, amp), startup, loss, acc
 
 
 def _resnet_feed(bs, gen):
@@ -975,19 +1155,23 @@ def _resnet_feed(bs, gen):
                                    device='cuda', generator=gen)}
 
 
-def phase_resnet_training(main, startup, loss, acc):
+def phase_resnet_training(main, startup, loss, acc, batch=RESNET_TRAIN_BATCH,
+                          amp=False):
     """Train ResNet-50 on the card: TRAIN_WARMUP_STEPS, then TRAIN_STEPS
     timed steps (host clock around Executor.run and a sync), then
-    RESNET_MORE_STEPS untimed ones, all on one fixed batch of
-    RESNET_TRAIN_BATCH, fetching the loss and the accuracy. Every step
-    after the warm-up launches bn_apply twice per batch_norm op (the op
-    and the forward its batch_norm_grad re-runs under autograd) and no
-    flash-attention kernel. The loss is finite at every step and lower at
-    the last than at the first. Momentum(0.1, 0.9) makes the loss rise
-    for a few steps before it falls, and cuDNN's sums are not
-    deterministic, so the path differs from run to run: two runs on one
-    NVIDIA H100 80GB HBM3 (700 W) had 6.60 and 6.29 at step 12, 5.00 and
-    5.61 at step 22, from 7.61."""
+    RESNET_MORE_STEPS untimed ones, all on one fixed batch of `batch`,
+    fetching the loss and the accuracy. Every step after the warm-up
+    launches bn_apply twice per batch_norm op (the op and the forward its
+    batch_norm_grad re-runs under autograd), all in the path's dtype (bf16
+    with amp), and no flash-attention kernel. The loss is finite at every
+    step and lower at the last than at the first. Momentum(0.1, 0.9) makes
+    the loss rise for a few steps before it falls, and cuDNN's sums are
+    not deterministic, so the path differs from run to run: two f32 runs
+    at batch 128 on one NVIDIA H100 80GB HBM3 (700 W) had 6.60 and 6.29 at
+    step 12, 5.00 and 5.61 at step 22, from 7.61. With amp, the last
+    warm-up step also fetches every parameter gradient for the dtype gate,
+    which also reads the state after the warm-up steps."""
+    label = 'resnet_training' + ('_bf16' if amp else '')
     ops = main.global_block().ops
     n_bn = sum(op.type == 'batch_norm' for op in ops)
     n_bn_grad = sum(op.type == 'batch_norm_grad' for op in ops)
@@ -996,27 +1180,33 @@ def phase_resnet_training(main, startup, loss, acc):
     exe = fluid.Executor(fluid.CUDAPlace(0))
     scope = fluid.Scope()
     gen = torch.Generator(device='cuda').manual_seed(SEED + 15)
-    feed = _resnet_feed(RESNET_TRAIN_BATCH, gen)
+    feed = _resnet_feed(batch, gen)
+    grads = [p.name + '@GRAD' for p in main.all_parameters()] if amp else []
     losses, accs = [], []
     exe.run(startup, scope=scope)
 
-    def step():
-        return exe.run(main, feed=feed, fetch_list=[loss, acc], scope=scope,
-                       return_numpy=False)
+    def step(extra=()):
+        return exe.run(main, feed=feed, fetch_list=[loss, acc] + list(extra),
+                       scope=scope, return_numpy=False)
 
-    for _ in range(TRAIN_WARMUP_STEPS):
-        out = step()
+    for i in range(TRAIN_WARMUP_STEPS):
+        out = step(grads if i == TRAIN_WARMUP_STEPS - 1 else ())
         losses.append(float(out[0].reshape(-1)[0]))
         accs.append(float(out[1].reshape(-1)[0]))
+    if amp:
+        _check_amp_dtypes(label, main, scope, dict(zip([loss.name] + grads,
+                                                       out[:1] + out[2:])))
+    del out
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
+    dtype = 'bfloat16' if amp else 'float32'
     want = {'bn_apply': 2 * n_bn, 'flash_attn_fwd': 0,
             'flash_attn_bwd_dkv': 0, 'flash_attn_bwd_dq': 0}
     reset_launches()
     times = []
     for i in range(TRAIN_STEPS + RESNET_MORE_STEPS):
-        before = read_launches()
+        before, before_dt = read_launches(), read_launches_by_dtype()
         t0 = time.perf_counter()
         out = step()
         if i < TRAIN_STEPS:
@@ -1026,55 +1216,63 @@ def phase_resnet_training(main, startup, loss, acc):
         launched = {k: after[k] - before[k] for k in after}
         check(launched == want, 'a ResNet-50 training step launched %s, not '
               '%s' % (launched, want))
+        by_dt = _by_dtype_step(before_dt, read_launches_by_dtype())
+        check(by_dt['bn_apply'][dtype] == want['bn_apply'],
+              '%s: a step launched bn_apply %s, not all %s'
+              % (label, by_dt['bn_apply'], dtype))
         losses.append(float(out[0].reshape(-1)[0]))
         accs.append(float(out[1].reshape(-1)[0]))
         if i == TRAIN_STEPS - 1:
             counts = read_launches()
+            counts_by_dtype = read_launches_by_dtype()
             peak = torch.cuda.max_memory_allocated()
     check(all(math.isfinite(x) for x in losses), 'non-finite loss: %s'
           % losses)
     check(losses[-1] < losses[0], 'the loss did not fall: %s' % losses)
     p50 = float(np.percentile(times, 50))
-    print('resnet_training batch=%d 224x224 classes=%d s2d_stem f32 lr=%r '
-          'momentum=0.9 ops=%d losses=%s accuracies=%s' % (
-              RESNET_TRAIN_BATCH, RESNET_TRAIN['class_dim'],
+    print('%s batch=%d 224x224 classes=%d s2d_stem %s lr=%r momentum=0.9 '
+          'ops=%d losses=%s accuracies=%s' % (
+              label, batch, RESNET_TRAIN['class_dim'], _precision(amp),
               RESNET_TRAIN['lr'], len(ops),
               json.dumps([round(x, 5) for x in losses]),
               json.dumps([round(x, 4) for x in accs])))
-    print('resnet_training launches over %d timed steps: %s (per step: %s; '
+    print('%s launches over %d timed steps: %s (per step: %s; by dtype: %s; '
           'the same in each of the %d untimed steps)' % (
-              TRAIN_STEPS, json.dumps(counts), json.dumps(want),
-              RESNET_MORE_STEPS))
-    print('resnet_training step p50_ms=%r p90_ms=%r img_per_s=%r '
-          'peak_allocated_gb=%.2f (host clock, %d steps, each ending in a '
-          'sync)' % (p50 * 1e3, float(np.percentile(times, 90)) * 1e3,
-                     RESNET_TRAIN_BATCH / p50, peak / 2 ** 30, TRAIN_STEPS))
+              label, TRAIN_STEPS, json.dumps(counts), json.dumps(want),
+              json.dumps(counts_by_dtype), RESNET_MORE_STEPS))
+    print('%s step p50_ms=%r p90_ms=%r img_per_s=%r peak_allocated_gb=%.2f '
+          '(host clock, %d steps, each ending in a sync)' % (
+              label, p50 * 1e3, float(np.percentile(times, 90)) * 1e3,
+              batch / p50, peak / 2 ** 30, TRAIN_STEPS))
     return exe, scope, feed, counts
 
 
-def phase_resnet_training_profile(exe, main, loss, acc, scope, feed):
+def phase_resnet_training_profile(exe, main, loss, acc, scope, feed,
+                                  batch=RESNET_TRAIN_BATCH, amp=False):
     """Device time by kernel over 3 ResNet-50 training steps; K1's time a
     step, its share, and its bound a step: the bytes of its 106 launches
-    (x read and y written at each of the 53 BN shapes, twice) at the HBM
-    rate. Returns K1's {'ms', 'bound_ms'} a step, or None when the trace
-    holds no device time."""
+    (x read and y written at each of the 53 BN shapes in the path's dtype,
+    k and b in f32, twice) at the HBM rate. Returns K1's {'ms',
+    'bound_ms'} a step, or None when the trace holds no device time."""
     per_kernel = _profile(
         lambda: exe.run(main, feed=feed, fetch_list=[loss, acc],
                         scope=scope, return_numpy=False),
-        'resnet50 training batch=%d' % RESNET_TRAIN_BATCH, 'steps')
+        'resnet50 training %s batch=%d' % (_precision(amp), batch), 'steps')
     if not per_kernel:
         return None
     k1 = sum(ms for name, ms in per_kernel.items() if 'bn_apply' in name) / 3
-    nbytes = 2 * sum(count * 4 * (2 * RESNET_TRAIN_BATCH * c * h * w + 2 * c)
+    size = 2 if amp else 4
+    nbytes = 2 * sum(count * (2 * batch * c * h * w * size + 2 * c * 4)
                      for (c, h, w), count in BN_SHAPES)
     bound = nbytes / HBM_BYTES_PER_S * 1e3
-    print('profile resnet50 training: bn_apply device_ms_per_step=%r '
+    print('profile resnet50 training %s: bn_apply device_ms_per_step=%r '
           'share=%.3f bound_ms_per_step=%r (bytes) bound_share=%.3f' % (
-              k1, 3 * k1 / sum(per_kernel.values()), bound, bound / k1))
+              _precision(amp), k1, 3 * k1 / sum(per_kernel.values()), bound,
+              bound / k1))
     return {'ms': k1, 'bound_ms': bound}
 
 
-def phase_resnet_training_gpu_vs_cpu(main, startup, loss):
+def phase_resnet_training_gpu_vs_cpu(main, startup, loss, amp=False):
     """One ResNet-50 training step at batch RESNET_GATE_BATCH from one
     initial state (the startup program run on the card, carried to a CPU
     scope with weights.py): the loss and the gradient of every parameter
@@ -1083,12 +1281,15 @@ def phase_resnet_training_gpu_vs_cpu(main, startup, loss):
     history would give zero BN and filter gradients on the card.
 
     The tolerance of each is measured in the same run, as for BERT
-    (_gpu_vs_cpu_step): 4 times what a one-ulp perturbation of the state
-    moves it on the CPU, and never less than 1e-5 of its largest value."""
+    (_gpu_vs_cpu_step): 4 times the largest move over NOISE_DRAWS one-ulp
+    draws of the state on the card plus that on the CPU, and never less
+    than 1e-5 of its largest value."""
+    label = 'resnet_training%s_gpu_vs_cpu' % ('_bf16' if amp else '')
     names = [loss.name] + [p.name + '@GRAD' for p in main.all_parameters()]
     gen = torch.Generator(device='cuda').manual_seed(SEED + 17)
     rows = _gpu_vs_cpu_step(main, startup, names,
-                            _resnet_feed(RESNET_GATE_BATCH, gen), SEED + 16)
+                            _resnet_feed(RESNET_GATE_BATCH, gen), SEED + 16,
+                            amp)
     first_conv = next(op.input('Filter')[0] for op in main.global_block().ops
                       if op.type == 'conv2d')
     shown = {loss.name, first_conv + '@GRAD', 'batch_norm_0.w_0@GRAD',
@@ -1098,18 +1299,17 @@ def phase_resnet_training_gpu_vs_cpu(main, startup, loss):
     failed = []
     for name, g, w, err, top, noise, tol in rows:
         if name in shown:
-            print('resnet_training_gpu_vs_cpu batch=%d %s shape=%s '
-                  'max_abs_err=%r max_abs=%r rel=%r '
-                  'one_ulp_perturbation_moves=%r tolerance=%r' % (
-                      RESNET_GATE_BATCH, name, tuple(w.shape), err, top,
-                      err / top, noise, tol))
+            print('%s batch=%d %s shape=%s max_abs_err=%r max_abs=%r rel=%r '
+                  'one_ulp_noise=%r tolerance=%r' % (
+                      label, RESNET_GATE_BATCH, name, tuple(w.shape), err,
+                      top, err / top, noise, tol))
         ok = g.shape == w.shape and np.isfinite(g).all() and err <= tol \
             and (top > 0 or name == loss.name)
         if not ok:
             failed.append((name, err, tol, top))
         worst = max(worst, (err / tol, name))
-    print('resnet_training_gpu_vs_cpu batch=%d tensors=%d worst err/tol=%.3f '
-          '(%s)' % (RESNET_GATE_BATCH, len(names), worst[0], worst[1]))
+    print('%s batch=%d tensors=%d worst err/tol=%.3f (%s)' % (
+        label, RESNET_GATE_BATCH, len(names), worst[0], worst[1]))
     check(not failed, 'GPU and CPU ResNet-50 training step differ (name, '
           'err, tolerance, largest value): %s' % failed[:10])
 
@@ -1117,10 +1317,11 @@ def phase_resnet_training_gpu_vs_cpu(main, startup, loss):
 def _update_program(main):
     """The backward and Momentum ops of `main` (those with an op_role, as
     append_backward and the optimizer mark them) as a program of their
-    own, and what they read that none of them writes and that is not
+    own, marked for bf16 where `main` is (clone does not carry the mark),
+    and what they read that none of them writes and that is not
     persistable: the step's forward values and feeds."""
     persist = {v.name for v in main.list_vars() if v.persistable}
-    update = main.clone()
+    update = _mark(main.clone(), getattr(main, '_amp_bf16', False))
     ops = [op for op in update.global_block().ops if op.attrs.get('op_role')]
     update.global_block().ops = ops
     written, fed = set(), []
@@ -1132,18 +1333,20 @@ def _update_program(main):
     return update, fed
 
 
-def phase_resnet_backward_gpu_vs_cpu(main, startup):
+def phase_resnet_backward_gpu_vs_cpu(main, startup, amp=False):
     """The backward and Momentum ops of one ResNet-50 training step at
     batch RESNET_GATE_BATCH, card against CPU, both from one initial state
-    and fed the card's forward values of the step. Fed the same values,
-    both take the same relu masks and BN batch statistics, so their
-    gradients differ only by the order of their sums: the convolutions'
-    gradients, the forward each batch_norm_grad re-runs (K1 on the card)
-    and the BN gradients' reductions. Every parameter gradient is held to
-    max(1e-5 of its largest value, 4 times what a one-ulp perturbation of
-    the state and the fed values moves it on the card and on the CPU
-    together), measured here. Prints err/|max| of every BN scale and bias
-    gradient."""
+    and fed the card's forward values of the step (with amp, the bf16 ones
+    fed as bf16: the update program declares them so). Fed the same
+    values, both take the same relu masks and BN batch statistics, so
+    their gradients differ only by the order of their sums: the
+    convolutions' gradients, the forward each batch_norm_grad re-runs (K1
+    on the card) and the BN gradients' reductions. Every parameter
+    gradient is held to max(1e-5 of its largest value, 4 times the noise):
+    the largest move over NOISE_DRAWS one-ulp draws of the state and the
+    fed values on the card plus that on the CPU, measured here. Prints
+    err/|max| of every BN scale and bias gradient."""
+    label = 'resnet_backward%s_gpu_vs_cpu' % ('_bf16' if amp else '')
     update, fed_names = _update_program(main)
     grads = [p.name + '@GRAD' for p in main.all_parameters()]
     gpu = fluid.Executor(fluid.CUDAPlace(0))
@@ -1153,30 +1356,41 @@ def phase_resnet_backward_gpu_vs_cpu(main, startup):
     gen = torch.Generator(device='cuda').manual_seed(SEED + 18)
     fed = dict(zip(fed_names, gpu.run(
         main, feed=_resnet_feed(RESNET_GATE_BATCH, gen),
-        fetch_list=fed_names, scope=scope)))
+        fetch_list=fed_names, scope=scope, return_numpy=False)))
     del scope
+    block = update.global_block()
+    for n, t in fed.items():
+        block.var(n).dtype = fluid.convert_dtype(t.dtype)
+    n_bf16 = sum(t.dtype == torch.bfloat16 for t in fed.values())
     runs = {}
+    dtype = 'bfloat16' if amp else 'float32'
     for place, device in ((fluid.CUDAPlace(0), 'cuda'),
                           (fluid.CPUPlace(), 'cpu')):
         exe = fluid.Executor(place)
-        for key, st, fd in (('step', state, fed),
-                            ('moved', _perturbed(state, SEED + 19),
-                             _perturbed(fed, SEED + 20))):
+        for i in range(NOISE_DRAWS + 1):
+            st, fd = state, fed
+            if i:
+                st = _perturbed(state, SEED + 19 + 2 * i, amp)
+                fd = _perturbed(fed, SEED + 20 + 2 * i, amp)
             scope = fluid.Scope()
             fluid.weights.params_from_numpy(st, main, scope, device=device)
-            before = bn_mod.bn_apply.launches
-            runs[device, key] = exe.run(update, feed=fd, fetch_list=grads,
-                                        scope=scope)
+            before = read_launches_by_dtype()['bn_apply']
+            runs[device, i] = exe.run(
+                update, feed={n: t.to(device) for n, t in fd.items()},
+                fetch_list=grads, scope=scope)
             if device == 'cuda':
-                check(bn_mod.bn_apply.launches - before == 53,
-                      'the backward launched bn_apply %d times, not 53'
-                      % (bn_mod.bn_apply.launches - before))
+                after = read_launches_by_dtype()['bn_apply']
+                step = {k: after[k] - before[k] for k in after}
+                check(step[dtype] == 53 and sum(step.values()) == 53,
+                      'the backward launched bn_apply %s, not 53 %s'
+                      % (step, dtype))
     failed, bn_rel = [], {}
     worst = (0.0, '')
     for j, name in enumerate(grads):
-        g, w = runs['cuda', 'step'][j], runs['cpu', 'step'][j]
-        noise = float(np.abs(runs['cuda', 'moved'][j] - g).max()) + \
-            float(np.abs(runs['cpu', 'moved'][j] - w).max())
+        g, w = runs['cuda', 0][j], runs['cpu', 0][j]
+        noise = sum(max(float(np.abs(runs[d, i][j] - runs[d, 0][j]).max())
+                        for i in range(1, NOISE_DRAWS + 1))
+                    for d in ('cuda', 'cpu'))
         err, top = float(np.abs(g - w).max()), float(np.abs(w).max())
         tol = max(1e-5 * top, 4 * noise)
         if name.startswith('batch_norm_'):
@@ -1185,11 +1399,12 @@ def phase_resnet_backward_gpu_vs_cpu(main, startup):
                 and err <= tol):
             failed.append((name, err, tol, top))
         worst = max(worst, (err / tol, name))
-    print('resnet_backward_gpu_vs_cpu batch=%d fed the card\'s forward '
-          'values: tensors=%d worst err/tol=%.3f (%s)' % (
-              RESNET_GATE_BATCH, len(grads), worst[0], worst[1]))
-    print('resnet_backward_gpu_vs_cpu BN scale/bias gradients err/|max|: %s'
-          % json.dumps(bn_rel))
+    print('%s batch=%d fed the card\'s forward values (%d of %d bf16): '
+          'tensors=%d worst err/tol=%.3f (%s)' % (
+              label, RESNET_GATE_BATCH, n_bf16, len(fed), len(grads),
+              worst[0], worst[1]))
+    print('%s BN scale/bias gradients err/|max|: %s'
+          % (label, json.dumps(bn_rel)))
     check(not failed, 'GPU and CPU ResNet-50 backward differ (name, err, '
           'tolerance, largest value): %s' % failed[:10])
 
@@ -1276,13 +1491,22 @@ def main():
               'needs an NVIDIA GPU', file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    # f32 means f32: cuDNN would otherwise run f32 convolutions in TF32
+    # f32 means f32, on the CPU side of the GPU-vs-CPU gates as on the card
+    # (where cuDNN would otherwise run f32 convolutions in TF32)
+    torch.set_float32_matmul_precision('highest')
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # bf16 GEMMs sum in f32, as the reference's contraction does
+    # (core/amp.py matmul): cuBLAS may otherwise round split-K partial sums
+    # to bf16
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = card_line()
-    print('device %s | torch %s cuda %s | count=%d | TF32 off'
+    print('device %s | torch %s cuda %s | count=%d | TF32 off, bf16 GEMMs '
+          'reduce in f32'
           % (card, torch.__version__, torch.version.cuda,
              torch.cuda.device_count()))
+    print('host %s | CPU f32 matmul precision %s' % (
+        host_line(), torch.get_float32_matmul_precision()))
 
     t0 = time.perf_counter()
     report = kernels.build()
@@ -1320,11 +1544,8 @@ def main():
               time.perf_counter() - t0))
     train_exe, train_scope, train_feed, train_counts = phase_bert_training(
         train_main, train_startup, train_loss)
-    _profile(lambda: train_exe.run(train_main, feed=train_feed,
-                                   fetch_list=[train_loss], scope=train_scope,
-                                   return_numpy=False),
-             'bert training batch=%d S=%d' % (TRAIN_BATCH, BERT['max_len']),
-             'steps')
+    _bert_training_profile(train_exe, train_main, train_loss, train_scope,
+                           train_feed, False)
     del train_scope, train_feed  # the trained parameters and Adam state
     phase_training_gpu_vs_cpu(train_main, train_startup, train_loss)
     torch.cuda.empty_cache()
@@ -1346,7 +1567,39 @@ def main():
     torch.cuda.empty_cache()
     phase_resnet_backward_gpu_vs_cpu(r_main, r_startup)
     torch.cuda.empty_cache()
+
+    # bf16 mixed precision: the same two programs marked by enable_bf16
+    t0 = time.perf_counter()
+    amp_main, amp_startup, amp_loss = build_bert_training(amp=True)
+    print('model bert-base training S=%d bf16 (enable_bf16) ops=%d '
+          'build_s=%.1f' % (BERT['max_len'], len(amp_main.global_block().ops),
+                            time.perf_counter() - t0))
+    amp_exe, amp_scope, amp_feed, bert_amp_counts = phase_bert_training(
+        amp_main, amp_startup, amp_loss, amp=True)
+    _bert_training_profile(amp_exe, amp_main, amp_loss, amp_scope, amp_feed,
+                           True)
+    del amp_scope, amp_feed
+    phase_training_gpu_vs_cpu(amp_main, amp_startup, amp_loss, amp=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ra_main, ra_startup, ra_loss, ra_acc = build_resnet_training(amp=True)
+    print('model resnet50 training 224x224 s2d_stem bf16 (enable_bf16) '
+          'ops=%d build_s=%.1f' % (len(ra_main.global_block().ops),
+                                   time.perf_counter() - t0))
+    ra_exe, ra_scope, ra_feed, resnet_amp_counts = phase_resnet_training(
+        ra_main, ra_startup, ra_loss, ra_acc, RESNET_AMP_BATCH, amp=True)
+    k1_amp = phase_resnet_training_profile(
+        ra_exe, ra_main, ra_loss, ra_acc, ra_scope, ra_feed,
+        RESNET_AMP_BATCH, amp=True)
+    del ra_scope, ra_feed
+    torch.cuda.empty_cache()
+    phase_resnet_training_gpu_vs_cpu(ra_main, ra_startup, ra_loss, amp=True)
+    torch.cuda.empty_cache()
+    phase_resnet_backward_gpu_vs_cpu(ra_main, ra_startup, amp=True)
+    torch.cuda.empty_cache()
+
     totals = phase_kernel_times()
+    totals_amp = phase_kernel_times(RESNET_AMP_BATCH, torch.bfloat16)
     k2_rows = phase_flash_times()
     bwd_rows = phase_flash_bwd_times()
     phase_profile(pred, images)
@@ -1354,7 +1607,9 @@ def main():
 
     paths = {'resnet50_serving': resnet_counts, 'bert_serving': bert_counts,
              'bert_training': train_counts,
-             'resnet50_training': resnet_train_counts}
+             'resnet50_training': resnet_train_counts,
+             'bert_training_bf16': bert_amp_counts,
+             'resnet50_training_bf16': resnet_amp_counts}
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}
@@ -1405,6 +1660,10 @@ def main():
         'resnet50_training_step': dict(
             k1_training or {},
             launches=resnet_train_counts['bn_apply'] // TRAIN_STEPS),
+        'resnet50_training_bf16_step': dict(
+            k1_amp or {}, batch=RESNET_AMP_BATCH,
+            launches=resnet_amp_counts['bn_apply'] // TRAIN_STEPS),
+        'bf16_batch%d' % RESNET_AMP_BATCH: totals_amp,
         'ms': totals['ms'], 'plain_ms': totals['plain_ms'],
         'bound_ms': totals['bound_ms'], 'bound_by': 'bytes',
         'library_ms': totals['library_ms']}, {

@@ -11,6 +11,10 @@ and nothing of paddle_tpu, which stays in the repository as the reference.
     exe = fluid.Executor()                 # CUDAPlace(0) by default
     exe.run(fluid.default_startup_program())
     out, = exe.run(feed={'x': xs}, fetch_list=[y])
+
+bf16 mixed-precision training: `fluid.contrib.mixed_precision.enable_bf16(
+main)` (or `decorate(optimizer)` before `minimize`), then Executor.run as
+usual.
 """
 from . import ops as _ops  # registers all op lowerings  # noqa: F401
 
@@ -22,6 +26,6 @@ from .framework import (Program, Block, Operator, Variable, Parameter,  # noqa
 from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
 from .executor import Executor  # noqa: F401
 from . import core, initializer, inference, io, layers, unique_name  # noqa
-from . import backward, optimizer, weights  # noqa: F401
+from . import backward, contrib, optimizer, weights  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
 from .initializer import Constant, Uniform, Normal, Xavier, MSRA  # noqa

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..framework import GRAD_SUFFIX, convert_dtype, to_torch_dtype
+from . import amp
 
 # probe value substituted for -1 dims during meta-tensor shape inference;
 # any output dim that is a multiple of it maps back to -1.
@@ -131,7 +132,8 @@ def _generic_infer_shape(op, block, d):
         ins[slot] = vals
 
     try:
-        outs = d.lower(ShapeCtx(op, block), ins)
+        with amp.scope(False):  # declared dtypes stay those of f32 compute
+            outs = d.lower(ShapeCtx(op, block), ins)
     except Exception:  # noqa: BLE001 — inference is best effort, as in
         # paddle_tpu: a lowering that needs values, or probe dims that only
         # agree at run time (a -1 batch added to a fixed batch), leaves the

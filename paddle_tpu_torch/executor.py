@@ -6,7 +6,10 @@ step function, this one interprets it eagerly (core/lowering.py):
 
 1. gather the program's persistable vars present in the Scope,
 2. convert the feeds to tensors of the declared dtypes on the device,
-3. run the ops of block 0 in order,
+3. run the ops of block 0 in order, inside core.amp.scope(True) when the
+   program is marked for bf16 (`program._amp_bf16`, set by
+   contrib.mixed_precision), as paddle_tpu/executor.py:1160,1181 traces
+   its step,
 4. commit the persistable vars the block wrote back to the Scope,
 5. return the fetches as numpy arrays, or as device tensors with
    return_numpy=False (a serving loop then syncs once, not per request).
@@ -18,6 +21,7 @@ import torch
 
 from .framework import (CUDAPlace, Variable, default_main_program,
                         to_torch_dtype)
+from .core import amp
 from .core.lowering import Interpreter
 from .core.scope import global_scope
 
@@ -72,7 +76,8 @@ class Executor(object):
             env[name] = self._feed_tensor(value, block._find_var_recursive(name))
 
         interp = Interpreter(program, self.device, env)
-        with torch.no_grad():
+        bf16 = getattr(program, '_amp_bf16', False)
+        with torch.no_grad(), amp.scope(bf16):
             interp.run_block(block)
         for name in persist & interp.written:
             scope.set(name, env[name])

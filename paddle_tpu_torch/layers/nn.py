@@ -18,7 +18,8 @@ from ..param_attr import ParamAttr
 __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
            'relu', 'elementwise_add', 'reshape', 'transpose',
            'fused_multihead_attention', 'softmax_with_cross_entropy',
-           'reduce_sum', 'mean', 'softmax', 'topk', 'pad']
+           'reduce_sum', 'mean', 'softmax', 'topk', 'pad',
+           'square_error_cost']
 
 
 def _single(v, n):
@@ -305,4 +306,13 @@ def pad(x, paddings, pad_value=0.0, name=None):
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op(type='pad', inputs={'X': x}, outputs={'Out': out},
                      attrs={'paddings': paddings, 'pad_value': pad_value})
+    return out
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper('square_error_cost')
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type='square_error_cost',
+                     inputs={'X': input, 'Y': label}, outputs={'Out': out},
+                     attrs={})
     return out

@@ -20,7 +20,8 @@ launches the kernel for a CUDA tensor and takes the plain version,
 reference's `_bwd` (:68), which is plain JAX. So a training step's
 batch_norm_grad gets dX, dScale and dBias through the kernel's output as
 it would through the plain version. A plain integer count of kernel
-launches is kept in `bn_apply.launches`.
+launches is kept in `bn_apply.launches`, and one by x's dtype in
+`bn_apply.launches_by_dtype` ({'float32': n, 'bfloat16': n}).
 """
 from __future__ import annotations
 
@@ -144,6 +145,7 @@ def _launch(x, k, b, act, channel_axis):
         raise RuntimeError("bn_apply: kernel launch failed with CUDA error "
                            "%d" % err)
     bn_apply.launches += 1
+    bn_apply.launches_by_dtype[str(x.dtype)[6:]] += 1
     return y
 
 
@@ -212,3 +214,4 @@ def bn_apply(x, k, b, act=None, channel_axis=1):
 
 
 bn_apply.launches = 0
+bn_apply.launches_by_dtype = {'float32': 0, 'bfloat16': 0}

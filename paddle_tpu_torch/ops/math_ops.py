@@ -1,13 +1,18 @@
 """Elementwise, activation, matmul, reduction, softmax and loss op
 lowerings (ref: operators/elementwise/, activation_op.cc, mul_op.cc,
 reduce_ops/, mean_op.cc, sum_op.cc, softmax_op.cc,
-softmax_with_cross_entropy_op.cc;
-paddle_tpu/ops/math_ops.py:27,70,216,262,287,306,335,368)."""
+softmax_with_cross_entropy_op.cc, square_error_cost (nn.py);
+paddle_tpu/ops/math_ops.py:27,70,216,262,287,306,335,368,385).
+
+Under the amp scope (core/amp.py) they follow the reference's dtypes:
+`mul` runs in bf16, an elementwise op resolves a bf16/f32 pair to bf16,
+and mean, softmax and the loss compute in f32."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..core import amp
 from ..core.registry import register
 
 
@@ -31,7 +36,8 @@ def _elementwise(name, fn):
     @register(name)
     def _lower(ctx, ins, _fn=fn):
         x, y = ins['X'][0], ins['Y'][0]
-        out = _fn(x, _bcast_y(x, y, ctx.attr('axis', -1)))
+        x, y = amp.unify(x, _bcast_y(x, y, ctx.attr('axis', -1)))
+        out = _fn(x, y)
         scale = ctx.attr('scale', None)  # fused scale (rare attr)
         if scale not in (None, 1.0):
             out = out * scale
@@ -55,7 +61,7 @@ def _mul(ctx, ins):
     yn = ctx.attr('y_num_col_dims', 1)
     x2 = x.reshape(int(np.prod(x.shape[:xn])), int(np.prod(x.shape[xn:])))
     y2 = y.reshape(int(np.prod(y.shape[:yn])), int(np.prod(y.shape[yn:])))
-    out = torch.matmul(x2, y2)
+    out = amp.matmul(x2, y2, preferred_element_type=x2.dtype)
     return {'Out': [out.reshape(tuple(x.shape[:xn]) + tuple(y.shape[yn:]))]}
 
 
@@ -74,18 +80,12 @@ def _reduce_sum(ctx, ins):
     return {'Out': [torch.sum(x, dim=dims, keepdim=keep)]}
 
 
-def _promote_f32(x):
-    """bf16 to f32 for sums and exponentials, as paddle_tpu's
-    amp.promote_f32 does; every other dtype as it is."""
-    return x.float() if x.dtype == torch.bfloat16 else x
-
-
 @register('mean')
 def _mean(ctx, ins):
     """The mean of every element as a [1] tensor (mean_op.cc's shape),
     accumulated in f32 for a bf16 x, and left in f32 as the reference
     leaves it."""
-    return {'Out': [torch.mean(_promote_f32(X(ins))).reshape(1)]}
+    return {'Out': [torch.mean(amp.promote_f32(X(ins))).reshape(1)]}
 
 
 @register('sum')
@@ -104,25 +104,32 @@ def _softmax(ctx, ins):
     """softmax over `axis` (default the last), exp and sum in f32 for a
     bf16 x, the result cast back to x's dtype."""
     x = X(ins)
-    return {'Out': [torch.softmax(_promote_f32(x), dim=ctx.attr('axis', -1))
-                    .to(x.dtype)]}
+    return {'Out': [amp.restore(torch.softmax(amp.promote_f32(x),
+                                              dim=ctx.attr('axis', -1)), x)]}
 
 
 @register('softmax_with_cross_entropy')
 def _softmax_with_cross_entropy(ctx, ins):
-    """Loss = -log softmax(logits)[label] over the last dim, in f32 whatever
-    the logits' dtype; 0 where label == ignore_index. Hard labels ([N, 1]
-    or [N]) only: soft_label raises. Softmax comes back in the logits'
-    dtype."""
+    """Loss = -log softmax(logits)[label] over the last dim, in f32 for
+    bf16 logits (promote_f32); 0 where label == ignore_index. Hard labels
+    ([N, 1] or [N]) only: soft_label raises. Softmax comes back in the
+    logits' dtype."""
     if ctx.attr('soft_label', False):
         raise NotImplementedError("softmax_with_cross_entropy: soft_label is "
                                   "not ported yet")
     logits = ins['Logits'][0]
     label = ins['Label'][0]
-    logp = torch.log_softmax(logits.float(), dim=-1)
+    logp = torch.log_softmax(amp.promote_f32(logits), dim=-1)
     lab = label.reshape(label.shape[:-1]) if label.shape[-1] == 1 else label
     lab = lab.long()
     ignore = lab == ctx.attr('ignore_index', -100)
     picked = torch.gather(logp, -1, torch.where(ignore, 0, lab)[..., None])
     loss = torch.where(ignore[..., None], 0.0, -picked)
-    return {'Softmax': [torch.exp(logp).to(logits.dtype)], 'Loss': [loss]}
+    return {'Softmax': [amp.restore(torch.exp(logp), logits)],
+            'Loss': [loss]}
+
+
+@register('square_error_cost')
+def _square_error_cost(ctx, ins):
+    """(X - Y)², elementwise."""
+    return {'Out': [torch.square(ins['X'][0] - ins['Y'][0])]}

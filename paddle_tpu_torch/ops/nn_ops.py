@@ -4,7 +4,10 @@ pool_op.cc, batch_norm_op.cc, layer_norm_op.cc, lookup_table_op.cc;
 paddle_tpu/ops/nn_ops.py:29,186,334,388,480,502,684).
 
 conv2d maps to torch.nn.functional.conv2d (cuDNN on the card), as the JAX
-package leaves it to XLA. The batch_norm apply runs through the hand-written
+package leaves it to XLA, through core/amp.py: bf16 operands and result
+under the amp scope. batch_norm and layer_norm keep their statistics in
+f32 and return x's dtype; pool2d, lookup_table and the attention take bf16
+or f32 as they come. The batch_norm apply runs through the hand-written
 kernel in ops/bn_apply.py, fused_multihead_attention and its gradient
 through the ones in ops/flash_attention.py.
 """
@@ -14,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core import amp
 from ..core.registry import register
 from .bn_apply import bn_apply
 from .flash_attention import FlashAttention, flash_attn_fwd
@@ -29,11 +33,11 @@ def _pair(v, n=2):
 @register('conv2d')
 def _conv2d(ctx, ins):
     x, w = ins['Input'][0], ins['Filter'][0]
-    out = F.conv2d(x, w, None,
-                   stride=_pair(ctx.attr('strides', [1, 1])),
-                   padding=_pair(ctx.attr('paddings', [0, 0])),
-                   dilation=_pair(ctx.attr('dilations', [1, 1])),
-                   groups=ctx.attr('groups', 1) or 1)
+    out = amp.conv2d(x, w,
+                     stride=_pair(ctx.attr('strides', [1, 1])),
+                     padding=_pair(ctx.attr('paddings', [0, 0])),
+                     dilation=_pair(ctx.attr('dilations', [1, 1])),
+                     groups=ctx.attr('groups', 1) or 1)
     return {'Output': [out]}
 
 
@@ -94,8 +98,9 @@ def _batch_norm(ctx, ins):
     """y = x*k + (bias - m*k), with k = scale / sqrt(v + eps) computed in
     the stats' dtype as paddle_tpu/ops/nn_ops.py:358-366 does. With
     is_test or use_global_stats, m and v are the running stats; otherwise
-    they are this batch's, reduced in f32 in plain torch, and the running
-    stats move by `momentum`. The apply is the bn_apply kernel, through
+    they are this batch's, reduced in f32 in plain torch (a bf16 x too),
+    and the running stats move by `momentum`. The apply is the bn_apply
+    kernel on x in its own dtype (k and b rounded to it), through
     BnApplyFunction: under the generic batch_norm_grad, dk and db flow back
     into Scale and Bias, and into X through the batch mean and `inv`."""
     x = X(ins)

@@ -1,5 +1,5 @@
-"""Optimizer op lowerings (ref: operators/optimizers/momentum_op.h,
-adam_op.h; paddle_tpu/ops/optimizer_ops.py:37,79).
+"""Optimizer op lowerings (ref: operators/optimizers/sgd_op.h,
+momentum_op.h, adam_op.h; paddle_tpu/ops/optimizer_ops.py:26,37,79).
 
 Each writes its outputs under the names of its state inputs (ParamOut is
 Param, Moment1Out is Moment1, ...); the interpreter rebinds those names
@@ -10,6 +10,14 @@ from __future__ import annotations
 import torch
 
 from ..core.registry import register
+
+
+@register('sgd', no_grad=True)
+def _sgd(ctx, ins):
+    """Dense SGD: p -= lr·g. Sparse (SelectedRows) gradients cannot reach
+    it, since lookup_table_grad refuses is_sparse."""
+    p, g = ins['Param'][0], ins['Grad'][0]
+    return {'ParamOut': [p - ins['LearningRate'][0].reshape(()) * g]}
 
 
 @register('momentum', no_grad=True)

@@ -1,5 +1,6 @@
 """Optimizers: the port's copy of paddle_tpu/optimizer.py's `Optimizer`
-(:22-141), `MomentumOptimizer` (:158-184) and `AdamOptimizer` (:248-297).
+(:22-141), `SGDOptimizer` (:143-155), `MomentumOptimizer` (:158-184) and
+`AdamOptimizer` (:248-297).
 
 `minimize` = append_backward + the optimizer's update ops, appended to the
 same program, with the JAX package's var names: the global learning-rate
@@ -119,6 +120,22 @@ class Optimizer(object):
             params_grads
 
 
+class SGDOptimizer(Optimizer):
+    def __init__(self, learning_rate, regularization=None, name=None):
+        super().__init__(learning_rate, regularization, name)
+        self.type = "sgd"
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        lr = self._create_param_lr(param_and_grad)
+        return block.append_op(
+            type=self.type,
+            inputs={"Param": [param.name], "Grad": [grad.name],
+                    "LearningRate": [lr.name]},
+            outputs={"ParamOut": [param.name]},
+            attrs={'op_role': OP_ROLE_OPTIMIZE}, infer_shape=False)
+
+
 class MomentumOptimizer(Optimizer):
     _velocity_acc_str = "velocity"
 
@@ -197,5 +214,6 @@ class AdamOptimizer(Optimizer):
             infer_shape=False)
 
 
+SGD = SGDOptimizer
 Momentum = MomentumOptimizer
 Adam = AdamOptimizer

@@ -10,9 +10,18 @@ Predictor loads that same directory; the port's own models.bert, given the
 JAX parameters through weights.params_from_numpy, is compared too. Logits
 agree at rtol 1e-5 with an absolute floor of 1e-5 of the largest logit:
 f32 on both sides, the matmuls summed in different orders.
+
+What the module's tests take from paddle_tpu (the saved directory, the
+parameters, the JAX Predictor's logits) is computed once, by this file run
+as a script in a fresh interpreter: a test file that ran earlier in the
+same pytest worker can leave jax's caches or config, or paddle_tpu's
+compile cache, in a state that breaks a later JAX run there ("Expected
+args to execute_sharded_on_local_devices to have 8 shards").
 """
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -54,9 +63,28 @@ def _port_program():
     return main, startup, logits
 
 
-@pytest.fixture(scope='module')
-def jax_saved(tmp_path_factory):
-    """(dir, {persistable name: numpy array}) saved by paddle_tpu."""
+def _save_port_bert(dirname):
+    """The port builds models.bert's logits program (seed 3), initializes
+    it, saves it as an inference model in dirname, and returns its
+    Executor's logits on _feed(1, seed=3)."""
+    main, startup, logits = _port_program()
+    main.random_seed = startup.random_seed = 3
+    scope = ptt.Scope()
+    exe = ptt.Executor(ptt.CPUPlace())
+    with ptt.scope_guard(scope):
+        exe.run(startup)
+        ptt.io.save_inference_model(dirname, FEEDS, [logits], exe, main)
+    want, = exe.run(main, feed=dict(zip(FEEDS, _feed(1, seed=3))),
+                    fetch_list=[logits], scope=scope)
+    return want
+
+
+def _jax_reference(root):
+    """paddle_tpu's side of the module's tests, written under root: the
+    directory it saves (dir/), its persistables (params.npz), its
+    Predictor's logits on _feed(2, seed=1) and _feed(3, seed=2) from that
+    directory (logits.npz), and its Predictor's logits on _feed(1, seed=3)
+    from the directory the port saves with _save_port_bert (port.npy)."""
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
         jax_bert.build_bert_pretrain(dropout=0.0, **CFG)
@@ -65,7 +93,7 @@ def jax_saved(tmp_path_factory):
     logits = sce.input('Logits')[0]
     scope = fluid.Scope()
     rng = np.random.RandomState(0)
-    d = str(tmp_path_factory.mktemp('bert'))
+    d = os.path.join(root, 'dir')
     with fluid.scope_guard(scope):
         fluid.Executor(fluid.CPUPlace()).run(startup)
         for p in main.all_parameters():
@@ -77,7 +105,40 @@ def jax_saved(tmp_path_factory):
                                       fluid.Executor(fluid.CPUPlace()), main)
     params = {v.name: np.asarray(scope.find_var(v.name).get_tensor())
               for v in main.list_vars() if v.persistable}
-    return d, params
+    np.savez(os.path.join(root, 'params.npz'), **params)
+    served = {}
+    for batch, seed in ((2, 1), (3, 2)):
+        out, = jax_create_predictor(JaxConfig(d).disable_gpu()).run(
+            _feed(batch, seed))
+        served['batch%d' % batch] = np.asarray(out)
+    np.savez(os.path.join(root, 'logits.npz'), **served)
+    port_dir = os.path.join(root, 'port')
+    _save_port_bert(port_dir)
+    out, = jax_create_predictor(JaxConfig(port_dir).disable_gpu()).run(
+        _feed(1, seed=3))
+    np.save(os.path.join(root, 'port.npy'), np.asarray(out))
+
+
+@pytest.fixture(scope='module')
+def jax_saved(tmp_path_factory):
+    """(dir, {persistable name: numpy array}, {'batch2', 'batch3': the JAX
+    Predictor's logits}, the JAX Predictor's logits from the port's saved
+    directory), computed by _jax_reference in a fresh interpreter (this
+    file run as a script, with the environment the tests run in)."""
+    root = str(tmp_path_factory.mktemp('bert'))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get('PYTHONPATH')) if p))
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), root],
+                       cwd=repo, env=env, capture_output=True, text=True,
+                       timeout=900)
+    assert r.returncode == 0, r.stdout[-4000:] + r.stderr[-4000:]
+    with np.load(os.path.join(root, 'params.npz')) as f:
+        params = dict(f)
+    with np.load(os.path.join(root, 'logits.npz')) as f:
+        served = dict(f)
+    return (os.path.join(root, 'dir'), params, served,
+            np.load(os.path.join(root, 'port.npy')))
 
 
 def _ops(dirname):
@@ -96,9 +157,9 @@ def test_pruned_program_ops(jax_saved):
 
 
 def test_port_predictor_loads_jax_saved_dir(jax_saved):
-    d, _ = jax_saved
+    d, _, served, _ = jax_saved
     feed = _feed(2, seed=1)
-    want, = jax_create_predictor(JaxConfig(d).disable_gpu()).run(feed)
+    want = served['batch2']
     pred = ptt.inference.create_predictor(
         ptt.inference.Config(d).disable_gpu())
     assert pred.get_input_names() == FEEDS
@@ -108,9 +169,9 @@ def test_port_predictor_loads_jax_saved_dir(jax_saved):
 
 
 def test_port_built_program_with_jax_params(jax_saved):
-    d, params = jax_saved
+    _, params, served, _ = jax_saved
     feed = _feed(3, seed=2)
-    want, = jax_create_predictor(JaxConfig(d).disable_gpu()).run(feed)
+    want = served['batch3']
     main, _, logits = _port_program()
     names = {v.name for v in main.list_vars() if v.persistable}
     assert {'word_emb', 'sent_emb', 'pos_emb', 'fc_0.w_0',
@@ -125,14 +186,11 @@ def test_port_built_program_with_jax_params(jax_saved):
 def test_port_saves_the_program_jax_saves(jax_saved, tmp_path):
     """The port's models.bert, pruned and saved by the port, is the program
     paddle_tpu saved: the same ops, attrs and var shapes; and the JAX
-    Predictor serves the port's directory."""
-    d, params = jax_saved
-    main, startup, logits = _port_program()
-    scope = ptt.Scope()
-    exe = ptt.Executor(ptt.CPUPlace())
-    with ptt.scope_guard(scope):
-        exe.run(startup)
-        ptt.io.save_inference_model(str(tmp_path), FEEDS, [logits], exe, main)
+    Predictor serves the port's directory (the JAX side, on the directory
+    _save_port_bert writes, comes from the fresh interpreter of the
+    jax_saved fixture)."""
+    d, _, _, jgot = jax_saved
+    want = _save_port_bert(str(tmp_path))
 
     def key(op):
         attrs = {k: v for k, v in op['attrs'].items() if k != '_op_uid'}
@@ -150,9 +208,9 @@ def test_port_saves_the_program_jax_saves(jax_saved, tmp_path):
     pv, jv = var_decls(str(tmp_path)), var_decls(d)
     assert {n: pv[n] for n in used} == {n: jv[n] for n in used}
 
-    feed = _feed(1, seed=3)
-    want, = exe.run(main, feed=dict(zip(FEEDS, feed)), fetch_list=[logits],
-                    scope=scope)
-    jgot, = jax_create_predictor(JaxConfig(str(tmp_path)).disable_gpu()).run(
-        feed)
     _close(np.asarray(jgot), want)
+
+
+if __name__ == '__main__':
+    _jax_reference(sys.argv[1])
+

@@ -78,12 +78,32 @@ def _image(batch, side, seed=0):
         np.float32)
 
 
+def _save_port_resnet20(dirname):
+    """The port initializes ResNet-20 (seed 3, random BN state), saves it
+    as an inference model in dirname, and returns its Executor's logits on
+    _image(2, 32, seed=2)."""
+    main, startup, logits = _build(ptt, ptt_resnet, 'resnet20_cifar')
+    main.random_seed = startup.random_seed = 3
+    scope = ptt.Scope()
+    exe = ptt.Executor(ptt.CPUPlace())
+    with ptt.scope_guard(scope):
+        exe.run(startup)
+        _randomize_bn(main, scope, seed=5)
+        want, = exe.run(main, feed={'data': _image(2, 32, seed=2)},
+                        fetch_list=[logits])
+        ptt.io.save_inference_model(dirname, ['data'], [logits], exe, main)
+    return want
+
+
 def _jax_reference(root):
     """paddle_tpu's side of the module's tests, written under root/<model>:
     the saved inference directory (dir/), the persistables (params.npz),
     the JAX Predictor's logits on _image(2, side) and the JAX Executor's
     logits on _image(3, side, seed=1) from a program built anew with those
-    parameters set (logits.npz)."""
+    parameters set (logits.npz); and under root/round_trip: the JAX
+    Predictor's logits on _image(2, 32, seed=2) from the directory the port
+    saves with _save_port_resnet20 (logits.npy), and the directory
+    paddle_tpu saves for the same model (jax/)."""
     for i, name in enumerate(sorted(MODELS)):
         side = MODELS[name][2]
         d = os.path.join(root, name, 'dir')
@@ -110,13 +130,27 @@ def _jax_reference(root):
         np.savez(os.path.join(root, name, 'logits.npz'),
                  predicted=np.asarray(predicted),
                  executed=np.asarray(executed))
+    rt = os.path.join(root, 'round_trip')
+    _save_port_resnet20(os.path.join(rt, 'port'))
+    jgot, = jax_create_predictor(
+        JaxConfig(os.path.join(rt, 'port')).disable_gpu()).run(
+            [_image(2, 32, seed=2)])
+    np.save(os.path.join(rt, 'logits.npy'), np.asarray(jgot))
+    jmain, jstartup, jlogits = _build(fluid, jax_resnet, 'resnet20_cifar')
+    with fluid.scope_guard(fluid.Scope()):
+        jexe = fluid.Executor(fluid.CPUPlace())
+        jexe.run(jstartup)
+        fluid.io.save_inference_model(os.path.join(rt, 'jax'), ['data'],
+                                      [jlogits], jexe, jmain)
 
 
 @pytest.fixture(scope='module')
 def jax_saved(tmp_path_factory):
-    """{model name: (dir, persistables, logits)} from paddle_tpu, computed
-    by _jax_reference in a fresh interpreter (this file run as a script,
-    with the environment the tests run in)."""
+    """{model name: (dir, persistables, logits)} from paddle_tpu, and
+    'round_trip': (the JAX Predictor's logits from the port's saved
+    ResNet-20, the directory paddle_tpu saves for it), computed by
+    _jax_reference in a fresh interpreter (this file run as a script, with
+    the environment the tests run in)."""
     root = str(tmp_path_factory.mktemp('jax_reference'))
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -132,6 +166,9 @@ def jax_saved(tmp_path_factory):
         with np.load(os.path.join(root, name, 'logits.npz')) as f:
             logits = dict(f)
         out[name] = (os.path.join(root, name, 'dir'), params, logits)
+    rt = os.path.join(root, 'round_trip')
+    out['round_trip'] = (np.load(os.path.join(rt, 'logits.npy')),
+                         os.path.join(rt, 'jax'))
     return out
 
 
@@ -179,42 +216,27 @@ def test_params_from_numpy_checks_names_and_shapes(jax_saved):
         ptt.weights.params_from_numpy(bad, main, ptt.Scope())
 
 
-def test_port_saved_dir_round_trip(tmp_path):
+def test_port_saved_dir_round_trip(jax_saved, tmp_path):
     """The port initializes and saves ResNet-20; its own Predictor and the
     JAX Predictor both load the directory, and the program file is the one
-    paddle_tpu writes for the same model."""
-    main, startup, logits = _build(ptt, ptt_resnet, 'resnet20_cifar')
-    main.random_seed = startup.random_seed = 3
-    scope = ptt.Scope()
-    exe = ptt.Executor(ptt.CPUPlace())
+    paddle_tpu writes for the same model. The JAX side (its Predictor on
+    the directory _save_port_resnet20 writes, and its own saved directory)
+    comes from the fresh interpreter of the jax_saved fixture."""
     x = _image(2, 32, seed=2)
-    with ptt.scope_guard(scope):
-        exe.run(startup)
-        _randomize_bn(main, scope, seed=5)
-        want, = exe.run(main, feed={'data': x}, fetch_list=[logits])
-        ptt.io.save_inference_model(str(tmp_path / 'port'), ['data'],
-                                    [logits], exe, main)
+    want = _save_port_resnet20(str(tmp_path / 'port'))
     got, = ptt.inference.create_predictor(
         ptt.inference.Config(str(tmp_path / 'port')).disable_gpu()).run([x])
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
-    jgot, = jax_create_predictor(
-        JaxConfig(str(tmp_path / 'port')).disable_gpu()).run([x])
+    jgot, jax_dir = jax_saved['round_trip']
     _close(np.asarray(jgot), want)
 
-    jmain, jstartup, jlogits = _build(fluid, jax_resnet, 'resnet20_cifar')
-    with fluid.scope_guard(fluid.Scope()):
-        jexe = fluid.Executor(fluid.CPUPlace())
-        jexe.run(jstartup)
-        fluid.io.save_inference_model(str(tmp_path / 'jax'), ['data'],
-                                      [jlogits], jexe, jmain)
-
-    def model(sub):
-        with open(os.path.join(str(tmp_path / sub), '__model__')) as f:
+    def model(dirname):
+        with open(os.path.join(dirname, '__model__')) as f:
             d = json.load(f)
         d['random_seed'] = 0
         return d
-    assert model('port') == model('jax')
+    assert model(str(tmp_path / 'port')) == model(jax_dir)
 
 
 if __name__ == '__main__':

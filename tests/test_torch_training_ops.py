@@ -18,7 +18,24 @@ Tolerance: rtol 1e-5 with an absolute floor of 1e-6 of the largest value
 compared: f32 on both sides, the same arithmetic summed in other orders.
 Integer outputs (top_k's indices, accuracy's counts) compare by value:
 paddle_tpu gives int32 indices where the port gives int64.
+
+bf16 mixed precision (the `amp-*` cases): the cases on the BERT and
+ResNet-50 training paths run again with the program marked `_amp_bf16`
+in both packages, activations fed as bf16 and parameters, statistics and
+optimizer state as f32, as an AMP step gives them to the op. Every output
+and gradient must have the reference's dtype exactly. Values: where the
+op computes in bf16 (a bf16 input, or mul and conv2d, which cast to
+bf16), within AMP_ULPS bf16 ulps of each tensor's largest value, and never
+looser than what a one-bf16-ulp perturbation of every float input moves
+the tensor in the port (measured in the same test); where it stays in f32,
+the f32 tolerance above.
 """
+import functools
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -36,6 +53,12 @@ def _r(*shape, seed=0, low=None):
 
 def _ids(*shape, high=10, seed=0):
     return np.random.RandomState(seed).randint(0, high, shape).astype(np.int64)
+
+
+def _bf16(a):
+    """a rounded to bf16 (round to nearest even), as f32."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        torch.bfloat16).float().numpy()
 
 
 def _case(type, inputs, outputs, attrs=None, diff=(), cot=None):
@@ -112,6 +135,11 @@ def _accuracy_case(indices, label):
         'Out': ('values', _r(*indices.shape, seed=5)),
         'Indices': ('indices', indices), 'Label': ('label', label)},
         {'Accuracy': 'acc', 'Correct': 'correct', 'Total': 'total'})
+
+
+def _conv_attrs(stride, pad):
+    return {'strides': [stride, stride], 'paddings': [pad, pad],
+            'dilations': [1, 1], 'groups': 1, 'use_cudnn': True}
 
 
 _LABELS = np.array([[3], [-100], [0], [6], [-100], [2]], np.int64)
@@ -225,39 +253,101 @@ CASES = {
     'batch_norm_train': _batch_norm_case(_r(4, 3, 5, 5)),
     'batch_norm_train_offset': _batch_norm_case(3.0 + _r(2, 6, 7, 7)),
     'batch_norm_train_nhwc': _batch_norm_case(_r(3, 4, 4, 5), c_axis=3),
+    'conv2d_3x3_pad1': _case(
+        'conv2d', {'Input': ('x', _r(2, 3, 8, 8)),
+                   'Filter': ('w', 0.3 * _r(4, 3, 3, 3, seed=1))},
+        {'Output': 'out'}, _conv_attrs(1, 1), diff=['x', 'w']),
+    'conv2d_1x1_stride2': _case(
+        'conv2d', {'Input': ('x', _r(2, 8, 7, 7)),
+                   'Filter': ('w', 0.3 * _r(6, 8, 1, 1, seed=2))},
+        {'Output': 'out'}, _conv_attrs(2, 0), diff=['x', 'w']),
+    'conv2d_s2d_stem_4x4': _case(
+        'conv2d', {'Input': ('x', _r(2, 12, 9, 9)),
+                   'Filter': ('w', 0.2 * _r(5, 12, 4, 4, seed=3))},
+        {'Output': 'out'}, _conv_attrs(1, 0), diff=['x', 'w']),
 }
+
+# The AMP cases: {id: (case, inputs fed as bf16)}. An AMP step hands an op
+# bf16 activations (the outputs of mul and conv2d, and everything computed
+# from them) and f32 parameters, BN and optimizer state, embeddings, the
+# image and the loss path.
+AMP_CASES = {
+    'amp-fc_bias_add': ('elementwise_add_bias_axis2', ['x']),
+    'amp-residual_add_f32_x': ('elementwise_add_broadcast_rows', ['y']),
+    'amp-shortcut_add': ('elementwise_add_broadcast_rows', ['x', 'y']),
+    'amp-loss_mul': ('elementwise_mul', []),
+    'amp-loss_div': ('elementwise_div_scalar_by_1', []),
+    'amp-loss_reduce_sum': ('reduce_sum_all', []),
+    'amp-sum_grads': ('sum_three', ['a', 'b', 'c']),
+    'amp-softmax_with_cross_entropy': (
+        'softmax_with_cross_entropy_ignore_index', ['logits']),
+    'amp-fused_multihead_attention': ('fused_multihead_attention',
+                                      ['q', 'k', 'v']),
+    'amp-layer_norm': ('layer_norm_axis2', ['x']),
+    'amp-mul_bf16_x': ('mul_x_num_col_dims_2', ['x']),
+    'amp-mul_f32_x': ('mul_x_num_col_dims_2', []),
+    'amp-relu': ('relu', ['x']),
+    'amp-reshape2': ('reshape2_merge_heads', ['x']),
+    'amp-transpose2': ('transpose2', ['x']),
+    'amp-lookup_table_grad': ('lookup_table_grad', []),
+    'amp-adam': ('adam', []),
+    'amp-momentum': ('momentum', []),
+    'amp-mean': ('mean', ['x']),
+    'amp-softmax': ('softmax_last_axis', ['x']),
+    'amp-pad': ('pad_s2d_stem', []),
+    'amp-top_k': ('top_k_1', ['x']),
+    'amp-accuracy': ('accuracy_top1', ['values']),
+    'amp-pool2d_max_ties': ('pool2d_max_ties', ['x']),
+    'amp-pool2d_max_random': ('pool2d_max_random', ['x']),
+    'amp-pool2d_global_avg': ('pool2d_global_avg', ['x']),
+    'amp-batch_norm': ('batch_norm_train', ['x']),
+    'amp-batch_norm_offset': ('batch_norm_train_offset', ['x']),
+    'amp-conv2d_f32_image': ('conv2d_s2d_stem_4x4', []),
+    'amp-conv2d_3x3': ('conv2d_3x3_pad1', ['x']),
+    'amp-conv2d_1x1_stride2': ('conv2d_1x1_stride2', ['x']),
+}
+# bf16 ulps of a tensor's largest value that an AMP case may differ by
+AMP_ULPS = 1
 
 
 def _slot_items(v):
     return v if isinstance(v, list) else [v]
 
 
-def _cotangents(case):
+def _cotangents(case, bf16=(), amp=False):
     """A cotangent for each output slot in case['cot'], shaped as the
-    port's forward output on the CPU."""
+    port's forward output on the CPU; under amp, also the names of the
+    outputs that are bf16 (their cotangents are fed rounded to bf16)."""
     with ptt.scope_guard(ptt.Scope()):
-        main, _, feed, _ = _build(ptt, case, {})
+        main, _, feed, _ = _build(ptt, case, {}, bf16, amp)
         names = [case['outputs'][s] for s in case['cot']]
         outs = ptt.Executor(ptt.CPUPlace()).run(main, feed=feed,
-                                                fetch_list=names)
-    return {name: _r(*out.shape, seed=20 + i) if out.ndim
+                                                fetch_list=names,
+                                                return_numpy=False)
+    cots = {name: _r(*out.shape, seed=20 + i) if out.ndim
             else np.array(0.75, np.float32)
             for i, (name, out) in enumerate(zip(names, outs))}
+    if not amp:
+        return cots
+    return cots, {n for n, o in zip(names, outs) if o.dtype == torch.bfloat16}
 
 
-def _build(pkg, case, cots):
+def _build(pkg, case, cots, bf16=(), amp=False):
     """The forward op over data vars and, with cotangents, its grad op.
+    The inputs and cotangents (`<out>@GRAD`) named in bf16 are declared
+    bfloat16 and fed rounded to it; amp marks the program `_amp_bf16`.
     Returns (program, startup, feed, fetch names)."""
     main, startup = pkg.Program(), pkg.Program()
+    main._amp_bf16 = amp
     feed = {}
     with pkg.program_guard(main, startup), pkg.unique_name.guard():
         block = main.global_block()
         for slot, items in case['inputs'].items():
             for name, arr in _slot_items(items):
-                pkg.layers.data(name, shape=list(arr.shape),
-                                dtype=str(arr.dtype), append_batch_size=False,
-                                stop_gradient=False)
-                feed[name] = arr
+                dtype = 'bfloat16' if name in bf16 else str(arr.dtype)
+                pkg.layers.data(name, shape=list(arr.shape), dtype=dtype,
+                                append_batch_size=False, stop_gradient=False)
+                feed[name] = _bf16(arr) if name in bf16 else arr
         for name in case['outputs'].values():
             block.create_var(name=name, dtype='float32')
         fwd_inputs = {s: [n for n, _ in _slot_items(items)]
@@ -272,9 +362,11 @@ def _build(pkg, case, cots):
             for s in case['cot']:
                 n = case['outputs'][s]
                 arr = cots[n]
-                pkg.layers.data(n + '@GRAD', shape=list(arr.shape),
-                                dtype='float32', append_batch_size=False)
-                feed[n + '@GRAD'] = arr
+                g = n + '@GRAD'
+                pkg.layers.data(g, shape=list(arr.shape),
+                                dtype='bfloat16' if g in bf16 else 'float32',
+                                append_batch_size=False)
+                feed[g] = _bf16(arr) if g in bf16 else arr
                 out_grad_map[n] = n + '@GRAD'
             in_grad_map = {n: n + '@GRAD' for n in case['diff']}
             for n in case['diff']:
@@ -300,9 +392,156 @@ def _build(pkg, case, cots):
     return main, startup, feed, fetch
 
 
-@pytest.mark.parametrize('name', sorted(CASES))
-def test_op_and_grad_match_jax(name):
+def _ulp_bf16(x):
+    """One bf16 ulp at each element's magnitude (0 at 0)."""
+    m, e = np.frexp(np.asarray(x, np.float64))
+    return np.where(m == 0, 0.0, np.ldexp(1.0, e - 8))
+
+
+def _one_bf16_ulp(feed, seed):
+    """Every float feed moved by one bf16 ulp at its magnitude, up or down
+    at random: a bf16 value lands on its neighbour, an f32 parameter on a
+    value that rounds to the neighbour of its bf16 cast."""
+    rng = np.random.RandomState(seed)
+    return {n: (a + rng.choice([-1.0, 1.0], a.shape) * _ulp_bf16(a)).astype(
+        a.dtype) if a.dtype.kind == 'f' else a for n, a in feed.items()}
+
+
+def _as_numpy(t):
+    return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _amp_inputs(case, bf16):
+    """The cotangents (from the port's forward), the full set of names fed
+    as bf16 (the bf16 outputs' cotangents added), and the paddle_tpu
+    program's feed and fetch names of an AMP case."""
+    bf16 = set(bf16)
+    cots, cot_bf16 = (_cotangents(case, bf16, amp=True) if case['diff']
+                      else ({}, set()))
+    bf16 |= {n + '@GRAD' for n in cot_bf16}
+    return cots, bf16
+
+
+def _jax_amp_reference(root):
+    """paddle_tpu's side of the AMP cases, written to root/amp.npz (every
+    fetch as f32, bf16 ones exactly) and root/amp.json (their dtypes).
+
+    Run in a fresh interpreter (the amp_reference fixture) with XLA's
+    excess precision off (--xla_allow_excess_precision=false), so that
+    every bf16 op of the reference's jitted step rounds as written and as
+    JAX runs it op by op. With it on, XLA:CPU drops the bf16 rounding of
+    the products dy·x in pallas_bn._bwd's dk = sum((dy·x).astype(f32)):
+    2.5 bf16 ulps of scale@GRAD's largest value at amp-batch_norm_offset
+    (x ≈ 3, where dk and the mean's term m·db cancel).
+
+    batch_norm goes through its TPU kernel's path (PTPU_PALLAS_BN=1:
+    pallas_bn.fused_bn_apply, the Pallas kernel in interpret mode, whose
+    backward `_bwd` sums dk and db in f32 as the port's BnApplyFunction
+    does). Its default path on the CPU, y = x*k + b in plain JAX, sums
+    the bf16 gradients of k and b with a bf16 accumulator (XLA:CPU's
+    reduce_sum of a bf16 tensor): 2.3% of scale@GRAD's largest value at
+    amp-batch_norm, 9 times what a one-bf16-ulp input perturbation moves
+    it."""
+    from jax.experimental import pallas as pl
+    from paddle_tpu.ops import pallas_bn
+    os.environ['PTPU_PALLAS_BN'] = '1'
+    pallas_bn.supported = lambda x, layout: layout == 'NCHW' and x.ndim == 4
+    pl.pallas_call = functools.partial(pl.pallas_call, interpret=True)
+    arrays, dtypes = {}, {}
+    for case_id, (name, bf16) in sorted(AMP_CASES.items()):
+        case = CASES[name]
+        cots, bf16 = _amp_inputs(case, bf16)
+        main, _, feed, fetch = _build(fluid, case, cots, bf16, amp=True)
+        outs = fluid.Executor(fluid.CPUPlace()).run(main, feed=feed,
+                                                    fetch_list=fetch)
+        dtypes[case_id] = []
+        for j, o in enumerate(outs):
+            o = np.asarray(o)
+            dtypes[case_id].append(o.dtype.name)
+            arrays['%s/%d' % (case_id, j)] = (
+                o.astype(np.float32) if o.dtype.name == 'bfloat16' else o)
+    np.savez(os.path.join(root, 'amp.npz'), **arrays)
+    with open(os.path.join(root, 'amp.json'), 'w') as f:
+        json.dump(dtypes, f)
+
+
+@pytest.fixture(scope='module')
+def amp_reference(tmp_path_factory):
+    """{AMP case id: [(dtype name, array) of each fetch]} from paddle_tpu,
+    computed by _jax_amp_reference in a fresh interpreter (this file run
+    as a script, with the tests' environment and XLA's excess precision
+    off)."""
+    root = str(tmp_path_factory.mktemp('jax_amp_reference'))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get('PYTHONPATH')) if p))
+    env['XLA_FLAGS'] = ' '.join(
+        f for f in (env.get('XLA_FLAGS'),
+                    '--xla_allow_excess_precision=false') if f)
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), root],
+                       cwd=repo, env=env, capture_output=True, text=True,
+                       timeout=900)
+    assert r.returncode == 0, r.stdout[-4000:] + r.stderr[-4000:]
+    with open(os.path.join(root, 'amp.json')) as f:
+        dtypes = json.load(f)
+    with np.load(os.path.join(root, 'amp.npz')) as f:
+        return {case_id: [(dt, f['%s/%d' % (case_id, j)])
+                          for j, dt in enumerate(dts)]
+                for case_id, dts in dtypes.items()}
+
+
+def _check_amp(case, bf16, want):
+    cots, bf16 = _amp_inputs(case, bf16)
+    runs = []
+    for move in (False, True):
+        with ptt.scope_guard(ptt.Scope()):
+            main, _, feed, fetch = _build(ptt, case, cots, bf16, amp=True)
+            runs.append(ptt.Executor(ptt.CPUPlace()).run(
+                main, feed=_one_bf16_ulp(feed, 5) if move else feed,
+                fetch_list=fetch, return_numpy=False))
+    assert len(want) == len(fetch)
+    in_bf16 = bool(bf16) or case['type'] in ('mul', 'conv2d')
+    for n, g, m, (dtype, w) in zip(fetch, runs[0], runs[1], want):
+        if dtype in ('float32', 'bfloat16'):
+            assert str(g.dtype)[6:] == dtype, (n, g.dtype, dtype)
+        else:
+            assert not g.dtype.is_floating_point, (n, g.dtype, dtype)
+        g, m = _as_numpy(g), _as_numpy(m)
+        assert g.shape == w.shape, (n, g.shape, w.shape)
+        assert np.isfinite(g).all(), n
+        if n == case['outputs'].get('Indices'):
+            # ties: each index must pick a value equal to the reference's
+            x = feed[case['inputs']['X'][0]]
+            np.testing.assert_array_equal(
+                np.take_along_axis(x, g, -1), np.take_along_axis(x, w, -1),
+                err_msg=n)
+        elif w.dtype.kind != 'f':
+            np.testing.assert_array_equal(g, w, err_msg=n)
+        elif in_bf16:
+            top = float(np.abs(w).max())
+            noise = float(np.abs(m - g).max())
+            tol = min(AMP_ULPS * float(_ulp_bf16(top)), noise)
+            err = float(np.abs(g - w).max())
+            assert err <= tol, '%s: %r > %r (one-ulp noise %r, largest %r)' \
+                % (n, err, tol, noise, top)
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-5,
+                                       atol=1e-6 * max(1.0, np.abs(w).max()),
+                                       err_msg=n)
+
+
+PARAMS = ([pytest.param(n, None, id=n) for n in sorted(CASES)]
+          + [pytest.param(*AMP_CASES[a], id=a) for a in sorted(AMP_CASES)])
+
+
+@pytest.mark.parametrize('name,bf16', PARAMS)
+def test_op_and_grad_match_jax(name, bf16, request):
     case = CASES[name]
+    if bf16 is not None:
+        want = request.getfixturevalue('amp_reference')[
+            request.node.callspec.id]
+        _check_amp(case, bf16, want)
+        return
     cots = _cotangents(case) if case['diff'] else {}
     main, _, feed, fetch = _build(fluid, case, cots)
     want = fluid.Executor(fluid.CPUPlace()).run(main, feed=feed,
@@ -405,3 +644,7 @@ def test_grad_op_rng_follows_forward_op():
     assert torch.equal(draw({'_fwd_op_uid': uid, '_fwd_seed': 11}),
                        torch.rand(4, generator=OpCtx(interp, seeded,
                                                      block).rng()))
+
+
+if __name__ == '__main__':
+    _jax_amp_reference(sys.argv[1])
