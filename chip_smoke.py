@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of paddle_tpu_torch: ResNet-50 and BERT-base served,
-and BERT-base and ResNet-50 trained in f32 and in bf16 mixed precision, on
-one NVIDIA GPU.
+BERT-base and ResNet-50 trained in f32 and in bf16 mixed precision, and
+BERT-base pretrained at bench.py's own settings, on one NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -11,7 +11,7 @@ It builds the port's CUDA kernels from paddle_tpu_torch/csrc/ (bn_apply,
 flash_attn_fwd and flash_attn_bwd, one nvcc each, in parallel) and holds
 each against its plain PyTorch version on the card (bn_apply and its
 backward, which is plain torch, at batch 16 and 128, and in bf16 at 256).
-Then it drives six paths, with random weights from a seed, TF32 off and
+Then it drives seven paths, with random weights from a seed, TF32 off and
 bf16 GEMMs reducing in f32:
 
 - ResNet-50 (depth 50, 224x224, 1000 classes) served through
@@ -36,13 +36,22 @@ bf16 GEMMs reducing in f32:
   at batch 8 and ResNet-50 at batch 256, each with the launch counts
   above, every launch bf16, and the loss, every parameter gradient,
   parameter and optimizer state f32.
+- BERT-base pretraining as bench.py:504-540 bench_bert runs it:
+  build_bert_pretrain at S=128 with its default dropout 0.1 (37 dropout
+  ops; the attention on the composed branch, 24 matmul ops and no fused
+  one) and Adam(lr 1e-4) -> enable_bf16 -> gradient_merge.enable(2) ->
+  Executor.run, batch 64 (2 microbatches of 32), 2 warm-up and 10 timed
+  steps on bench.py's feed; this path launches none of the kernels.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after. The run compares GPU and CPU outputs of each served
 model, the loss and gradients of one step of each trained model (f32 and
 bf16; each tolerance 4 times the one-ulp noise measured over NOISE_DRAWS
-draws on each side), and ResNet-50's backward with card and CPU fed the
-card's forward values (f32 and bf16), times the kernels (CUDA events),
+draws on each side; bench_bert's program at batch 2 with k=2, the CPU
+given the masks the card drew), and ResNet-50's backward with card and CPU
+fed the card's forward values (f32 and bf16), checks dropout and its
+gradient on the card (keep share, Out and dX exact, fresh masks per step
+and microbatch), times the kernels (CUDA events),
 the requests and the steps (host clock), and profiles a few requests and
 steps. Every check that fails
 raises, so the exit code is 0 only when all phases passed. Without a
@@ -68,11 +77,12 @@ import torch.nn.functional as F
 
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch import kernels
-from paddle_tpu_torch.contrib import mixed_precision
+from paddle_tpu_torch.contrib import gradient_merge, mixed_precision
 from paddle_tpu_torch.models.bert import bert_mlm_logits, build_bert_pretrain
 from paddle_tpu_torch.models.resnet import build_train_net, resnet_imagenet
 from paddle_tpu_torch.ops import bn_apply as bn_mod
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import tensor_ops
 
 SEED = 0
 BATCHES = (1, 8, 16)
@@ -135,6 +145,17 @@ RESNET_GATE_BATCH = 4
 RESNET_AMP_BATCH = 256
 # one-ulp draws of the GPU-vs-CPU gates' noise, on each side
 NOISE_DRAWS = 3
+# BERT-base pretraining as bench.py:504-540 bench_bert runs it: S=128,
+# batch 64, build_bert_pretrain's default dropout 0.1 (the attention
+# takes the composed branch), Adam(lr 1e-4), bf16 AMP (enable_bf16) and
+# gradient merge over 2 microbatches (gradient_merge.enable(2))
+BENCH_BERT = dict(BERT, max_len=128)
+BENCH_BATCH = 64
+BENCH_K = 2
+BENCH_GATE_BATCH = 2
+DROPOUT_P = 0.1
+# the dropout checks' x: a microbatch's attention weights [32, 12, 128, 128]
+DROPOUT_SHAPE = (BENCH_BATCH // BENCH_K, BERT['n_head'], 128, 128)
 # K1 and its backward are held against their plain versions at the batch of
 # ResNet-50 serving and at those of its f32 and AMP training, where the
 # largest BN outputs take the kernel's grid-stride loop through 2 (f32 at
@@ -1092,19 +1113,23 @@ def _ulp_moved(a, rng, amp):
     return (a * (1 + 1e-7 * rng.randn(*a.shape))).astype(a.dtype)
 
 
-def _perturbed(arrays, seed, amp=False):
-    """Every float array or tensor moved by one ulp (_ulp_moved)."""
+def _perturbed(arrays, seed, amp=False, only=None):
+    """Every float array or tensor (of the names in `only`, if given) moved
+    by one ulp (_ulp_moved)."""
     rng = np.random.RandomState(seed)
-    return {n: _ulp_moved(a, rng, amp) for n, a in arrays.items()}
+    return {n: _ulp_moved(a, rng, amp) if only is None or n in only else a
+            for n, a in arrays.items()}
 
 
-def _gpu_vs_cpu_step(main, startup, names, feed, seed, amp=False):
+def _gpu_vs_cpu_step(main, startup, names, feed, seed, amp=False,
+                     only=None):
     """One training step from one initial state, the startup program run
     on the card and carried to CPU scopes with weights.py, fetching
     `names`: on the card and on the CPU, and on each again from the state
-    moved by one ulp (_perturbed, f32 or with amp bf16) in NOISE_DRAWS
-    draws from `seed`. Returns, for each name, (name, GPU value, CPU value,
-    the largest |GPU - CPU|, the largest |CPU|, the noise: the largest
+    moved by one ulp (_perturbed, f32 or with amp bf16; only the arrays
+    named in `only`, if given) in NOISE_DRAWS draws from `seed`.
+    Returns, for each name, (name, GPU value, CPU value, the largest
+    |GPU - CPU|, the largest |CPU|, the noise: the largest
     move over the draws on the card plus the largest on the CPU, its
     tolerance: max(1e-5 of the largest |CPU|, 4 times the noise))."""
     gpu_scope = fluid.Scope()
@@ -1117,7 +1142,7 @@ def _gpu_vs_cpu_step(main, startup, names, feed, seed, amp=False):
     runs = {}
     t0 = time.perf_counter()
     for i in range(NOISE_DRAWS + 1):
-        st = state if i == 0 else _perturbed(state, seed + i, amp)
+        st = state if i == 0 else _perturbed(state, seed + i, amp, only)
         for exe, device, fd in ((gpu, 'cuda', feed), (cpu, 'cpu', cpu_feed)):
             scope = fluid.Scope()
             fluid.weights.params_from_numpy(st, main, scope, device=device)
@@ -1135,6 +1160,267 @@ def _gpu_vs_cpu_step(main, startup, names, feed, seed, amp=False):
         top = float(np.abs(w).max())
         rows.append((name, g, w, err, top, noise, max(1e-5 * top, 4 * noise)))
     return rows
+
+
+def _dropout_program(amp, shape=DROPOUT_SHAPE):
+    """x -> dropout(p=0.1, upscale_in_train) -> reduce_sum(out·w), with
+    append_backward (so the dropout_grad op runs); x and w bf16 with amp.
+    Returns (program, Out name, Mask name)."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = SEED
+    dtype = 'bfloat16' if amp else 'float32'
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data('x', shape=list(shape), dtype=dtype,
+                              append_batch_size=False, stop_gradient=False)
+        w = fluid.layers.data('w', shape=list(shape), dtype=dtype,
+                              append_batch_size=False)
+        out = fluid.layers.dropout(x, dropout_prob=DROPOUT_P,
+                                   dropout_implementation='upscale_in_train')
+        fluid.backward.append_backward(fluid.layers.reduce_sum(out * w))
+    main._amp_bf16 = amp
+    op = next(o for o in main.global_block().ops if o.type == 'dropout')
+    return main, op.output('Out')[0], op.output('Mask')[0]
+
+
+def _microbatch_masks():
+    """The masks a dropout op draws in 2 steps of k=2 gradient merge on
+    the card (fc -> dropout -> mean, SGD): [(step, microbatch, keep)]."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data('x', shape=[768], dtype='float32')
+        h = fluid.layers.dropout(fluid.layers.fc(x, size=768),
+                                 dropout_prob=DROPOUT_P)
+        loss = fluid.layers.mean(h)
+        fluid.optimizer.SGD(0.1).minimize(loss)
+    gradient_merge.enable(BENCH_K, main)
+    drawn = []
+    real = tensor_ops.draw_dropout_keep
+
+    def record(ctx, shape, p):
+        keep = real(ctx, shape, p)
+        if ctx.device.type == 'cuda':
+            drawn.append((ctx.interp.step, ctx.interp.micro, keep))
+        return keep
+
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 21)
+    feed = {'x': torch.randn(BENCH_K * 64, 768, device='cuda',
+                             generator=gen)}
+    tensor_ops.draw_dropout_keep = record
+    try:
+        for _ in range(2):
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    finally:
+        tensor_ops.draw_dropout_keep = real
+    return drawn
+
+
+def phase_dropout_on_card():
+    """dropout and dropout_grad on the card, f32 and bf16, at a
+    microbatch's attention-weight shape: the keep share within 5σ of its
+    binomial mean; Out == X·Mask·scale exactly (scale 1/(1-p) in x's
+    dtype); Mask in x's dtype; dX == dOut·Mask·scale exactly, with the
+    forward's Mask; a second step draws another mask, as does each
+    microbatch of a gradient-merge step."""
+    for amp in (False, True):
+        dtype = torch.bfloat16 if amp else torch.float32
+        main, out, mask = _dropout_program(amp)
+        gen = torch.Generator(device='cuda').manual_seed(SEED + 20)
+        x = torch.randn(DROPOUT_SHAPE, device='cuda', generator=gen).to(dtype)
+        w = torch.randn(DROPOUT_SHAPE, device='cuda', generator=gen).to(dtype)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        o, m, dx = exe.run(main, feed={'x': x, 'w': w},
+                           fetch_list=[out, mask, 'x@GRAD'],
+                           scope=fluid.Scope(), return_numpy=False)
+        check(o.dtype == m.dtype == dx.dtype == dtype,
+              'dropout dtypes %s %s %s, not %s' % (o.dtype, m.dtype,
+                                                   dx.dtype, dtype))
+        n = m.numel()
+        kept = int((m != 0).sum())
+        sigma = (n * DROPOUT_P * (1 - DROPOUT_P)) ** 0.5
+        z = (kept - n * (1 - DROPOUT_P)) / sigma
+        check(abs(z) <= 5, 'dropout kept %d of %d: %.2f sigma' % (kept, n, z))
+        check(bool(((m == 0) | (m == 1)).all()), 'a Mask value is not 0 or 1')
+        scale = torch.tensor(1 / (1 - DROPOUT_P), dtype=dtype).float()
+        zero = torch.zeros((), device='cuda')
+        check(torch.equal(o, torch.where(m != 0, x.float() * scale,
+                                         zero).to(dtype)),
+              'dropout Out != X·Mask·scale (%s)' % dtype)
+        check(torch.equal(dx, torch.where(
+            m != 0, (w.float() * scale).to(dtype).float(), zero).to(dtype)),
+            'dropout_grad dX != dOut·Mask·scale (%s)' % dtype)
+        m2, = exe.run(main, feed={'x': x, 'w': w}, fetch_list=[mask],
+                      scope=fluid.Scope(), return_numpy=False)
+        check(not torch.equal(m, m2), 'the second step drew the same mask')
+        print('dropout %s shape=%s p=%r kept=%d of %d (%.2f sigma); '
+              'Out == X·Mask·scale and dX == dOut·Mask·scale exactly; '
+              'step 1 drew another mask' % (
+                  _precision(amp), list(DROPOUT_SHAPE), DROPOUT_P, kept, n,
+                  z))
+    drawn = _microbatch_masks()
+    check([(s, i) for s, i, _ in drawn] == [(0, 0), (0, 1), (1, 0), (1, 1)],
+          'gradient merge drew %s' % [(s, i) for s, i, _ in drawn])
+    keeps = [k for _, _, k in drawn]
+    check(all(not torch.equal(keeps[i], keeps[j])
+              for i in range(4) for j in range(i)),
+          'two microbatches or steps drew the same mask')
+    print('dropout under gradient merge k=%d: 2 steps x 2 microbatches drew '
+          '4 different masks' % BENCH_K)
+
+
+def build_bert_bench_training(amp=True):
+    """bench.py:504-540's BERT-base program: build_bert_pretrain at S=128
+    with its defaults (dropout 0.1, Adam lr 1e-4), seeded initialization,
+    enable_bf16 (with amp) and gradient_merge.enable(2). Returns (main,
+    startup, loss, feeds)."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        feeds, loss = build_bert_pretrain(**BENCH_BERT)
+    gradient_merge.enable(BENCH_K, _mark(main, amp))
+    return main, startup, loss, feeds
+
+
+def _bench_feed(feeds, batch):
+    """The feed bench.py:525-537 makes: numpy RandomState(0), the feeds in
+    build_bert_pretrain's feed order, ids uniform in [0, vocab)
+    (segments in [0, 2)), 15% of the positions weighted; on the card."""
+    rng = np.random.RandomState(0)
+    out = {}
+    for name, shape, dtype in feeds:
+        full = (batch,) + tuple(shape)
+        if dtype == 'int64':
+            hi = 2 if name == 'seg_ids' else BENCH_BERT['vocab']
+            arr = rng.randint(0, hi, full).astype(np.int32)
+        else:
+            arr = (rng.rand(*full) < 0.15).astype(np.float32)
+        out[name] = torch.from_numpy(arr).cuda()
+    return out
+
+
+def phase_bert_bench_training(main, startup, loss, feeds):
+    """bench_bert's configuration on the card: TRAIN_WARMUP_STEPS, then
+    TRAIN_STEPS timed steps (host clock around Executor.run and a sync) on
+    one fixed batch of BENCH_BATCH, each a gradient-merge step of 2
+    microbatches of 32. The program holds 37 dropout ops and 24 matmul ops
+    and no fused attention; the losses are finite and the last is below
+    the first; the path launches no kernel of the port (the composed
+    attention is cuBLAS and torch)."""
+    label = 'bert_bench_training'
+    ops = collections.Counter(op.type for op in main.global_block().ops)
+    n_layer = BENCH_BERT['n_layer']
+    want_ops = {'dropout': 1 + 3 * n_layer, 'matmul': 2 * n_layer,
+                'fused_multihead_attention': 0}
+    got_ops = {t: ops[t] for t in want_ops}
+    check(got_ops == want_ops, '%s op counts %s, not %s'
+          % (label, got_ops, want_ops))
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    feed = _bench_feed(feeds, BENCH_BATCH)
+    losses = []
+    reset_launches()
+    exe.run(startup, scope=scope)
+    for _ in range(TRAIN_WARMUP_STEPS):
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)
+        losses.append(float(out.reshape(-1)[0]))
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(out.reshape(-1)[0]))
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(n == 0 for n in counts.values()),
+          '%s launched a kernel of the port: %s' % (label, counts))
+    check(all(math.isfinite(x) for x in losses), 'non-finite loss: %s'
+          % losses)
+    check(losses[-1] < losses[0], 'the loss did not fall: %s' % losses)
+    p50 = float(np.percentile(times, 50))
+    print('%s batch=%d S=%d k=%d bf16 dropout=0.1 lr=1e-4 ops=%d op_counts=%s '
+          'losses=%s' % (label, BENCH_BATCH, BENCH_BERT['max_len'], BENCH_K,
+                         sum(ops.values()), json.dumps(got_ops),
+                         json.dumps([round(x, 5) for x in losses])))
+    print('%s launches over the warm-up and %d timed steps: %s'
+          % (label, TRAIN_STEPS, json.dumps(counts)))
+    print('%s step p50_ms=%r p90_ms=%r tokens_per_s=%r '
+          'peak_allocated_gb=%.2f (host clock, %d steps, each ending in a '
+          'sync)' % (label, p50 * 1e3, float(np.percentile(times, 90)) * 1e3,
+                     BENCH_BATCH * BENCH_BERT['max_len'] / p50, peak / 2 ** 30,
+                     TRAIN_STEPS))
+    per_kernel = _profile(
+        lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                        return_numpy=False),
+        'bert bench training bf16 k=%d batch=%d S=%d' % (
+            BENCH_K, BENCH_BATCH, BENCH_BERT['max_len']), 'steps')
+    if per_kernel:
+        print('profile %s: device_busy_ms_per_step=%r' % (
+            label, sum(per_kernel.values()) / 3))
+    return counts
+
+
+def phase_bench_gpu_vs_cpu(amp):
+    """One step of bench_bert's program (k=2, dropout 0.1, f32 or with amp
+    bf16) at batch 2, GPU against CPU, from one initial state: the loss
+    and the merged gradients of word_emb, the first Q weight and the last
+    layer_norm scale, each within 4 times the one-ulp noise over
+    NOISE_DRAWS draws on each side (_gpu_vs_cpu_step), the draws moving the
+    parameters (the Adam state, zeros and constants before the first step,
+    enters no fetched value: the update runs after the gradients are
+    merged). The masks are the
+    card's: each dropout op's keep decision in each microbatch, drawn on
+    the card in the first run, is given to every later run on the card and
+    on the CPU (the two devices' generators give different streams)."""
+    label = 'bert_bench_training%s_gpu_vs_cpu' % ('_bf16' if amp else '')
+    main, startup, loss, feeds = build_bert_bench_training(amp)
+    ln = max((p.name for p in main.all_parameters()
+              if p.name.startswith('layer_norm_') and p.name.endswith('.w_0')),
+             key=lambda n: int(n.split('_')[2].split('.')[0]))
+    names = [loss.name, 'word_emb@GRAD', 'fc_0.w_0@GRAD', ln + '@GRAD']
+    masks = {}
+    real = tensor_ops.draw_dropout_keep
+
+    def card_masks(ctx, shape, p):
+        if ctx.device.type == 'meta':
+            return real(ctx, shape, p)
+        key = (ctx.interp.micro, ctx.op.output('Mask')[0])
+        if key not in masks:
+            check(ctx.device.type == 'cuda', 'the CPU ran before the card')
+            masks[key] = real(ctx, shape, p)
+        return masks[key].to(ctx.device)
+
+    tensor_ops.draw_dropout_keep = card_masks
+    try:
+        rows = _gpu_vs_cpu_step(main, startup, names,
+                                _bench_feed(feeds, BENCH_GATE_BATCH),
+                                SEED + 17, amp,
+                                {p.name for p in main.all_parameters()})
+    finally:
+        tensor_ops.draw_dropout_keep = real
+    n_dropout = 1 + 3 * BENCH_BERT['n_layer']
+    check(len(masks) == BENCH_K * n_dropout,
+          '%s: %d masks recorded, not %d' % (label, len(masks),
+                                             BENCH_K * n_dropout))
+    worst = (0.0, '')
+    for name, g, w, err, top, noise, tol in rows:
+        print('%s batch=%d k=%d %s shape=%s max_abs_err=%r max_abs=%r '
+              'rel=%r one_ulp_noise=%r tolerance=%r' % (
+                  label, BENCH_GATE_BATCH, BENCH_K, name, tuple(w.shape),
+                  err, top, err / top, noise, tol))
+        check(g.shape == w.shape and np.isfinite(g).all() and err <= tol,
+              'GPU and CPU %s differ: %r > %r' % (name, err, tol))
+        worst = max(worst, (err / tol, name))
+    print('%s worst err/tol=%.3f (%s); %d card masks given to the CPU'
+          % (label, worst[0], worst[1], len(masks)))
 
 
 def build_resnet_training(amp=False):
@@ -1598,6 +1884,22 @@ def main():
     phase_resnet_backward_gpu_vs_cpu(ra_main, ra_startup, amp=True)
     torch.cuda.empty_cache()
 
+    # bench.py's bench_bert: S=128, batch 64, dropout 0.1 (the composed
+    # attention), bf16, gradient merge k=2
+    phase_dropout_on_card()
+    t0 = time.perf_counter()
+    bb_main, bb_startup, bb_loss, bb_feeds = build_bert_bench_training()
+    print('model bert-base bench training S=%d bf16 k=%d dropout=0.1 ops=%d '
+          'build_s=%.1f' % (BENCH_BERT['max_len'], BENCH_K,
+                            len(bb_main.global_block().ops),
+                            time.perf_counter() - t0))
+    bench_counts = phase_bert_bench_training(bb_main, bb_startup, bb_loss,
+                                             bb_feeds)
+    torch.cuda.empty_cache()
+    phase_bench_gpu_vs_cpu(amp=False)
+    phase_bench_gpu_vs_cpu(amp=True)
+    torch.cuda.empty_cache()
+
     totals = phase_kernel_times()
     totals_amp = phase_kernel_times(RESNET_AMP_BATCH, torch.bfloat16)
     k2_rows = phase_flash_times()
@@ -1609,7 +1911,8 @@ def main():
              'bert_training': train_counts,
              'resnet50_training': resnet_train_counts,
              'bert_training_bf16': bert_amp_counts,
-             'resnet50_training_bf16': resnet_amp_counts}
+             'resnet50_training_bf16': resnet_amp_counts,
+             'bert_bench_training': bench_counts}
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}

@@ -27,6 +27,12 @@ class TraceError(RuntimeError):
     pass
 
 
+# odd 64-bit constants (splitmix64's) by which the step and the microbatch
+# move an op's seed, far from the seeds of the other ops of the program
+_STEP_MIX = 0xBF58476D1CE4E5B9
+_MICRO_MIX = 0x94D049BB133111EB
+
+
 class OpCtx(object):
     """Per-op context handed to lowering rules."""
 
@@ -47,18 +53,25 @@ class OpCtx(object):
         return bool(self.attrs.get('is_test', False))
 
     def rng(self):
-        """A torch.Generator on the op's device for the op's random draws:
-        seeded from the program's random_seed and the op's own 'seed' attr,
-        or its uid when that is 0, so the same program draws the same
-        numbers on every run on the same device type. A grad op takes its
-        forward op's seed, then its forward op's uid, as JAX's rule does
-        (paddle_tpu/core/lowering.py:60-70), so a recomputed forward draws
-        what the forward drew."""
+        """A torch.Generator on the op's device for the op's random draws,
+        seeded from (the program's random_seed, the Executor's step of the
+        program, the microbatch index under gradient merge, the op's own
+        'seed' attr or its uid when that is 0): deterministic given those,
+        and fresh at every step and microbatch, as the reference folds its
+        per-step key (paddle_tpu/core/lowering.py:61-70, executor.py:281,
+        :1116). At step 0 outside gradient merge the seed is
+        `random_seed·0x9E3779B1 + op seed`, so a startup program draws the
+        same initial values on every run. A grad op takes its forward op's
+        seed, then its forward op's uid, as JAX's rule does, so a
+        recomputed forward draws what the forward drew."""
         a = self.attrs
         op_seed = int(a.get('seed', 0) or a.get('_fwd_seed', 0) or
                       a.get('_fwd_op_uid', a.get('_op_uid', 0))) & 0x7FFFFFFF
-        seed = (int(self.interp.program.random_seed) * 0x9E3779B1
-                + op_seed) & 0x7FFFFFFFFFFFFFFF
+        interp = self.interp
+        micro = 0 if interp.micro is None else interp.micro + 1
+        seed = (int(interp.program.random_seed) * 0x9E3779B1 + op_seed
+                + interp.step * _STEP_MIX + micro * _MICRO_MIX
+                ) & 0x7FFFFFFFFFFFFFFF
         g = torch.Generator(device=self.device)
         g.manual_seed(seed)
         return g
@@ -69,12 +82,16 @@ class OpCtx(object):
 
 
 class Interpreter(object):
-    """Walks a block in order, keeping env: var name -> tensor."""
+    """Walks a block in order, keeping env: var name -> tensor. `step` is
+    the Executor's run count of the program and `micro` the microbatch
+    index under gradient merge (None outside it); both seed OpCtx.rng."""
 
-    def __init__(self, program, device, env):
+    def __init__(self, program, device, env, step=0, micro=None):
         self.program = program
         self.device = device
         self.env = env
+        self.step = step
+        self.micro = micro
         self.fetches = []
         self.written = set()
 
@@ -85,8 +102,9 @@ class Interpreter(object):
             "Op %s reads variable %r which has no value. Feed it, initialize "
             "it via the startup program, or check op ordering." % (op, name))
 
-    def run_block(self, block):
-        for op in block.ops:
+    def run_block(self, block, ops=None):
+        """Run `ops` (default: every op of the block) in order."""
+        for op in block.ops if ops is None else ops:
             self.run_op(op, block)
         return self.env
 

@@ -9,20 +9,26 @@ step function, this one interprets it eagerly (core/lowering.py):
 3. run the ops of block 0 in order, inside core.amp.scope(True) when the
    program is marked for bf16 (`program._amp_bf16`, set by
    contrib.mixed_precision), as paddle_tpu/executor.py:1160,1181 traces
-   its step,
+   its step; with gradient merge (`program._grad_accum_k` > 1, set by
+   contrib.gradient_merge) as k microbatches and one update (`_ga_step`),
 4. commit the persistable vars the block wrote back to the Scope,
 5. return the fetches as numpy arrays, or as device tensors with
    return_numpy=False (a serving loop then syncs once, not per request).
+
+Each Executor counts its runs of each program (by `Program._uid`, as
+paddle_tpu/executor.py:270-282 does); the count seeds the ops' random
+draws, so dropout draws fresh masks at every step.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .backward import OP_ROLE_BACKWARD, OP_ROLE_OPTIMIZE
 from .framework import (CUDAPlace, Variable, default_main_program,
                         to_torch_dtype)
 from .core import amp
-from .core.lowering import Interpreter
+from .core.lowering import Interpreter, TraceError
 from .core.scope import global_scope
 
 
@@ -48,6 +54,7 @@ class Executor(object):
     def __init__(self, place=None):
         self.place = place if place is not None else CUDAPlace(0)
         self.device = self.place.device()
+        self._step_counters = {}
 
     def _feed_tensor(self, value, var):
         dtype = to_torch_dtype(var.dtype) if var is not None else None
@@ -65,20 +72,33 @@ class Executor(object):
         fetch_names = [_fetch_name(f) for f in fetch_list]
         scope = scope if scope is not None else global_scope()
         block = program.global_block()
+        k = int(getattr(program, '_grad_accum_k', 1) or 1)
+        feed = feed or {}
+        if k > 1:
+            _check_ga_feeds(feed, k)
 
-        env = {}
+        state = {}
         persist = {v.name for v in program.list_vars() if v.persistable}
         for name in persist:
             val = scope.get(name)
             if val is not None:
-                env[name] = val.to(self.device)
-        for name, value in (feed or {}).items():
-            env[name] = self._feed_tensor(value, block._find_var_recursive(name))
+                state[name] = val.to(self.device)
+        feeds = {name: self._feed_tensor(value,
+                                         block._find_var_recursive(name))
+                 for name, value in feed.items()}
+        step = self._step_counters.get(program._uid, 0)
+        self._step_counters[program._uid] = step + 1
 
-        interp = Interpreter(program, self.device, env)
         bf16 = getattr(program, '_amp_bf16', False)
         with torch.no_grad(), amp.scope(bf16):
-            interp.run_block(block)
+            if k > 1:
+                interp = self._ga_step(program, state, feeds, step, k,
+                                       fetch_names)
+            else:
+                state.update(feeds)
+                interp = Interpreter(program, self.device, state, step)
+                interp.run_block(block)
+        env = interp.env
         for name in persist & interp.written:
             scope.set(name, env[name])
 
@@ -91,3 +111,136 @@ class Executor(object):
         if return_numpy:
             return [_to_numpy(t) for t in fetches]
         return fetches
+
+    # -- gradient merge (contrib/gradient_merge.py) ------------------------
+    @staticmethod
+    def _ga_partition(program, fetch_names):
+        """Split block 0 for gradient merge, as paddle_tpu/executor.py:1003
+        does (ref multi_batch_merge_pass): the microbatch cone is the
+        ancestor set of the raw gradients, the excluded ops (optimize
+        role; the reference's clip and decay ops, not ported yet, would
+        join them) read; the outer ops are the excluded ones plus those
+        reachable backward from the fetches and persistable writes that
+        the cone does not hold. Returns (ops, cone indices, outer indices,
+        carried names: what the outer ops and the fetches read from the
+        cone, cone outputs)."""
+        ops = list(program.global_block().ops)
+        excl = {i for i, op in enumerate(ops)
+                if int(op.attrs.get('op_role', 0)) == OP_ROLE_OPTIMIZE}
+        bwd_out = {o for i, op in enumerate(ops) if i not in excl
+                   and int(op.attrs.get('op_role', 0)) & OP_ROLE_BACKWARD
+                   for o in op.output_arg_names() if o}
+        needed = {n for i in excl for n in ops[i].input_arg_names()
+                  if n in bwd_out}
+        cone = set()
+        for i in range(len(ops) - 1, -1, -1):
+            if i in excl or ops[i].type == 'feed':
+                continue
+            if any(o in needed for o in ops[i].output_arg_names()):
+                cone.add(i)
+                needed |= {n for n in ops[i].input_arg_names() if n}
+        cone_idx = sorted(cone)
+        cone_outs = {n for i in cone_idx
+                     for n in ops[i].output_arg_names() if n}
+        keep_out = set(fetch_names) | {v.name for v in program.list_vars()
+                                       if v.persistable}
+        outer = set()
+        for i in range(len(ops) - 1, -1, -1):
+            if i in cone or ops[i].type == 'feed':
+                continue
+            if i in excl or any(o in keep_out
+                                for o in ops[i].output_arg_names()):
+                outer.add(i)
+                keep_out |= {n for n in ops[i].input_arg_names() if n}
+        outer_idx = sorted(outer)
+        outer_reads = {n for i in outer_idx
+                       for n in ops[i].input_arg_names() if n}
+        carried = sorted((outer_reads | set(fetch_names)) & cone_outs)
+        return ops, cone_idx, outer_idx, carried, cone_outs
+
+    def _ga_step(self, program, state, feeds, step, k, fetch_names):
+        """One gradient-merge step (paddle_tpu/executor.py:1058 `_ga_step`,
+        whose lax.scan is a Python loop here): the fed batch in k
+        microbatches, the cone run on each with microbatch index i, every
+        carried value accumulated as `acc + a/k` from zeros (so a merged
+        gradient is the mean of the microbatches' gradients), persistables
+        the cone writes carried from one microbatch to the next; then the
+        outer ops (the optimizer) once, on the merged values. Each
+        microbatch's environment is released before the next starts.
+        Returns the outer phase's Interpreter."""
+        ops, cone_idx, outer_idx, carried, cone_outs = \
+            self._ga_partition(program, fetch_names)
+        persist = {v.name for v in program.list_vars() if v.persistable}
+        pers_names = sorted(persist & cone_outs)
+        carried = [n for n in carried if n not in pers_names]
+        outer_reads = {n for i in outer_idx
+                       for n in ops[i].input_arg_names() if n}
+        block = program.global_block()
+        acc, pers, written = None, {}, set()
+        for i in range(k):
+            mb = {n: t.reshape((k, t.shape[0] // k) + tuple(t.shape[1:]))[i]
+                  for n, t in feeds.items()}
+            env = dict(state)
+            env.update(pers)
+            env.update(mb)
+            interp = Interpreter(program, self.device, env, step, micro=i)
+            interp.run_block(block, [ops[j] for j in cone_idx])
+            vals = {n: interp.env[n] for n in carried if n in interp.env}
+            if acc is None:
+                _check_ga_carried(vals, fetch_names, outer_reads)
+                acc = {n: torch.zeros_like(v) for n, v in vals.items()}
+            acc = {n: acc[n] + vals[n] / k for n in acc}
+            pers = {n: interp.env[n] for n in pers_names if n in interp.env}
+            written |= interp.written & persist
+            del interp, env, vals, mb
+        env = dict(state)
+        env.update(acc)
+        env.update(pers)
+        del acc
+        outer = Interpreter(program, self.device, env, step)
+        outer.run_block(block, [ops[j] for j in outer_idx])
+        outer.written |= written
+        missing = [n for n in fetch_names if n not in outer.env]
+        if missing:
+            raise TraceError(
+                "fetch %r is computed inside the gradient-merge microbatch "
+                "loop and is not a carried output; fetch the loss or a "
+                "persistable instead" % (missing,))
+        return outer
+
+
+def _check_ga_feeds(feed, k):
+    """paddle_tpu/executor.py:1068-1075: LoD feeds and batches that k does
+    not divide are refused."""
+    for n, v in feed.items():
+        lod = getattr(v, 'lod', None)
+        if callable(lod):
+            lod = lod()
+        if lod:
+            raise TypeError("gradient merge does not support LoD feeds "
+                            "(pad/bucket first): %r" % n)
+        batch = tuple(getattr(v, 'shape', None) or np.shape(v))[0]
+        if batch % k:
+            raise ValueError(
+                "gradient merge: batch %d of feed %r is not divisible by "
+                "num_microbatches=%d" % (batch, n, k))
+
+
+def _check_ga_carried(vals, fetch_names, outer_reads):
+    """paddle_tpu/executor.py:1097-1112: only float values average across
+    microbatches, and a fetch only the microbatches compute must be a
+    scalar."""
+    for n, v in vals.items():
+        if not v.is_floating_point():
+            raise TraceError(
+                "gradient merge cannot carry %r (dtype %s) out of the "
+                "microbatch loop: only float values average across "
+                "microbatches. Fetch the loss or a persistable instead."
+                % (n, v.dtype))
+        if n in fetch_names and n not in outer_reads and v.numel() != 1:
+            raise TraceError(
+                "fetch %r has per-microbatch shape %s under gradient "
+                "merge; only scalar (loss-like) fetches are well-defined — "
+                "per-example outputs of a microbatch loop would silently "
+                "average. Fetch the loss, or run without gradient merge."
+                % (n, tuple(v.shape)))

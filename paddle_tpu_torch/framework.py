@@ -256,13 +256,21 @@ class Block(object):
 
 
 class Program(object):
-    """A list of blocks; block 0 is global (ref: fluid/framework.py:1510)."""
+    """A list of blocks; block 0 is global (ref: fluid/framework.py:1510).
+
+    `_uid` is unique in the process, and a clone gets a new one: the
+    Executor keys its per-program step counter by it (the step seeds the
+    ops' random draws, core/lowering.py)."""
+
+    _uid_counter = [0]
 
     def __init__(self):
         self.blocks = [Block(self, 0)]
         self._current_block_idx = 0
         self.random_seed = 0
         self._op_uid_counter = 0
+        Program._uid_counter[0] += 1
+        self._uid = Program._uid_counter[0]
 
     def global_block(self):
         return self.blocks[0]
@@ -303,6 +311,8 @@ class Program(object):
         p._current_block_idx = self._current_block_idx
         p.random_seed = self.random_seed
         p._op_uid_counter = self._op_uid_counter
+        Program._uid_counter[0] += 1
+        p._uid = Program._uid_counter[0]
         for b in self.blocks:
             p.blocks.append(Block(p, b.idx, b.parent_idx))
         for b, nb in zip(self.blocks, p.blocks):

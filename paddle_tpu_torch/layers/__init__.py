@@ -2,6 +2,7 @@
 holding the layers the ported slices need. Importing it installs the
 Variable operators (math_op_patch), as the reference does."""
 from . import math_op_patch
+from .control_flow import *  # noqa: F401,F403
 from .io import data  # noqa: F401
 from .metric_op import accuracy  # noqa: F401
 from .nn import *  # noqa: F401,F403

@@ -1,6 +1,6 @@
 """Neural-network layer functions (ref: python/paddle/fluid/layers/nn.py;
-paddle_tpu/layers/nn.py:25,52,71,182,234,275,370,388,510,691,842,849,867,
-900,1008,1955).
+paddle_tpu/layers/nn.py:25,52,71,182,234,275,356,370,388,510,691,736,842,
+849,867,900,1008,1057,1955).
 
 The port's copies of the layers the serving and training slices need. Each appends the
 same ops with the same attrs and names as its paddle_tpu counterpart, so a
@@ -16,9 +16,9 @@ from ..initializer import NormalInitializer, ConstantInitializer
 from ..param_attr import ParamAttr
 
 __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
-           'relu', 'elementwise_add', 'reshape', 'transpose',
-           'fused_multihead_attention', 'softmax_with_cross_entropy',
-           'reduce_sum', 'mean', 'softmax', 'topk', 'pad',
+           'dropout', 'relu', 'elementwise_add', 'reshape', 'transpose',
+           'fused_multihead_attention', 'matmul', 'softmax_with_cross_entropy',
+           'reduce_sum', 'mean', 'softmax', 'topk', 'pad', 'cast',
            'square_error_cost']
 
 
@@ -184,6 +184,22 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
     return helper.append_activation(out)
 
 
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    """Dropout (ref nn.py dropout; paddle_tpu/layers/nn.py:356): Out and a
+    Mask in x's dtype; seed None draws from the op's uid."""
+    helper = LayerHelper('dropout', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    mask = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op(
+        type='dropout', inputs={'X': x},
+        outputs={'Out': out, 'Mask': mask},
+        attrs={'dropout_prob': dropout_prob, 'is_test': is_test,
+               'seed': seed if seed is not None else 0,
+               'dropout_implementation': dropout_implementation})
+    return out
+
+
 def relu(x, name=None):
     helper = LayerHelper('relu', name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
@@ -242,6 +258,18 @@ def fused_multihead_attention(q, k, v, causal=False, scale=1.0,
         attrs={'causal': causal, 'scale': scale,
                'sequence_parallel': sequence_parallel}, infer_shape=False)
     out.shape = q.shape  # same [B, H, S, D] as the query
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    """alpha·(X·Y), each transposed in its last two dims first where asked
+    (ref nn.py matmul; paddle_tpu/layers/nn.py:736)."""
+    helper = LayerHelper('matmul', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type='matmul', inputs={'X': x, 'Y': y}, outputs={'Out': out},
+        attrs={'transpose_X': transpose_x, 'transpose_Y': transpose_y,
+               'alpha': float(alpha)})
     return out
 
 
@@ -315,4 +343,15 @@ def square_error_cost(input, label):
     helper.append_op(type='square_error_cost',
                      inputs={'X': input, 'Y': label}, outputs={'Out': out},
                      attrs={})
+    return out
+
+
+def cast(x, dtype):
+    """x in `dtype` (ref nn.py cast; paddle_tpu/layers/nn.py:1057)."""
+    from ..framework import convert_dtype
+    helper = LayerHelper('cast')
+    out = helper.create_variable_for_type_inference(convert_dtype(dtype))
+    helper.append_op(type='cast', inputs={'X': x}, outputs={'Out': out},
+                     attrs={'in_dtype': x.dtype,
+                            'out_dtype': convert_dtype(dtype)})
     return out

@@ -10,8 +10,11 @@ fc_N.w_0, fc_N.b_0, layer_norm_N.w_0, layer_norm_N.b_0, learning_rate_1,
 the [B*S, vocab] logits, for serving; a directory saved by either package
 serves in the other.
 
-Only dropout 0 is ported: dropout > 0 raises (it needs the dropout op and
-the composed attention branch, which come with the dropout slice).
+With dropout > 0 (build_bert_pretrain's default 0.1, as bench.py's bench_bert
+trains it) the embeddings' layer norm, every attention's weights and every
+residual branch take a dropout op (1 + 3·n_layer of them), and the
+attention takes the composed branch (matmul → softmax → dropout → matmul);
+with dropout 0 it takes the fused flash-attention op.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from .transformer import encoder_layer
 
 
 def _mlm_logits(tok, seg, vocab, S, d_model, d_ff, n_head, n_layer,
-                type_vocab):
+                type_vocab, dropout=0.0):
     """Embeddings, encoder and MLM head: [B*S, vocab] logits."""
     def emb(ids, size, name):
         e = fluid.layers.embedding(
@@ -41,9 +44,12 @@ def _mlm_logits(tok, seg, vocab, S, d_model, d_ff, n_head, n_layer,
             name='pos_emb', initializer=fluid.initializer.Normal(0., 0.02)))
     x = x + fluid.layers.reshape(pos, shape=[1, S, d_model])
     x = fluid.layers.layer_norm(x, begin_norm_axis=2)
+    if dropout:
+        x = fluid.layers.dropout(x, dropout_prob=dropout,
+                                 dropout_implementation='upscale_in_train')
 
     for _ in range(n_layer):
-        x = encoder_layer(x, n_head, d_model, d_ff, S, 0.0)
+        x = encoder_layer(x, n_head, d_model, d_ff, S, dropout)
 
     # MLM head: transform + vocab projection
     h = fluid.layers.fc(x, size=d_model, num_flatten_dims=2, act='relu')
@@ -73,20 +79,15 @@ def build_bert_pretrain(vocab=30522, max_len=128, d_model=768, d_ff=3072,
 
     The masked-LM loss is the masked mean of softmax_with_cross_entropy
     over the positions whose mlm_weights are non-zero; Adam(lr) minimizes
-    it. dropout > 0 raises (the dropout slice is not ported yet), and so
-    does any checkpoints value but None (remat is not ported yet)."""
-    if dropout:
-        raise NotImplementedError(
-            "build_bert_pretrain: dropout=%r needs the dropout op and the "
-            "composed attention branch, which come with the port's dropout "
-            "slice; pass dropout=0.0" % (dropout,))
+    it. Any checkpoints value but None raises (remat is not ported
+    yet)."""
     S = max_len
     tok = fluid.layers.data(name='tok_ids', shape=[S], dtype='int64')
     seg = fluid.layers.data(name='seg_ids', shape=[S], dtype='int64')
     mlm_lbl = fluid.layers.data(name='mlm_labels', shape=[S], dtype='int64')
     mlm_w = fluid.layers.data(name='mlm_weights', shape=[S], dtype='float32')
     logits2d = _mlm_logits(tok, seg, vocab, S, d_model, d_ff, n_head,
-                           n_layer, type_vocab)
+                           n_layer, type_vocab, dropout)
     lbl2d = fluid.layers.reshape(mlm_lbl, shape=[-1, 1])
     loss = fluid.layers.softmax_with_cross_entropy(logits=logits2d,
                                                    label=lbl2d)

@@ -5,12 +5,12 @@ The port's copy of the encoder half of models/transformer.py:16-90
 _split_heads, _merge_heads, multi_head_attention, _residual_ln, ffn and
 encoder_layer, appending the same ops with the same names.
 
-multi_head_attention ports the fused branch only, the one a program with
-attention dropout 0 and no additive mask takes, for serving and training
-alike: one fused_multihead_attention op. The composed branch needs matmul,
-softmax, dropout, cast and greater_than, which the port does not have yet;
-asking for it raises, as does residual dropout. decoder_layer and the NMT
-builders are not ported yet.
+multi_head_attention takes the reference's two branches. With attention
+dropout 0 and no additive mask (or a causal one): one
+fused_multihead_attention op, the flash-attention kernels on the card.
+Otherwise the composition matmul → [+ mask] → softmax → dropout → matmul,
+since attention-weight dropout has no fused kernel. decoder_layer and the
+NMT model functions are not ported yet.
 """
 from __future__ import annotations
 
@@ -30,11 +30,6 @@ def _merge_heads(x, n_head, d_model, seq):
 
 def multi_head_attention(q_in, kv_in, n_head, d_model, q_len, kv_len,
                          mask=None, dropout=0.0, causal=False):
-    if dropout or (mask is not None and not causal):
-        raise NotImplementedError(
-            "multi_head_attention: attention dropout and additive masks take "
-            "the composed branch (matmul/softmax/dropout), which the port "
-            "does not have yet; only the fused branch is ported")
     q = fluid.layers.fc(q_in, size=d_model, num_flatten_dims=2,
                         bias_attr=False)
     k = fluid.layers.fc(kv_in, size=d_model, num_flatten_dims=2,
@@ -45,8 +40,27 @@ def multi_head_attention(q_in, kv_in, n_head, d_model, q_len, kv_len,
     k = _split_heads(k, n_head, d_model, kv_len)
     v = _split_heads(v, n_head, d_model, kv_len)
     scale = (d_model // n_head) ** -0.5
-    ctxv = fluid.layers.fused_multihead_attention(q, k, v, causal=causal,
-                                                  scale=scale)
+    if dropout == 0.0 and (mask is None or causal):
+        ctxv = fluid.layers.fused_multihead_attention(q, k, v,
+                                                      causal=causal,
+                                                      scale=scale)
+    else:
+        scores = fluid.layers.matmul(q, k, transpose_y=True, alpha=scale)
+        if mask is not None:
+            scores = scores + mask  # [S, S] broadcast over [B, H, S, S]
+        elif causal:
+            pos = fluid.layers.range(0, q_len, 1, 'int32')
+            row = fluid.layers.reshape(pos, shape=[q_len, 1])
+            col = fluid.layers.reshape(pos, shape=[1, q_len])
+            above = fluid.layers.cast(
+                fluid.layers.greater_than(col, row), 'float32')
+            scores = scores + above * -1e9
+        weights = fluid.layers.softmax(scores)
+        if dropout:
+            weights = fluid.layers.dropout(
+                weights, dropout_prob=dropout,
+                dropout_implementation='upscale_in_train')
+        ctxv = fluid.layers.matmul(weights, v)
     out = _merge_heads(ctxv, n_head, d_model, q_len)
     return fluid.layers.fc(out, size=d_model, num_flatten_dims=2,
                            bias_attr=False)
@@ -54,8 +68,9 @@ def multi_head_attention(q_in, kv_in, n_head, d_model, q_len, kv_len,
 
 def _residual_ln(x, sub_out, dropout=0.0):
     if dropout:
-        raise NotImplementedError("residual dropout: the port has no "
-                                  "dropout op yet")
+        sub_out = fluid.layers.dropout(
+            sub_out, dropout_prob=dropout,
+            dropout_implementation='upscale_in_train')
     return fluid.layers.layer_norm(x + sub_out, begin_norm_axis=2)
 
 

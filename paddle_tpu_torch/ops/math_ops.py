@@ -1,12 +1,13 @@
-"""Elementwise, activation, matmul, reduction, softmax and loss op
-lowerings (ref: operators/elementwise/, activation_op.cc, mul_op.cc,
-reduce_ops/, mean_op.cc, sum_op.cc, softmax_op.cc,
-softmax_with_cross_entropy_op.cc, square_error_cost (nn.py);
-paddle_tpu/ops/math_ops.py:27,70,216,262,287,306,335,368,385).
+"""Elementwise, activation, mul/matmul, reduction, cast, softmax, loss and
+compare op lowerings (ref: operators/elementwise/, activation_op.cc,
+mul_op.cc, matmul_op.cc, reduce_ops/, mean_op.cc, sum_op.cc, cast_op.cc,
+softmax_op.cc, softmax_with_cross_entropy_op.cc, square_error_cost
+(nn.py), controlflow/compare_op.cc;
+paddle_tpu/ops/math_ops.py:27,70,216,228,262,287,306,325,335,368,385,520).
 
 Under the amp scope (core/amp.py) they follow the reference's dtypes:
-`mul` runs in bf16, an elementwise op resolves a bf16/f32 pair to bf16,
-and mean, softmax and the loss compute in f32."""
+`mul` and `matmul` run in bf16, an elementwise op resolves a bf16/f32
+pair to bf16, and mean, softmax and the loss compute in f32."""
 from __future__ import annotations
 
 import numpy as np
@@ -14,10 +15,20 @@ import torch
 
 from ..core import amp
 from ..core.registry import register
+from ..framework import to_torch_dtype
 
 
 def X(ins, slot='X'):
     return ins[slot][0]
+
+
+def weak_scalar(c, x):
+    """The Python scalar c as JAX's weak typing gives it to an op with x:
+    rounded to x's dtype (a bf16 x scales by bf16(c)), so `x * c` rounds
+    once, as the reference's does."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return float(torch.tensor(c, dtype=x.dtype))
+    return c
 
 
 def _bcast_y(x, y, axis):
@@ -63,6 +74,34 @@ def _mul(ctx, ins):
     y2 = y.reshape(int(np.prod(y.shape[:yn])), int(np.prod(y.shape[yn:])))
     out = amp.matmul(x2, y2, preferred_element_type=x2.dtype)
     return {'Out': [out.reshape(tuple(x.shape[:xn]) + tuple(y.shape[yn:]))]}
+
+
+@register('matmul')
+def _matmul(ctx, ins):
+    """paddle_tpu/ops/math_ops.py:228: the batched product of X and Y, each
+    transposed in its last two dims first where transpose_X/transpose_Y
+    say, through amp.matmul (bf16 under the amp scope), then alpha applied
+    to the result in its dtype; a 1-D X (Y) is taken as a row (column)
+    and its dim squeezed from the result."""
+    x, y = ins['X'][0], ins['Y'][0]
+    alpha = ctx.attr('alpha', 1.0)
+    squeeze = []
+    if x.ndim == 1:
+        x = x[None, :]
+        squeeze.append(-2)
+    if y.ndim == 1:
+        y = y[:, None]
+        squeeze.append(-1)
+    if ctx.attr('transpose_X', False):
+        x = x.transpose(-1, -2)
+    if ctx.attr('transpose_Y', False):
+        y = y.transpose(-1, -2)
+    out = amp.matmul(x, y)
+    if alpha != 1.0:
+        out = out * weak_scalar(alpha, out)
+    for d in squeeze:  # -2 first: then -1 is still the last dim
+        out = out.squeeze(d)
+    return {'Out': [out]}
 
 
 @register('reduce_sum')
@@ -133,3 +172,25 @@ def _softmax_with_cross_entropy(ctx, ins):
 def _square_error_cost(ctx, ins):
     """(X - Y)², elementwise."""
     return {'Out': [torch.square(ins['X'][0] - ins['Y'][0])]}
+
+
+@register('cast')
+def _cast(ctx, ins):
+    """X in out_dtype (paddle_tpu/ops/math_ops.py:325)."""
+    return {'Out': [X(ins).to(to_torch_dtype(ctx.attr('out_dtype')))]}
+
+
+def _compare(name, fn):
+    @register(name, no_grad=True)
+    def _lower(ctx, ins, _fn=fn):
+        """X <op> Y elementwise, Y broadcast on fluid's axis rule: bool."""
+        x, y = ins['X'][0], ins['Y'][0]
+        return {'Out': [_fn(x, _bcast_y(x, y, ctx.attr('axis', -1)))]}
+
+
+_compare('less_than', torch.lt)
+_compare('less_equal', torch.le)
+_compare('greater_than', torch.gt)
+_compare('greater_equal', torch.ge)
+_compare('equal', torch.eq)
+_compare('not_equal', torch.ne)

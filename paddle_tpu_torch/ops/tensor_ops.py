@@ -1,13 +1,15 @@
-"""Tensor op lowerings: the startup program's init ops, range, the
-reshape2/transpose2 views, pad and top_k (ref: operators/fill_constant_op.cc,
-uniform_random_op.cc, gaussian_random_op.cc, range_op.cc, reshape_op.cc,
-transpose_op.cc, pad_op.cc, top_k_op.cc;
-paddle_tpu/ops/tensor_ops.py:28,95,116,46,282,298,470,539).
+"""Tensor op lowerings: the startup program's init ops, range, dropout,
+the reshape2/transpose2 views, pad and top_k (ref:
+operators/fill_constant_op.cc, uniform_random_op.cc, gaussian_random_op.cc,
+range_op.cc, dropout_op.cc, reshape_op.cc, transpose_op.cc, pad_op.cc,
+top_k_op.cc; paddle_tpu/ops/tensor_ops.py:28,95,116,46,174,282,298,470,539).
 
 Random ops draw from the torch.Generator that ctx.rng() seeds for the op.
 torch's streams differ from JAX's threefry streams, so the two packages
-initialize the same program to different numbers; weights.py carries the
-JAX package's values across where a comparison needs the same ones.
+initialize the same program to different numbers and draw different
+dropout masks; weights.py carries the JAX package's values across where a
+comparison needs the same ones, and a test that compares dropout across
+packages replaces `draw_dropout_keep` with the reference's masks.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 
 from ..core.registry import register
 from ..framework import to_torch_dtype
-from .math_ops import X
+from .math_ops import X, weak_scalar
 
 
 def _shape_dtype(ctx):
@@ -57,6 +59,77 @@ def _range(ctx, ins):
     return {'Out': [torch.arange(ctx.attr('start', 0), ctx.attr('end'),
                                  ctx.attr('step', 1), dtype=dt,
                                  device=ctx.device)]}
+
+
+def draw_dropout_keep(ctx, shape, p):
+    """dropout's keep decision for one op: u < 1 - p with u uniform in
+    [0, 1), drawn on the op's device from the op's generator (ctx.rng()),
+    as jax.random.bernoulli(key, 1 - p, shape) decides it. A bool tensor of
+    `shape`; every element False for p >= 1."""
+    u = torch.rand(tuple(shape), generator=ctx.rng(), device=ctx.device)
+    return u < 1.0 - p
+
+
+def _dropout_scale(ctx):
+    """The factor a kept element is multiplied by in training: 1/(1-p) for
+    upscale_in_train (0 for p >= 1), 1 for downgrade_in_infer. A Python
+    float; weak_scalar rounds it to the operand's dtype."""
+    p = ctx.attr('dropout_prob', 0.5)
+    if ctx.attr('dropout_implementation',
+                'downgrade_in_infer') != 'upscale_in_train':
+        return 1.0
+    return 0.0 if p >= 1.0 else 1.0 / (1.0 - p)
+
+
+@register('dropout')
+def _dropout(ctx, ins):
+    """paddle_tpu/ops/tensor_ops.py:174 without FLAGS_dropout_bits. In
+    training, Out = where(keep, x·scale, 0) in x's dtype (x·scale rounds
+    once, to bf16 for a bf16 x); with is_test, x for upscale_in_train and
+    x·(1-p) for downgrade_in_infer. Mask is the keep decision in x's
+    dtype (ones with is_test)."""
+    x = X(ins)
+    p = ctx.attr('dropout_prob', 0.5)
+    if ctx.is_test:
+        upscale = ctx.attr('dropout_implementation',
+                           'downgrade_in_infer') == 'upscale_in_train'
+        return {'Out': [x if upscale else x * weak_scalar(1.0 - p, x)],
+                'Mask': [torch.ones_like(x)]}
+    keep = draw_dropout_keep(ctx, x.shape, p)
+    out = torch.where(keep, x * weak_scalar(_dropout_scale(ctx), x),
+                      torch.zeros_like(x))
+    return {'Out': [out], 'Mask': [keep.to(x.dtype)]}
+
+
+@register('dropout_grad', no_grad=True)
+def _dropout_grad(ctx, ins):
+    """The explicit grad of dropout: dX = where(Mask, dOut·scale, 0), dOut
+    first cast to Out's dtype as the generic grad casts a cotangent
+    (core/lowering.py, _lower_generic_grad). It reads the forward's Mask,
+    so the mask is drawn once a step and the gradient never replays a
+    generator.
+    With is_test: dOut for upscale_in_train, dOut·(1-p) for
+    downgrade_in_infer. No cotangent: a zero dX."""
+    a = ctx.attrs
+    x_name = a['_fwd_inputs']['X'][0]
+    gname = a['_in_grad_map'].get(x_name, '')
+    if not gname:
+        return {}
+    env = ctx.interp.env
+    out = env[a['_fwd_outputs']['Out'][0]]
+    g = env.get(a['_out_grad_map'].get(a['_fwd_outputs']['Out'][0], ''))
+    if g is None:
+        return {'IN@GRAD': [torch.zeros_like(env[x_name])]}
+    g = g.to(out.dtype).reshape(out.shape)
+    if ctx.is_test:
+        upscale = ctx.attr('dropout_implementation',
+                           'downgrade_in_infer') == 'upscale_in_train'
+        return {'IN@GRAD': [g if upscale else g * weak_scalar(
+            1.0 - ctx.attr('dropout_prob', 0.5), g)]}
+    mask = env[a['_fwd_outputs']['Mask'][0]]
+    return {'IN@GRAD': [torch.where(
+        mask != 0, g * weak_scalar(_dropout_scale(ctx), g),
+        torch.zeros_like(g))]}
 
 
 def _xshape(x):

@@ -210,10 +210,26 @@ def test_state_taken_mid_training_continues_in_the_port(jax_run):
 
 
 def test_unported_options_raise():
+    """dropout > 0 builds, with the reference's op list: a dropout op after
+    the embeddings' layer norm, on every attention's weights and on every
+    residual branch (1 + 3·n_layer), and the attention on the composed
+    branch (two matmuls a layer, no fused op). checkpoints (remat) still
+    raises."""
     with ptt.program_guard(ptt.Program(), ptt.Program()), \
             ptt.unique_name.guard():
-        with pytest.raises(NotImplementedError, match='dropout slice'):
-            ptt_bert.build_bert_pretrain(**dict(CFG, dropout=0.1))
+        ptt_bert.build_bert_pretrain(**dict(CFG, dropout=0.1))
+        port_ops = [op.type for op in
+                    ptt.default_main_program().global_block().ops]
+    with fluid.program_guard(fluid.Program(), fluid.Program()), \
+            fluid.unique_name.guard():
+        jax_bert.build_bert_pretrain(**dict(CFG, dropout=0.1))
+        jax_ops = [op.type for op in
+                   fluid.default_main_program().global_block().ops]
+    assert port_ops == jax_ops
+    n_layer = CFG['n_layer']
+    assert port_ops.count('dropout') == 1 + 3 * n_layer
+    assert port_ops.count('matmul') == 2 * n_layer
+    assert 'fused_multihead_attention' not in port_ops
     with ptt.program_guard(ptt.Program(), ptt.Program()), \
             ptt.unique_name.guard():
         with pytest.raises(NotImplementedError, match='checkpoints'):

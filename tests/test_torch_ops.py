@@ -192,9 +192,11 @@ def test_op_matches_jax(name):
 
 def test_random_init_ops_seeded_per_op():
     """uniform_random / gaussian_random draw from a torch.Generator seeded
-    by the program's random_seed and the op uid: the same program draws the
-    same numbers each run, two ops draw different ones, and the numbers
-    follow the requested distribution."""
+    by the program's random_seed, the op uid and the Executor's step of the
+    program: the same program draws the same numbers on each Executor's
+    first run and other numbers on its next run (as the reference's step
+    key does), two ops draw different ones, and the numbers follow the
+    requested distribution."""
     startup = ptt.Program()
     startup.random_seed = 7
     block = startup.global_block()
@@ -210,8 +212,11 @@ def test_random_init_ops_seeded_per_op():
     exe = ptt.Executor(ptt.CPUPlace())
     u0, u1, g0 = exe.run(startup, fetch_list=['u0', 'u1', 'g0'],
                          scope=ptt.Scope())
-    again, = exe.run(startup, fetch_list=['u0'], scope=ptt.Scope())
+    again, = ptt.Executor(ptt.CPUPlace()).run(
+        startup, fetch_list=['u0'], scope=ptt.Scope())
     np.testing.assert_array_equal(u0, again)
+    next_step, = exe.run(startup, fetch_list=['u0'], scope=ptt.Scope())
+    assert not np.array_equal(u0, next_step)
     assert not np.array_equal(u0, u1)
     assert u0.min() >= -0.5 and u0.max() < 2.0
     assert abs(u0.mean() - 0.75) < 0.05
