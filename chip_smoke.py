@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke run of paddle_tpu_torch: ResNet-50 and BERT-base served,
 BERT-base and ResNet-50 trained in f32 and in bf16 mixed precision, and
-BERT-base pretrained at bench.py's own settings, on one NVIDIA GPU.
+BERT-base and Transformer-base trained at bench.py's own settings, on one
+NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -11,7 +12,7 @@ It builds the port's CUDA kernels from paddle_tpu_torch/csrc/ (bn_apply,
 flash_attn_fwd and flash_attn_bwd, one nvcc each, in parallel) and holds
 each against its plain PyTorch version on the card (bn_apply and its
 backward, which is plain torch, at batch 16 and 128, and in bf16 at 256).
-Then it drives seven paths, with random weights from a seed, TF32 off and
+Then it drives nine paths, with random weights from a seed, TF32 off and
 bf16 GEMMs reducing in f32:
 
 - ResNet-50 (depth 50, 224x224, 1000 classes) served through
@@ -42,13 +43,27 @@ bf16 GEMMs reducing in f32:
   one) and Adam(lr 1e-4) -> enable_bf16 -> gradient_merge.enable(2) ->
   Executor.run, batch 64 (2 microbatches of 32), 2 warm-up and 10 timed
   steps on bench.py's feed; this path launches none of the kernels.
+- Transformer-base NMT training as bench.py:448-501 bench_transformer
+  runs it: build_transformer_train (6+6 layers, d_model 512, 8 heads,
+  d_ff 2048, S=256, vocabularies of 32000, Adam on 2·noam_decay(512,
+  4000)) at its default dropout 0.1 (1,157 ops: 50 dropout, 36 matmul,
+  every attention composed; no kernel launch) -> enable_bf16 ->
+  Executor.run, batch 64, 3 warm-up and 10 timed steps on bench.py's
+  feed; then the same program at dropout 0 (971 ops, 18
+  fused_multihead_attention), with 36 bf16 flash_attn_fwd launches and 18
+  of each backward kernel per step, 12 / 6 / 6 of them causal (the
+  decoder's self-attention); each step's learning rate against noam's
+  closed form, also under gradient_merge.enable(2).
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after. The run compares GPU and CPU outputs of each served
 model, the loss and gradients of one step of each trained model (f32 and
 bf16; each tolerance 4 times the one-ulp noise measured over NOISE_DRAWS
 draws on each side; bench_bert's program at batch 2 with k=2, the CPU
-given the masks the card drew), and ResNet-50's backward with card and CPU
+given the masks the card drew; bench_transformer's at batch 2, dropout 0.1
+in f32 and bf16 with the card's masks given to the CPU, and dropout 0 in
+bf16, causal K2 against the CPU's plain attention), and ResNet-50's
+backward with card and CPU
 fed the card's forward values (f32 and bf16), checks dropout and its
 gradient on the card (keep share, Out and dX exact, fresh masks per step
 and microbatch), times the kernels (CUDA events),
@@ -80,6 +95,7 @@ from paddle_tpu_torch import kernels
 from paddle_tpu_torch.contrib import gradient_merge, mixed_precision
 from paddle_tpu_torch.models.bert import bert_mlm_logits, build_bert_pretrain
 from paddle_tpu_torch.models.resnet import build_train_net, resnet_imagenet
+from paddle_tpu_torch.models.transformer import build_transformer_train
 from paddle_tpu_torch.ops import bn_apply as bn_mod
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import tensor_ops
@@ -117,19 +133,41 @@ BERT = dict(vocab=30522, max_len=512, d_model=768, d_ff=3072, n_head=12,
 BERT_BATCHES = (1, 8)
 BERT_LATENCY_REQUESTS = 10
 BERT_THROUGHPUT_REQUESTS = 10
+# (B, H, Sq, Sk, D) of the attentions of bench_transformer's dropout-0
+# path: Transformer-base at batch 64, S=256, 8 heads of 64, causal in the
+# decoder's self-attention, not causal elsewhere
+K2_TRANS_SHAPE = (64, 8, 256, 256, 64)
 # (B, H, Sq, Sk, D, causal) of the K2 checks: BERT-base at batch 1 and 8,
-# causal square and offset (Sq < Sk), a ragged S, and D 32/64/128
+# the transformer's dropout-0 path, causal and not, causal square and
+# offset (Sq < Sk), a ragged S, and D 32/64/128
 K2_CASES = [(1, 12, 512, 512, 64, False), (8, 12, 512, 512, 64, False),
+            K2_TRANS_SHAPE + (True,), K2_TRANS_SHAPE + (False,),
             (2, 12, 512, 512, 64, True), (2, 12, 128, 512, 64, True),
             (2, 12, 200, 200, 64, False), (2, 12, 200, 200, 64, True),
             (2, 12, 512, 512, 32, False), (2, 12, 512, 512, 128, False)]
 # (B, H, Sq, Sk, D, causal) of the K2 backward checks: BERT-base training at
-# batch 8 and 1, causal square and offset, a ragged S, and D 32/64/128
+# batch 8 and 1, the transformer's dropout-0 path, causal and not, causal
+# square and offset, a ragged S, and D 32/64/128
 K2_BWD_CASES = [(8, 12, 512, 512, 64, False), (1, 12, 512, 512, 64, False),
+                K2_TRANS_SHAPE + (True,), K2_TRANS_SHAPE + (False,),
                 (2, 12, 512, 512, 64, True), (2, 12, 128, 512, 64, True),
                 (2, 12, 300, 300, 64, False), (2, 12, 300, 300, 64, True),
                 (2, 12, 512, 512, 32, False), (2, 12, 512, 512, 128, True)]
+# (B, H, S, D, causal, dtypes) of the K2 forward timings: BERT-base
+# serving at batch 1 and 8, f32 and bf16, and the transformer's dropout-0
+# path in bf16, causal and not
+K2_TIME_CASES = [(b, BERT['n_head'], BERT['max_len'], 64, False,
+                  (torch.float32, torch.bfloat16)) for b in BERT_BATCHES] + [
+    K2_TRANS_SHAPE[:3] + K2_TRANS_SHAPE[4:] + (causal, (torch.bfloat16,))
+    for causal in (True, False)]
 TRAIN_BATCH = 8
+# (B, H, S, D, causal, dtypes) of the K2 backward timings: BERT-base
+# training at batch 8, f32 and bf16, and the transformer's dropout-0 path in
+# bf16, causal and not
+K2_BWD_TIME_CASES = [(TRAIN_BATCH, BERT['n_head'], BERT['max_len'], 64,
+                      False, (torch.float32, torch.bfloat16))] + [
+    K2_TIME_CASES[-1][:4] + (causal, (torch.bfloat16,))
+    for causal in (True, False)]
 TRAIN_WARMUP_STEPS = 2
 TRAIN_STEPS = 10
 # ResNet-50 training as bench.py:431 bench_resnet builds it
@@ -156,6 +194,21 @@ BENCH_GATE_BATCH = 2
 DROPOUT_P = 0.1
 # the dropout checks' x: a microbatch's attention weights [32, 12, 128, 128]
 DROPOUT_SHAPE = (BENCH_BATCH // BENCH_K, BERT['n_head'], 128, 128)
+# Transformer-base NMT training as bench.py:448-501 bench_transformer runs
+# it: build_transformer_train at its settings (6+6 layers, d_model 512,
+# 8 heads, d_ff 2048, S=256, vocabularies of 32000, Adam on 2·noam(512,
+# 4000)), dropout 0.1 (every attention composed) and its ablation dropout 0
+# (every attention fused: K2, the 6 decoder self-attentions causal), bf16
+# AMP (enable_bf16), batch 64, 3 warm-up and 10 timed steps
+TRANS = dict(src_vocab=32000, trg_vocab=32000, max_len=256, d_model=512,
+             d_ff=2048, n_head=8, n_layer=6)
+TRANS_BATCH = 64
+TRANS_WARMUP_STEPS = 3
+TRANS_STEPS = 10
+TRANS_GATE_BATCH = 2
+# microbatches and steps of the learning-rate check under gradient merge
+TRANS_LR_K = 2
+TRANS_LR_STEPS = 3
 # K1 and its backward are held against their plain versions at the batch of
 # ResNet-50 serving and at those of its f32 and AMP training, where the
 # largest BN outputs take the kernel's grid-stride loop through 2 (f32 at
@@ -345,6 +398,8 @@ def reset_launches():
     for fn in WRAPPERS.values():
         fn.launches = 0
         fn.launches_by_dtype = dict.fromkeys(fn.launches_by_dtype, 0)
+        if hasattr(fn, 'launches_by_causal'):
+            fn.launches_by_causal = dict.fromkeys(fn.launches_by_causal, 0)
 
 
 def read_launches():
@@ -354,6 +409,13 @@ def read_launches():
 def read_launches_by_dtype():
     return {name: dict(fn.launches_by_dtype)
             for name, fn in WRAPPERS.items()}
+
+
+def read_launches_by_causal():
+    """The K2 wrappers' launch counts by their causal flag."""
+    return {name: dict(fn.launches_by_causal)
+            for name, fn in WRAPPERS.items()
+            if hasattr(fn, 'launches_by_causal')}
 
 
 def phase_serving(dirname, n_bn):
@@ -734,53 +796,63 @@ def phase_bert_cpu_agreement(dirname, pred, feeds):
           'BERT GPU and CPU logits differ: %r of %r' % (err, scale))
 
 
+def _score_pairs(sq, sk, causal):
+    """The (query, key) pairs an attention computes: all Sq·Sk, or with
+    causal those that the mask keeps (query i sees the keys j <= i + Sk -
+    Sq): the least work of a kernel that skips the masked keys."""
+    if not causal:
+        return sq * sk
+    return sum(min(sk, max(0, i + sk - sq + 1)) for i in range(sq))
+
+
 def phase_flash_times():
     """flash_attn_fwd, its plain version and scaled_dot_product_attention
-    at the BERT-base attention shapes (batch 1 and 8, S=512, non-causal),
-    f32 and bf16, beside the bound: max(bytes of q, k, v, o / HBM rate,
-    4*B*H*S*S*D operations / the dtype's peak rate: the tensor cores' bf16
-    rate, and for f32 the 3xTF32 rate, a third of TF32's), with the f32
+    at K2_TIME_CASES, beside the bound: max(bytes of q, k, v, o / HBM rate,
+    4·B·H·D operations for each (query, key) pair the mask keeps
+    (_score_pairs) / the dtype's peak rate: the tensor cores' bf16 rate,
+    and for f32 the 3xTF32 rate, a third of TF32's), with the f32
     CUDA-core bound beside it, the kernel's TFLOP/s and its time as a
-    ratio to SDPA's."""
+    ratio to SDPA's (is_causal as the case)."""
     gen = torch.Generator(device='cuda').manual_seed(SEED + 8)
-    h, s, d = BERT['n_head'], BERT['max_len'], BERT['d_model'] // BERT['n_head']
-    scale = d ** -0.5
     rows = {}
-    for b in BERT_BATCHES:
-        for dtype, peak in ((torch.float32, F32_3XTF32_OPS_PER_S),
-                            (torch.bfloat16, BF16_OPS_PER_S)):
+    for b, h, s, d, causal, dtypes in K2_TIME_CASES:
+        scale = d ** -0.5
+        for dtype in dtypes:
+            peak = BF16_OPS_PER_S if dtype == torch.bfloat16 \
+                else F32_3XTF32_OPS_PER_S
             size = dtype.itemsize
             nbytes = 4 * b * h * s * d * size
             copies = max(2, math.ceil(2 * L2_BYTES / (3 * b * h * s * d
                                                       * size)))
             sets = [_qkv(b, h, s, s, d, dtype, gen) for _ in range(copies)]
             before = fa.flash_attn_fwd.launches
-            ms = _time_ms(lambda t: fa.flash_attn_fwd(*t, False, scale), sets)
+            ms = _time_ms(lambda t: fa.flash_attn_fwd(*t, causal, scale),
+                          sets)
             check(fa.flash_attn_fwd.launches - before == KERNEL_REPS + 2,
                   'timing loop did not launch the kernel')
             plain = _time_ms(lambda t: fa.flash_attention_reference(
-                *t, False, scale), sets)
+                *t, causal, scale), sets)
             lib = _time_ms(lambda t: F.scaled_dot_product_attention(
-                *t, scale=scale), sets)
-            ops = 4 * b * h * s * s * d
+                *t, is_causal=causal, scale=scale), sets)
+            ops = 4 * b * h * d * _score_pairs(s, s, causal)
             bound = max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3
             by = 'operations' if ops / peak > nbytes / HBM_BYTES_PER_S \
                 else 'bytes'
-            cuda_core = max(nbytes / HBM_BYTES_PER_S,
-                            ops / F32_OPS_PER_S) * 1e3
-            key = (b, str(dtype)[6:])
+            key = (b, h, s, d, causal, str(dtype)[6:])
             rows[key] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                              bound_ms=bound, bound_by=by,
                              tflops=ops / ms * 1e-9, vs_sdpa=ms / lib)
+            cuda_core = ''
             if dtype == torch.float32:
-                rows[key]['cuda_core_bound_ms'] = cuda_core
-            print('k2_time shape=%s dtype=%s kernel_ms=%r bound_ms=%r (%s) '
-                  'plain_ms=%r sdpa_ms=%r bound_share=%.3f tflops=%.2f '
-                  'kernel/sdpa=%.3f%s' % (
-                      (b, h, s, s, d), key[1], ms, bound, by, plain, lib,
-                      bound / ms, ops / ms * 1e-9, ms / lib,
-                      ' cuda_core_bound_ms=%r' % cuda_core
-                      if dtype == torch.float32 else ''))
+                rows[key]['cuda_core_bound_ms'] = max(
+                    nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+                cuda_core = ' cuda_core_bound_ms=%r' % (
+                    rows[key]['cuda_core_bound_ms'])
+            print('k2_time shape=%s causal=%s dtype=%s kernel_ms=%r '
+                  'bound_ms=%r (%s) plain_ms=%r sdpa_ms=%r bound_share=%.3f '
+                  'tflops=%.2f kernel/sdpa=%.3f%s' % (
+                      (b, h, s, s, d), causal, key[-1], ms, bound, by, plain,
+                      lib, bound / ms, ops / ms * 1e-9, ms / lib, cuda_core))
             del sets
     return rows
 
@@ -1067,22 +1139,36 @@ def phase_training_gpu_vs_cpu(main, startup, loss, amp=False):
     moves by ~1e-6. A fixed tolerance would be either too loose for the
     one or too tight for the others."""
     label = 'bert_training%s_gpu_vs_cpu' % ('_bf16' if amp else '')
-    ln = max((p.name for p in main.all_parameters()
-              if p.name.startswith('layer_norm_') and p.name.endswith('.w_0')),
-             key=lambda n: int(n.split('_')[2].split('.')[0]))
-    names = [loss.name, 'word_emb@GRAD', 'fc_0.w_0@GRAD', ln + '@GRAD']
+    names = [loss.name, 'word_emb@GRAD', 'fc_0.w_0@GRAD',
+             _last_layer_norm_scale(main) + '@GRAD']
     gen = torch.Generator(device='cuda').manual_seed(SEED + 11)
+    worst = _gate_rows(label, 'batch=1', _gpu_vs_cpu_step(
+        main, startup, names, _train_feed(1, gen), SEED + 13, amp))
+    print('%s batch=1 worst err/tol=%.3f (%s)' % (label, worst[0], worst[1]))
+
+
+def _last_layer_norm_scale(main):
+    """The name of the program's last layer_norm scale."""
+    return max((p.name for p in main.all_parameters()
+                if p.name.startswith('layer_norm_')
+                and p.name.endswith('.w_0')),
+               key=lambda n: int(n.split('_')[2].split('.')[0]))
+
+
+def _gate_rows(label, desc, rows):
+    """Print each row of _gpu_vs_cpu_step and fail unless its GPU value is
+    finite, of the CPU's shape and within its tolerance. Returns the worst
+    (err/tol, name)."""
     worst = (0.0, '')
-    for name, g, w, err, top, noise, tol in _gpu_vs_cpu_step(
-            main, startup, names, _train_feed(1, gen), SEED + 13, amp):
-        print('%s batch=1 %s shape=%s max_abs_err=%r max_abs=%r rel=%r '
+    for name, g, w, err, top, noise, tol in rows:
+        print('%s %s %s shape=%s max_abs_err=%r max_abs=%r rel=%r '
               'one_ulp_noise=%r tolerance=%r' % (
-                  label, name, tuple(w.shape), err, top, err / top, noise,
-                  tol))
+                  label, desc, name, tuple(w.shape), err, top, err / top,
+                  noise, tol))
         check(g.shape == w.shape and np.isfinite(g).all() and err <= tol,
               'GPU and CPU %s differ: %r > %r' % (name, err, tol))
         worst = max(worst, (err / tol, name))
-    print('%s batch=1 worst err/tol=%.3f (%s)' % (label, worst[0], worst[1]))
+    return worst
 
 
 def _ulp_moved(a, rng, amp):
@@ -1302,90 +1388,146 @@ def _bench_feed(feeds, batch):
 
 
 def phase_bert_bench_training(main, startup, loss, feeds):
-    """bench_bert's configuration on the card: TRAIN_WARMUP_STEPS, then
-    TRAIN_STEPS timed steps (host clock around Executor.run and a sync) on
-    one fixed batch of BENCH_BATCH, each a gradient-merge step of 2
-    microbatches of 32. The program holds 37 dropout ops and 24 matmul ops
-    and no fused attention; the losses are finite and the last is below
-    the first; the path launches no kernel of the port (the composed
-    attention is cuBLAS and torch)."""
-    label = 'bert_bench_training'
-    ops = collections.Counter(op.type for op in main.global_block().ops)
+    """bench_bert's configuration on the card (_bench_training):
+    TRAIN_WARMUP_STEPS, then TRAIN_STEPS timed steps on one fixed batch of
+    BENCH_BATCH, each a gradient-merge step of 2 microbatches of 32. The
+    program holds 37 dropout ops and 24 matmul ops and no fused attention;
+    the last loss is below the first; the path launches no kernel of the
+    port (the composed attention is cuBLAS and torch)."""
     n_layer = BENCH_BERT['n_layer']
-    want_ops = {'dropout': 1 + 3 * n_layer, 'matmul': 2 * n_layer,
-                'fused_multihead_attention': 0}
-    got_ops = {t: ops[t] for t in want_ops}
-    check(got_ops == want_ops, '%s op counts %s, not %s'
-          % (label, got_ops, want_ops))
-    exe = fluid.Executor(fluid.CUDAPlace(0))
-    scope = fluid.Scope()
-    feed = _bench_feed(feeds, BENCH_BATCH)
-    losses = []
-    reset_launches()
-    exe.run(startup, scope=scope)
-    for _ in range(TRAIN_WARMUP_STEPS):
-        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
-                       return_numpy=False)
-        losses.append(float(out.reshape(-1)[0]))
-    del out
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
-                       return_numpy=False)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(float(out.reshape(-1)[0]))
-    counts = read_launches()
-    peak = torch.cuda.max_memory_allocated()
-    check(all(n == 0 for n in counts.values()),
-          '%s launched a kernel of the port: %s' % (label, counts))
-    check(all(math.isfinite(x) for x in losses), 'non-finite loss: %s'
-          % losses)
-    check(losses[-1] < losses[0], 'the loss did not fall: %s' % losses)
-    p50 = float(np.percentile(times, 50))
-    print('%s batch=%d S=%d k=%d bf16 dropout=0.1 lr=1e-4 ops=%d op_counts=%s '
-          'losses=%s' % (label, BENCH_BATCH, BENCH_BERT['max_len'], BENCH_K,
-                         sum(ops.values()), json.dumps(got_ops),
-                         json.dumps([round(x, 5) for x in losses])))
-    print('%s launches over the warm-up and %d timed steps: %s'
-          % (label, TRAIN_STEPS, json.dumps(counts)))
-    print('%s step p50_ms=%r p90_ms=%r tokens_per_s=%r '
-          'peak_allocated_gb=%.2f (host clock, %d steps, each ending in a '
-          'sync)' % (label, p50 * 1e3, float(np.percentile(times, 90)) * 1e3,
-                     BENCH_BATCH * BENCH_BERT['max_len'] / p50, peak / 2 ** 30,
-                     TRAIN_STEPS))
-    per_kernel = _profile(
-        lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
-                        return_numpy=False),
-        'bert bench training bf16 k=%d batch=%d S=%d' % (
-            BENCH_K, BENCH_BATCH, BENCH_BERT['max_len']), 'steps')
-    if per_kernel:
-        print('profile %s: device_busy_ms_per_step=%r' % (
-            label, sum(per_kernel.values()) / 3))
+    counts, _ = _bench_training(
+        'bert_bench_training', main, startup, loss,
+        _bench_feed(feeds, BENCH_BATCH),
+        {'dropout': 1 + 3 * n_layer, 'matmul': 2 * n_layer,
+         'fused_multihead_attention': 0},
+        dict.fromkeys(('flash_attn_fwd', 'flash_attn_bwd_dkv',
+                       'flash_attn_bwd_dq'), 0),
+        TRAIN_WARMUP_STEPS, TRAIN_STEPS, BENCH_BATCH * BENCH_BERT['max_len'],
+        'batch=%d S=%d k=%d bf16 dropout=0.1 lr=1e-4' % (
+            BENCH_BATCH, BENCH_BERT['max_len'], BENCH_K))
     return counts
 
 
-def phase_bench_gpu_vs_cpu(amp):
-    """One step of bench_bert's program (k=2, dropout 0.1, f32 or with amp
-    bf16) at batch 2, GPU against CPU, from one initial state: the loss
-    and the merged gradients of word_emb, the first Q weight and the last
-    layer_norm scale, each within 4 times the one-ulp noise over
-    NOISE_DRAWS draws on each side (_gpu_vs_cpu_step), the draws moving the
-    parameters (the Adam state, zeros and constants before the first step,
-    enters no fetched value: the update runs after the gradients are
-    merged). The masks are the
-    card's: each dropout op's keep decision in each microbatch, drawn on
-    the card in the first run, is given to every later run on the card and
-    on the CPU (the two devices' generators give different streams)."""
-    label = 'bert_bench_training%s_gpu_vs_cpu' % ('_bf16' if amp else '')
-    main, startup, loss, feeds = build_bert_bench_training(amp)
-    ln = max((p.name for p in main.all_parameters()
-              if p.name.startswith('layer_norm_') and p.name.endswith('.w_0')),
-             key=lambda n: int(n.split('_')[2].split('.')[0]))
-    names = [loss.name, 'word_emb@GRAD', 'fc_0.w_0@GRAD', ln + '@GRAD']
+def _bench_training(label, main, startup, loss, feed, want_ops, want_step,
+                    warmup, steps, tokens, desc, lr=None, flops=None,
+                    want_causal=None):
+    """A bench configuration on the card: the op census `want_ops` (counts
+    by op type, 'ops' the total where given); startup, `warmup` steps, then
+    `steps` timed steps (host clock around Executor.run and a sync) on one
+    fixed feed. Each timed step launches exactly `want_step` of each K2
+    kernel, all bf16, by causal flag `want_causal` where given, and no
+    bn_apply; every loss is finite. With `lr`, the name of a noam schedule's
+    rate, each step's fetched rate is its closed form (_check_lr) and every
+    parameter moves: noam's warm-up keeps the rate too small for the loss
+    to fall in a few steps. Without it, the last loss is below the first.
+    Prints the losses, the launches, p50, p90, tokens/s (`tokens` a step),
+    MFU where `flops` a token is given, peak allocated memory and a 3-step
+    profile, `desc` naming the configuration. Returns the launches over
+    the timed steps, in all and by causal flag."""
+    ops = collections.Counter(op.type for op in main.global_block().ops)
+    got_ops = {t: ops[t] for t in want_ops if t != 'ops'}
+    if 'ops' in want_ops:
+        got_ops['ops'] = sum(ops.values())
+    check(got_ops == want_ops, '%s op counts %s, not %s'
+          % (label, got_ops, want_ops))
+    fetch = [loss] + ([lr] if lr else [])
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    params = [p.name for p in main.all_parameters()]
+    start = {n: scope.get(n).clone() for n in params} if lr else {}
+    losses, rates = [], []
+
+    def step():
+        return exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                       return_numpy=False)
+
+    def record(out):
+        losses.append(float(out[0].reshape(-1)[0]))
+        if lr:
+            rates.append(float(out[1].reshape(-1)[0]))
+
+    for _ in range(warmup):
+        record(step())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times = []
+    for _ in range(steps):
+        before = read_launches()
+        before_dt, before_c = read_launches_by_dtype(), \
+            read_launches_by_causal()
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        record(out)
+        after = read_launches()
+        got = {k: after[k] - before[k] for k in want_step}
+        check(got == want_step and after['bn_apply'] == 0,
+              '%s: a step launched %s, not %s' % (label, after, want_step))
+        by_dt = _by_dtype_step(before_dt, read_launches_by_dtype())
+        check(all(by_dt[k]['bfloat16'] == want_step[k] for k in want_step),
+              '%s: a step launched %s, not all bf16' % (label, by_dt))
+        if want_causal is not None:
+            by_c = _by_dtype_step(before_c, read_launches_by_causal())
+            check(by_c == want_causal, '%s: a step launched %s by causal '
+                  'flag, not %s' % (label, by_c, want_causal))
+    counts = read_launches()
+    by_causal = read_launches_by_causal()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses), '%s: non-finite loss: %s'
+          % (label, losses))
+    moved = ''
+    if lr:
+        _check_lr(label, rates)
+        n = sum(not torch.equal(start[p], scope.get(p)) for p in params)
+        check(n == len(params), '%s: %d of %d parameters moved'
+              % (label, n, len(params)))
+        moved = ' lr=%s (noam, closed form within rtol 1e-6); %d of %d ' \
+            'parameters moved' % (json.dumps(['%.6g' % r for r in rates]),
+                                  n, len(params))
+        del start
+    else:
+        check(losses[-1] < losses[0], '%s: the loss did not fall: %s'
+              % (label, losses))
+    p50 = float(np.percentile(times, 50))
+    print('%s %s ops=%d op_counts=%s losses=%s%s' % (
+        label, desc, sum(ops.values()), json.dumps(got_ops),
+        json.dumps([round(x, 5) for x in losses]), moved))
+    print('%s launches over %d timed steps: %s (per step: %s; by dtype: %s; '
+          'by causal flag: %s)' % (label, steps, json.dumps(counts),
+                                   json.dumps(want_step),
+                                   json.dumps(read_launches_by_dtype()),
+                                   json.dumps(by_causal)))
+    mfu = '' if flops is None else ' mfu=%.4f (flops_per_token %d at %g ' \
+        'bf16 dense FLOP/s)' % (tokens / p50 * flops / BF16_OPS_PER_S, flops,
+                                BF16_OPS_PER_S)
+    print('%s step p50_ms=%r p90_ms=%r tokens_per_s=%r%s '
+          'peak_allocated_gb=%.2f (host clock, %d steps, each ending in a '
+          'sync)' % (label, p50 * 1e3, float(np.percentile(times, 90)) * 1e3,
+                     tokens / p50, mfu, peak / 2 ** 30, steps))
+    per_kernel = _profile(
+        lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                        return_numpy=False), '%s %s' % (label, desc), 'steps')
+    if per_kernel:
+        busy = sum(per_kernel.values())
+        k2 = sum(ms for name, ms in per_kernel.items()
+                 if 'flash_fwd_kernel' in name or 'flash_bwd_' in name)
+        print('profile %s: device_busy_ms_per_step=%r K2 device_ms_per_step=%r'
+              ' share=%.3f' % (label, busy / 3, k2 / 3, k2 / busy))
+    del scope, feed
+    torch.cuda.empty_cache()
+    return counts, by_causal
+
+
+def _gpu_vs_cpu_card_masks(label, main, startup, names, feed, seed, amp,
+                           n_masks):
+    """_gpu_vs_cpu_step with the card's dropout masks, the draws moving the
+    parameters only: each dropout op's keep decision in each microbatch,
+    drawn on the card in the first run, is given to every later run on the
+    card and on the CPU (the two devices' generators give different
+    streams). Fails unless `n_masks` were drawn; returns the rows."""
     masks = {}
     real = tensor_ops.draw_dropout_keep
 
@@ -1400,27 +1542,196 @@ def phase_bench_gpu_vs_cpu(amp):
 
     tensor_ops.draw_dropout_keep = card_masks
     try:
-        rows = _gpu_vs_cpu_step(main, startup, names,
-                                _bench_feed(feeds, BENCH_GATE_BATCH),
-                                SEED + 17, amp,
+        rows = _gpu_vs_cpu_step(main, startup, names, feed, seed, amp,
                                 {p.name for p in main.all_parameters()})
     finally:
         tensor_ops.draw_dropout_keep = real
-    n_dropout = 1 + 3 * BENCH_BERT['n_layer']
-    check(len(masks) == BENCH_K * n_dropout,
-          '%s: %d masks recorded, not %d' % (label, len(masks),
-                                             BENCH_K * n_dropout))
-    worst = (0.0, '')
-    for name, g, w, err, top, noise, tol in rows:
-        print('%s batch=%d k=%d %s shape=%s max_abs_err=%r max_abs=%r '
-              'rel=%r one_ulp_noise=%r tolerance=%r' % (
-                  label, BENCH_GATE_BATCH, BENCH_K, name, tuple(w.shape),
-                  err, top, err / top, noise, tol))
-        check(g.shape == w.shape and np.isfinite(g).all() and err <= tol,
-              'GPU and CPU %s differ: %r > %r' % (name, err, tol))
-        worst = max(worst, (err / tol, name))
+    check(len(masks) == n_masks, '%s: %d masks recorded, not %d'
+          % (label, len(masks), n_masks))
+    return rows
+
+
+def phase_bench_gpu_vs_cpu(amp):
+    """One step of bench_bert's program (k=2, dropout 0.1, f32 or with amp
+    bf16) at batch 2, GPU against CPU, from one initial state, with the
+    card's masks (_gpu_vs_cpu_card_masks): the loss and the merged
+    gradients of word_emb, the first Q weight and the last layer_norm
+    scale, each within 4 times the one-ulp noise over NOISE_DRAWS draws on
+    each side (_gpu_vs_cpu_step), the draws moving the parameters (the
+    Adam state, zeros and constants before the first step, enters no
+    fetched value: the update runs after the gradients are merged)."""
+    label = 'bert_bench_training%s_gpu_vs_cpu' % ('_bf16' if amp else '')
+    main, startup, loss, feeds = build_bert_bench_training(amp)
+    names = [loss.name, 'word_emb@GRAD', 'fc_0.w_0@GRAD',
+             _last_layer_norm_scale(main) + '@GRAD']
+    n_masks = BENCH_K * (1 + 3 * BENCH_BERT['n_layer'])
+    rows = _gpu_vs_cpu_card_masks(label, main, startup, names,
+                                  _bench_feed(feeds, BENCH_GATE_BATCH),
+                                  SEED + 17, amp, n_masks)
+    worst = _gate_rows(label, 'batch=%d k=%d' % (BENCH_GATE_BATCH, BENCH_K),
+                       rows)
     print('%s worst err/tol=%.3f (%s); %d card masks given to the CPU'
-          % (label, worst[0], worst[1], len(masks)))
+          % (label, worst[0], worst[1], n_masks))
+
+
+def build_transformer_bench_training(dropout=0.1, amp=True, k=1):
+    """bench.py:448-501's Transformer-base program:
+    build_transformer_train at its settings with `dropout`, seeded
+    initialization, enable_bf16 (with amp) and, with k > 1,
+    gradient_merge.enable(k). Returns (main, startup, loss, feeds,
+    flops_per_token, the learning-rate var's name)."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        feeds, loss, flops = build_transformer_train(dropout=dropout,
+                                                     **TRANS)
+    _mark(main, amp)
+    if k > 1:
+        gradient_merge.enable(k, main)
+    lr = next(op for op in main.global_block().ops
+              if op.type == 'adam').input('LearningRate')[0]
+    return main, startup, loss, feeds, flops, lr
+
+
+def _trans_feed(feeds, batch):
+    """The feed bench.py:474-483 makes: numpy RandomState(0), the feeds in
+    build_transformer_train's order, ids uniform in [1, 31999); on the
+    card."""
+    rng = np.random.RandomState(0)
+    return {name: torch.from_numpy(rng.randint(
+        1, 31999, (batch,) + tuple(shape)).astype(np.int32)).cuda()
+        for name, shape, _ in feeds}
+
+
+def _noam_lr(t):
+    """build_transformer_train's rate at step t (1, 2, ...):
+    2·d_model^-0.5·min(t^-0.5, t·4000^-1.5)."""
+    return 2.0 * TRANS['d_model'] ** -0.5 * min(t ** -0.5,
+                                                 t * 4000 ** -1.5)
+
+
+def _check_lr(label, rates, first_step=1):
+    """Each fetched rate equals noam's closed form at its step within f32
+    rounding (rtol 1e-6)."""
+    want = [_noam_lr(first_step + i) for i in range(len(rates))]
+    bad = [(i, r, w) for i, (r, w) in enumerate(zip(rates, want))
+           if abs(r - w) > 1e-6 * w]
+    check(not bad, '%s: the learning rate is not noam\'s: %s' % (label, bad))
+
+
+def _trans_want(dropout):
+    """(op census, K2 launches a step by dtype, K2 launches a step by
+    causal flag) of the program at `dropout`: every attention composed at
+    0.1 (no launch), fused at 0, where each of the 3·n_layer attentions
+    launches the forward twice (the op and its grad's recompute) and each
+    backward kernel once, the n_layer decoder self-attentions causal."""
+    n = TRANS['n_layer']
+    attn = 3 * n
+    if dropout:
+        return ({'ops': 1157, 'dropout': 2 + attn + 5 * n,
+                 'matmul': 2 * attn, 'softmax': attn,
+                 'fused_multihead_attention': 0},
+                {'flash_attn_fwd': 0, 'flash_attn_bwd_dkv': 0,
+                 'flash_attn_bwd_dq': 0}, None)
+    return ({'ops': 971, 'dropout': 0, 'matmul': 0, 'softmax': 0,
+             'fused_multihead_attention': attn},
+            {'flash_attn_fwd': 2 * attn, 'flash_attn_bwd_dkv': attn,
+             'flash_attn_bwd_dq': attn},
+            {'flash_attn_fwd': {'causal': 2 * n, 'noncausal': 4 * n},
+             'flash_attn_bwd_dkv': {'causal': n, 'noncausal': 2 * n},
+             'flash_attn_bwd_dq': {'causal': n, 'noncausal': 2 * n}})
+
+
+def phase_transformer_bench_training(dropout, steps=TRANS_STEPS):
+    """bench_transformer's configuration on the card, at `dropout` (0.1,
+    bench.py's default, or 0, its ablation), through _bench_training:
+    TRANS_WARMUP_STEPS and `steps` timed steps on bench.py's fixed batch of
+    TRANS_BATCH; the op census, the K2 launches of each step by dtype and
+    causal flag (_trans_want), noam's rate at each step and every parameter
+    moved; MFU from the program's own flops_per_token. Returns the
+    launches over the timed steps, in all and by causal flag."""
+    label = 'transformer_bench_training' + ('' if dropout else '_dropout0')
+    t0 = time.perf_counter()
+    main, startup, loss, feeds, flops, lr = \
+        build_transformer_bench_training(dropout)
+    print('model transformer-base bench training S=%d vocab=%d layers=%d+%d '
+          'bf16 dropout=%g ops=%d flops_per_token=%d build_s=%.1f' % (
+              TRANS['max_len'], TRANS['trg_vocab'], TRANS['n_layer'],
+              TRANS['n_layer'], dropout, len(main.global_block().ops), flops,
+              time.perf_counter() - t0))
+    want_ops, want_step, want_causal = _trans_want(dropout)
+    return _bench_training(
+        label, main, startup, loss, _trans_feed(feeds, TRANS_BATCH),
+        want_ops, want_step, TRANS_WARMUP_STEPS, steps,
+        TRANS_BATCH * TRANS['max_len'],
+        'batch=%d S=%d bf16 dropout=%g' % (TRANS_BATCH, TRANS['max_len'],
+                                           dropout),
+        lr=lr, flops=flops, want_causal=want_causal)
+
+
+def phase_transformer_lr_under_gradient_merge():
+    """The learning rate on the card under gradient_merge.enable(2):
+    bench_transformer's program (dropout 0.1, bf16) at TRANS_LR_K
+    microbatches of 2 sequences, TRANS_LR_STEPS steps: the schedule runs
+    once a step, outside the microbatch loop, so the fetched rate is
+    noam's at t = 1, 2, 3 and the step counter reads TRANS_LR_STEPS."""
+    label = 'transformer_lr_gradient_merge'
+    main, startup, loss, feeds, _, lr = build_transformer_bench_training(
+        k=TRANS_LR_K)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = _trans_feed(feeds, 2 * TRANS_LR_K)
+    rates, losses = [], []
+    for _ in range(TRANS_LR_STEPS):
+        l, r = exe.run(main, feed=feed, fetch_list=[loss, lr], scope=scope,
+                       return_numpy=False)
+        losses.append(float(l.reshape(-1)[0]))
+        rates.append(float(r.reshape(-1)[0]))
+    counter = scope.get('@LR_DECAY_COUNTER@').tolist()
+    check(counter == [TRANS_LR_STEPS], '%s: the step counter reads %s '
+          'after %d steps' % (label, counter, TRANS_LR_STEPS))
+    check(all(math.isfinite(x) for x in losses), '%s: non-finite loss: %s'
+          % (label, losses))
+    _check_lr(label, rates)
+    print('%s k=%d batch=%d bf16: lr=%s (noam at t=1..%d, rtol 1e-6), '
+          'step counter %s, losses=%s' % (
+              label, TRANS_LR_K, 2 * TRANS_LR_K,
+              json.dumps(['%.6g' % r for r in rates]), TRANS_LR_STEPS,
+              counter, json.dumps([round(x, 5) for x in losses])))
+    del scope
+    torch.cuda.empty_cache()
+
+
+def phase_transformer_gpu_vs_cpu(dropout, amp):
+    """One step of bench_transformer's program (dropout 0.1 or 0; f32 or
+    with amp bf16) at TRANS_GATE_BATCH, GPU against CPU, from one initial
+    state: the loss and the gradients of both embeddings, the first Q
+    weight and the last layer_norm scale, each within 4 times the one-ulp
+    noise over NOISE_DRAWS draws on each side (_gpu_vs_cpu_step, the draws
+    moving the parameters). At dropout 0.1 the masks are the card's
+    (_gpu_vs_cpu_card_masks). At dropout 0 the card's attention is K2
+    (causal in the decoder's self-attention) and the CPU's its plain
+    version."""
+    label = 'transformer_bench_training%s%s_gpu_vs_cpu' % (
+        '' if dropout else '_dropout0', '_bf16' if amp else '')
+    main, startup, loss, feeds, _, _ = build_transformer_bench_training(
+        dropout, amp)
+    names = [loss.name, 'src_emb@GRAD', 'trg_emb@GRAD', 'fc_0.w_0@GRAD',
+             _last_layer_norm_scale(main) + '@GRAD']
+    n_masks = _trans_want(dropout)[0]['dropout']
+    reset_launches()
+    rows = _gpu_vs_cpu_card_masks(label, main, startup, names,
+                                  _trans_feed(feeds, TRANS_GATE_BATCH),
+                                  SEED + 31, amp, n_masks)
+    launched = read_launches()['flash_attn_fwd']
+    check((launched > 0) == (dropout == 0), '%s: %d K2 launches'
+          % (label, launched))
+    worst = _gate_rows(label, 'batch=%d' % TRANS_GATE_BATCH, rows)
+    print('%s worst err/tol=%.3f (%s); %d card masks given to the CPU; '
+          '%d K2 forward launches on the card' % (
+              label, worst[0], worst[1], n_masks, launched))
+    torch.cuda.empty_cache()
 
 
 def build_resnet_training(amp=False):
@@ -1696,79 +2007,114 @@ def phase_resnet_backward_gpu_vs_cpu(main, startup, amp=False):
 
 
 def phase_flash_bwd_times():
-    """K2-bwd-dkv, K2-bwd-dq and their plain versions at the batch-8
-    BERT-base training shape, f32 and bf16, beside each kernel's bound:
-    max(bytes of q, k, v, dO, lse, di read and the gradients written /
-    HBM rate, 8 (dkv) or 6 (dq) * B*H*S*S*D operations / the dtype's peak:
-    bf16 on the tensor cores, f32 at the 3xTF32 rate, with the f32
+    """K2-bwd-dkv, K2-bwd-dq and their plain versions at K2_BWD_TIME_CASES,
+    beside each kernel's bound: max(bytes of q, k, v, dO, lse, di read and
+    the gradients written / HBM rate, 8 (dkv) or 6 (dq) · B·H·D operations
+    for each (query, key) pair the mask keeps (_score_pairs) / the dtype's
+    peak: bf16 on the tensor cores, f32 at the 3xTF32 rate, with the f32
     CUDA-core bound beside it), and each kernel's TFLOP/s. The library's
     yardstick is scaled_dot_product_attention's backward (autograd of it,
-    forward and backward, less its forward), which computes dQ, dK and dV
-    in one call, so the pair dkv + dq is also given as a ratio to it."""
+    forward and backward, less its forward; is_causal as the case), which
+    computes dQ, dK and dV in one call, so the pair dkv + dq is also given
+    as a ratio to it."""
     gen = torch.Generator(device='cuda').manual_seed(SEED + 12)
-    b, h, s = TRAIN_BATCH, BERT['n_head'], BERT['max_len']
-    d = BERT['d_model'] // h
-    scale = d ** -0.5
-    numel = b * h * s * d
     rows = {}
-    for dtype, peak in ((torch.float32, F32_3XTF32_OPS_PER_S),
-                        (torch.bfloat16, BF16_OPS_PER_S)):
-        size = dtype.itemsize
-        copies = max(2, math.ceil(2 * L2_BYTES / (4 * numel * size)))
-        sets = []
-        for _ in range(copies):
-            q, k, v, do = _bwd_inputs(b, h, s, s, d, dtype, gen)
-            out, lse = fa.flash_attn_fwd(q, k, v, False, scale,
-                                         return_lse=True)
-            sets.append((q, k, v, do, lse, (do.float() * out.float()).sum(-1)))
-        lib_sets = [tuple(t.detach().requires_grad_() for t in st[:3])
-                    + (st[3],) for st in sets]
-        # autograd and the plain versions enqueue ~1.4 ms a call on the host
-        spin = 4 * SPIN_CYCLES
-        lib_fwd = _time_ms(lambda t: F.scaled_dot_product_attention(
-            *t[:3], scale=scale), lib_sets, spin)
-        lib_all = _time_ms(lambda t: torch.autograd.grad(
-            F.scaled_dot_product_attention(*t[:3], scale=scale), t[:3],
-            t[3]), lib_sets, spin)
-        lib = lib_all - lib_fwd
-        for name, factor, n_out in (('flash_attn_bwd_dkv', 8, 2),
-                                    ('flash_attn_bwd_dq', 6, 1)):
-            wrapper = WRAPPERS[name]
-            ref = getattr(fa, name + '_reference')
-            before = wrapper.launches
-            ms = _time_ms(lambda t: wrapper(*t, False, scale), sets, spin)
-            check(wrapper.launches - before == KERNEL_REPS + 2,
-                  'timing loop did not launch %s' % name)
-            plain = _time_ms(lambda t: ref(*t, False, scale), sets, spin)
-            ops = factor * b * h * s * s * d
-            nbytes = (4 + n_out) * numel * size + 2 * b * h * s * 4
-            bound = max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3
-            by = 'operations' if ops / peak > nbytes / HBM_BYTES_PER_S \
-                else 'bytes'
-            rows[name, str(dtype)[6:]] = dict(
-                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
-                bound_by=by, tflops=ops / ms * 1e-9)
-            cuda_core = ''
-            if dtype == torch.float32:
-                rows[name, 'float32']['cuda_core_bound_ms'] = max(
-                    nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-                cuda_core = ' cuda_core_bound_ms=%r' % (
-                    rows[name, 'float32']['cuda_core_bound_ms'])
-            print('k2_bwd_time %s shape=%s dtype=%s kernel_ms=%r '
-                  'bound_ms=%r (%s) plain_ms=%r sdpa_bwd_ms=%r (dq, dk and '
-                  'dv together; sdpa fwd+bwd %r, fwd %r) bound_share=%.3f '
-                  'tflops=%.2f%s' % (name, (b, h, s, s, d), str(dtype)[6:],
-                                     ms, bound, by, plain, lib, lib_all,
-                                     lib_fwd, bound / ms, ops / ms * 1e-9,
-                                     cuda_core))
-        pair = (rows['flash_attn_bwd_dkv', str(dtype)[6:]]['ms']
-                + rows['flash_attn_bwd_dq', str(dtype)[6:]]['ms'])
-        for name in ('flash_attn_bwd_dkv', 'flash_attn_bwd_dq'):
-            rows[name, str(dtype)[6:]]['pair_vs_sdpa_bwd'] = pair / lib
-        print('k2_bwd_time pair dkv+dq dtype=%s ms=%r sdpa_bwd_ms=%r '
-              'ratio=%.3f' % (str(dtype)[6:], pair, lib, pair / lib))
-        del sets, lib_sets
+    for b, h, s, d, causal, dtypes in K2_BWD_TIME_CASES:
+        scale = d ** -0.5
+        numel = b * h * s * d
+        for dtype in dtypes:
+            peak = BF16_OPS_PER_S if dtype == torch.bfloat16 \
+                else F32_3XTF32_OPS_PER_S
+            size = dtype.itemsize
+            copies = max(2, math.ceil(2 * L2_BYTES / (4 * numel * size)))
+            sets = []
+            for _ in range(copies):
+                q, k, v, do = _bwd_inputs(b, h, s, s, d, dtype, gen)
+                out, lse = fa.flash_attn_fwd(q, k, v, causal, scale,
+                                             return_lse=True)
+                sets.append((q, k, v, do, lse,
+                             (do.float() * out.float()).sum(-1)))
+            lib_sets = [tuple(t.detach().requires_grad_() for t in st[:3])
+                        + (st[3],) for st in sets]
+            # autograd and the plain versions enqueue ~1.4 ms a call on the
+            # host
+            spin = 4 * SPIN_CYCLES
+            lib_fwd = _time_ms(lambda t: F.scaled_dot_product_attention(
+                *t[:3], is_causal=causal, scale=scale), lib_sets, spin)
+            lib_all = _time_ms(lambda t: torch.autograd.grad(
+                F.scaled_dot_product_attention(
+                    *t[:3], is_causal=causal, scale=scale), t[:3], t[3]),
+                lib_sets, spin)
+            lib = lib_all - lib_fwd
+            case = (b, h, s, d, causal, str(dtype)[6:])
+            for name, factor, n_out in (('flash_attn_bwd_dkv', 8, 2),
+                                        ('flash_attn_bwd_dq', 6, 1)):
+                wrapper = WRAPPERS[name]
+                ref = getattr(fa, name + '_reference')
+                before = wrapper.launches
+                ms = _time_ms(lambda t: wrapper(*t, causal, scale), sets,
+                              spin)
+                check(wrapper.launches - before == KERNEL_REPS + 2,
+                      'timing loop did not launch %s' % name)
+                plain = _time_ms(lambda t: ref(*t, causal, scale), sets,
+                                 spin)
+                ops = factor * b * h * d * _score_pairs(s, s, causal)
+                nbytes = (4 + n_out) * numel * size + 2 * b * h * s * 4
+                bound = max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3
+                by = 'operations' if ops / peak > nbytes / HBM_BYTES_PER_S \
+                    else 'bytes'
+                row = rows[(name,) + case] = dict(
+                    ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                    bound_by=by, tflops=ops / ms * 1e-9)
+                cuda_core = ''
+                if dtype == torch.float32:
+                    row['cuda_core_bound_ms'] = max(
+                        nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+                    cuda_core = ' cuda_core_bound_ms=%r' % (
+                        row['cuda_core_bound_ms'])
+                print('k2_bwd_time %s shape=%s causal=%s dtype=%s '
+                      'kernel_ms=%r bound_ms=%r (%s) plain_ms=%r '
+                      'sdpa_bwd_ms=%r (dq, dk and dv together; sdpa fwd+bwd '
+                      '%r, fwd %r) bound_share=%.3f tflops=%.2f%s' % (
+                          name, (b, h, s, s, d), causal, case[-1], ms, bound,
+                          by, plain, lib, lib_all, lib_fwd, bound / ms,
+                          ops / ms * 1e-9, cuda_core))
+            pair = (rows[('flash_attn_bwd_dkv',) + case]['ms']
+                    + rows[('flash_attn_bwd_dq',) + case]['ms'])
+            for name in ('flash_attn_bwd_dkv', 'flash_attn_bwd_dq'):
+                rows[(name,) + case]['pair_vs_sdpa_bwd'] = pair / lib
+            print('k2_bwd_time pair dkv+dq shape=%s causal=%s dtype=%s ms=%r '
+                  'sdpa_bwd_ms=%r ratio=%.3f' % ((b, h, s, s, d), causal,
+                                                 case[-1], pair, lib,
+                                                 pair / lib))
+            del sets, lib_sets
     return rows
+
+
+def _case_tag(case):
+    """'BxHxSxD/causal|noncausal/dtype' of a K2 timing row's key."""
+    b, h, s, d, causal, dtype = case
+    return '%dx%dx%dx%d/%s/%s' % (b, h, s, d, 'causal' if causal
+                                  else 'noncausal', dtype)
+
+
+def _k2_transformer_step_ms(k2_rows, bwd_rows):
+    """Each K2 kernel's device ms in a step of the transformer's dropout-0
+    path, from its times at the path's shape (bf16, causal and not) and
+    its launches a step by causal flag (_trans_want(0))."""
+    b, h, s, _, d = K2_TRANS_SHAPE
+    want = _trans_want(0.0)[2]
+    out = {}
+    for name, launches in want.items():
+        rows = k2_rows if name == 'flash_attn_fwd' else {
+            key[1:]: row for key, row in bwd_rows.items() if key[0] == name}
+        out[name] = sum(n * rows[b, h, s, d, flag == 'causal',
+                                 'bfloat16']['ms']
+                        for flag, n in launches.items())
+    print('k2_time transformer_bench_training_dropout0 step (kernel times '
+          'at %s bf16 x launches a step by causal flag): %s ms, %r in all'
+          % ((b, h, s, s, d), json.dumps(out), sum(out.values())))
+    return out
 
 
 def main():
@@ -1900,6 +2246,16 @@ def main():
     phase_bench_gpu_vs_cpu(amp=True)
     torch.cuda.empty_cache()
 
+    # bench.py's bench_transformer: 6+6 layers, S=256, batch 64, bf16,
+    # dropout 0.1 (the composed attention) and 0 (K2, causal in the
+    # decoder's self-attention)
+    trans_counts, _ = phase_transformer_bench_training(0.1)
+    trans0_counts, trans0_causal = phase_transformer_bench_training(0.0)
+    phase_transformer_lr_under_gradient_merge()
+    phase_transformer_gpu_vs_cpu(0.1, amp=False)
+    phase_transformer_gpu_vs_cpu(0.1, amp=True)
+    phase_transformer_gpu_vs_cpu(0.0, amp=True)
+
     totals = phase_kernel_times()
     totals_amp = phase_kernel_times(RESNET_AMP_BATCH, torch.bfloat16)
     k2_rows = phase_flash_times()
@@ -1912,14 +2268,17 @@ def main():
              'resnet50_training': resnet_train_counts,
              'bert_training_bf16': bert_amp_counts,
              'resnet50_training_bf16': resnet_amp_counts,
-             'bert_bench_training': bench_counts}
+             'bert_bench_training': bench_counts,
+             'transformer_bench_training': trans_counts,
+             'transformer_bench_training_dropout0': trans0_counts}
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}
 
-    k2 = k2_rows[(BERT_BATCHES[-1], 'float32')]
-    bwd_shape = [TRAIN_BATCH, BERT['n_head'], BERT['max_len'],
-                 BERT['d_model'] // BERT['n_head']]
+    fwd_case = K2_TIME_CASES[len(BERT_BATCHES) - 1][:5]
+    bwd_case = K2_BWD_TIME_CASES[0][:5]
+    k2 = k2_rows[fwd_case + ('float32',)]
+    k2_trans = _k2_transformer_step_ms(k2_rows, bwd_rows)
     bwd_entries = []
     for name, replaces, grads in (
             ('flash_attn_bwd_dkv',
@@ -1928,17 +2287,18 @@ def main():
             ('flash_attn_bwd_dq',
              'jax/experimental/pallas/ops/tpu/flash_attention.py:1287',
              ('dq',))):
-        row = bwd_rows[name, 'float32']
+        row = bwd_rows[(name,) + bwd_case + ('float32',)]
         bwd_entries.append({
             'name': name, 'route': 'cuda',
             'source': 'paddle_tpu_torch/csrc/flash_attn_bwd.cu',
             'replaces': replaces,
             'launches': train_counts[name],
             'launches_by_path': by_path(name),
+            'launches_by_causal_transformer_dropout0': trans0_causal[name],
             'max_abs_err': max(bwd_abs[g, torch.float32] for g in grads),
             'max_abs_err_bf16': max(bwd_abs[g, torch.bfloat16]
                                     for g in grads),
-            'shape': bwd_shape,
+            'shape': list(bwd_case[:4]),
             'ms': row['ms'], 'plain_ms': row['plain_ms'],
             'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
             'library_ms': row['library_ms'], 'tflops': row['tflops'],
@@ -1946,8 +2306,10 @@ def main():
             'pair_vs_sdpa_bwd': row['pair_vs_sdpa_bwd'],
             'library_call': 'scaled_dot_product_attention backward '
                             '(dq, dk and dv together)',
-            'by_dtype': {dt: bwd_rows[name, dt]
-                         for dt in ('float32', 'bfloat16')}})
+            'transformer_dropout0_step_ms': k2_trans[name],
+            'by_case': {_case_tag(key[1:]): row
+                        for key, row in bwd_rows.items()
+                        if key[0] == name}})
     print('total seconds %.1f' % (time.perf_counter() - t_start))
     print(json.dumps({'kernels': [{
         'name': 'bn_apply', 'route': 'cuda',
@@ -1975,17 +2337,19 @@ def main():
         'replaces': 'jax/experimental/pallas/ops/tpu/flash_attention.py:589',
         'launches': bert_counts['flash_attn_fwd'],
         'launches_by_path': by_path('flash_attn_fwd'),
+        'launches_by_causal_transformer_dropout0':
+            trans0_causal['flash_attn_fwd'],
         'max_abs_err': k2_abs[torch.float32],
         'max_abs_err_bf16': k2_abs[torch.bfloat16],
         'max_abs_err_lse': bwd_abs['lse', torch.float32],
-        'shape': [BERT_BATCHES[-1], BERT['n_head'], BERT['max_len'],
-                  BERT['d_model'] // BERT['n_head']],
+        'shape': list(fwd_case[:4]),
         'ms': k2['ms'], 'plain_ms': k2['plain_ms'],
         'bound_ms': k2['bound_ms'], 'bound_by': k2['bound_by'],
         'library_ms': k2['library_ms'], 'tflops': k2['tflops'],
         'vs_sdpa': k2['vs_sdpa'],
         'cuda_core_bound_ms': k2['cuda_core_bound_ms'],
-        'by_shape': {'%d/%s' % key: row for key, row in k2_rows.items()}}]
+        'transformer_dropout0_step_ms': k2_trans['flash_attn_fwd'],
+        'by_case': {_case_tag(key): row for key, row in k2_rows.items()}}]
         + bwd_entries}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {

@@ -26,6 +26,7 @@ from .framework import (Program, Block, Operator, Variable, Parameter,  # noqa
 from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
 from .executor import Executor  # noqa: F401
 from . import core, initializer, inference, io, layers, unique_name  # noqa
-from . import backward, contrib, optimizer, weights  # noqa: F401
+from . import backward, clip, contrib, optimizer, regularizer  # noqa: F401
+from . import weights  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
 from .initializer import Constant, Uniform, Normal, Xavier, MSRA  # noqa

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from . import registry
+from . import config, registry
 
 
 class TraceError(RuntimeError):
@@ -54,22 +54,25 @@ class OpCtx(object):
 
     def rng(self):
         """A torch.Generator on the op's device for the op's random draws,
-        seeded from (the program's random_seed, the Executor's step of the
+        seeded from (the program's seed root, the Executor's step of the
         program, the microbatch index under gradient merge, the op's own
         'seed' attr or its uid when that is 0): deterministic given those,
         and fresh at every step and microbatch, as the reference folds its
         per-step key (paddle_tpu/core/lowering.py:61-70, executor.py:281,
-        :1116). At step 0 outside gradient merge the seed is
-        `random_seed·0x9E3779B1 + op seed`, so a startup program draws the
-        same initial values on every run. A grad op takes its forward op's
-        seed, then its forward op's uid, as JAX's rule does, so a
-        recomputed forward draws what the forward drew."""
+        :1116). The root is config.step_seed: the program's random_seed,
+        or for 0 the fixed root 1234567, or the process's entropy under
+        FLAGS_deterministic=0 (paddle_tpu/executor.py:331-337). At step 0
+        outside gradient merge the seed is `root·0x9E3779B1 + op seed`, so
+        a startup program draws the same initial values on every run. A
+        grad op takes its forward op's seed, then its forward op's uid, as
+        JAX's rule does, so a recomputed forward draws what the forward
+        drew."""
         a = self.attrs
         op_seed = int(a.get('seed', 0) or a.get('_fwd_seed', 0) or
                       a.get('_fwd_op_uid', a.get('_op_uid', 0))) & 0x7FFFFFFF
         interp = self.interp
         micro = 0 if interp.micro is None else interp.micro + 1
-        seed = (int(interp.program.random_seed) * 0x9E3779B1 + op_seed
+        seed = (config.step_seed(interp.program) * 0x9E3779B1 + op_seed
                 + interp.step * _STEP_MIX + micro * _MICRO_MIX
                 ) & 0x7FFFFFFFFFFFFFFF
         g = torch.Generator(device=self.device)

@@ -115,18 +115,23 @@ class Executor(object):
     # -- gradient merge (contrib/gradient_merge.py) ------------------------
     @staticmethod
     def _ga_partition(program, fetch_names):
-        """Split block 0 for gradient merge, as paddle_tpu/executor.py:1003
-        does (ref multi_batch_merge_pass): the microbatch cone is the
-        ancestor set of the raw gradients, the excluded ops (optimize
-        role; the reference's clip and decay ops, not ported yet, would
-        join them) read; the outer ops are the excluded ones plus those
-        reachable backward from the fetches and persistable writes that
-        the cone does not hold. Returns (ops, cone indices, outer indices,
-        carried names: what the outer ops and the fetches read from the
-        cone, cone outputs)."""
+        """Split block 0 for gradient merge, as paddle_tpu/executor.py:
+        1003-1050 does (ref multi_batch_merge_pass). The excluded ops are
+        the optimize-role ones and the gradient transforms (the clip and
+        weight-decay ops of clip.py and regularizer.py, tagged
+        `_grad_transform`): they run once, on the merged gradients. The
+        microbatch cone is the ancestor set of the raw gradients, the
+        excluded ops' inputs that a backward op outside them writes; so
+        the learning-rate schedule (forward-role ops over the step
+        counter) stays out of it and ticks once a step, not k times. The
+        outer ops are the excluded ones plus those reachable backward from
+        the fetches and persistable writes that the cone does not hold.
+        Returns (ops, cone indices, outer indices, carried names: what the
+        outer ops and the fetches read from the cone, cone outputs)."""
         ops = list(program.global_block().ops)
         excl = {i for i, op in enumerate(ops)
-                if int(op.attrs.get('op_role', 0)) == OP_ROLE_OPTIMIZE}
+                if int(op.attrs.get('op_role', 0)) == OP_ROLE_OPTIMIZE
+                or op.attrs.get('_grad_transform')}
         bwd_out = {o for i, op in enumerate(ops) if i not in excl
                    and int(op.attrs.get('op_role', 0)) & OP_ROLE_BACKWARD
                    for o in op.output_arg_names() if o}

@@ -1,6 +1,6 @@
 """Neural-network layer functions (ref: python/paddle/fluid/layers/nn.py;
-paddle_tpu/layers/nn.py:25,52,71,182,234,275,356,370,388,510,691,736,842,
-849,867,900,1008,1057,1955).
+paddle_tpu/layers/nn.py:25,52,71,182,234,275,356,370,388,510,691,736,776-793,
+842,849,867,900,1008,1057,1161,1955).
 
 The port's copies of the layers the serving and training slices need. Each appends the
 same ops with the same attrs and names as its paddle_tpu counterpart, so a
@@ -16,10 +16,12 @@ from ..initializer import NormalInitializer, ConstantInitializer
 from ..param_attr import ParamAttr
 
 __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
-           'dropout', 'relu', 'elementwise_add', 'reshape', 'transpose',
-           'fused_multihead_attention', 'matmul', 'softmax_with_cross_entropy',
-           'reduce_sum', 'mean', 'softmax', 'topk', 'pad', 'cast',
-           'square_error_cost']
+           'dropout', 'relu', 'elementwise_add', 'elementwise_sub',
+           'elementwise_max', 'elementwise_min', 'elementwise_pow',
+           'reshape', 'transpose', 'fused_multihead_attention', 'matmul',
+           'softmax_with_cross_entropy', 'reduce_sum', 'mean', 'softmax',
+           'topk', 'pad', 'cast', 'square_error_cost',
+           'add_position_encoding']
 
 
 def _single(v, n):
@@ -220,6 +222,10 @@ def _elementwise_layer(op_type):
 
 
 elementwise_add = _elementwise_layer('elementwise_add')
+elementwise_sub = _elementwise_layer('elementwise_sub')
+elementwise_max = _elementwise_layer('elementwise_max')
+elementwise_min = _elementwise_layer('elementwise_min')
+elementwise_pow = _elementwise_layer('elementwise_pow')
 
 
 def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
@@ -354,4 +360,16 @@ def cast(x, dtype):
     helper.append_op(type='cast', inputs={'X': x}, outputs={'Out': out},
                      attrs={'in_dtype': x.dtype,
                             'out_dtype': convert_dtype(dtype)})
+    return out
+
+
+def add_position_encoding(input, alpha, beta, name=None):
+    """alpha·input + beta·(sinusoid position encoding) for input [batch,
+    seq, dim] (ref nn.py add_position_encoding;
+    paddle_tpu/layers/nn.py:1161)."""
+    helper = LayerHelper('add_position_encoding', name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type='add_position_encoding', inputs={'X': input},
+                     outputs={'Out': out},
+                     attrs={'alpha': alpha, 'beta': beta})
     return out

@@ -1,10 +1,23 @@
 """Tensor-creation layers (ref: python/paddle/fluid/layers/tensor.py;
-paddle_tpu/layers/tensor.py:158)."""
+paddle_tpu/layers/tensor.py:77,158)."""
 from __future__ import annotations
 
+from ..framework import convert_dtype
 from ..layer_helper import LayerHelper
 
-__all__ = ['range']
+__all__ = ['fill_constant', 'range']
+
+
+def fill_constant(shape, dtype, value, force_cpu=False, out=None):
+    """A tensor of `shape` filled with `value` (no gradient)."""
+    helper = LayerHelper("fill_constant")
+    if out is None:
+        out = helper.create_variable_for_type_inference(convert_dtype(dtype))
+    helper.append_op(type='fill_constant', outputs={'Out': [out]},
+                     attrs={'shape': list(shape), 'dtype': convert_dtype(dtype),
+                            'value': float(value)})
+    out.stop_gradient = True
+    return out
 
 
 def range(start, end, step=1, dtype='int64', name=None):

@@ -36,8 +36,10 @@ Each wrapper launches its kernel for CUDA tensors and takes its plain
 version (`flash_attention_reference` with `flash_attention_reference_lse`,
 `flash_attn_bwd_dkv_reference`, `flash_attn_bwd_dq_reference`) only for
 tensors on the CPU or the 'meta' device. Each keeps a plain integer count
-of kernel launches in `<wrapper>.launches`, and one by q's dtype in
-`<wrapper>.launches_by_dtype` ({'float32': n, 'bfloat16': n}).
+of kernel launches in `<wrapper>.launches`, one by q's dtype in
+`<wrapper>.launches_by_dtype` ({'float32': n, 'bfloat16': n}) and one by
+the causal flag in `<wrapper>.launches_by_causal` ({'causal': n,
+'noncausal': n}).
 """
 from __future__ import annotations
 
@@ -270,6 +272,7 @@ def flash_attn_fwd(q, k, v, causal=False, scale=1.0, return_lse=False):
                 q, k, causal, scale)
         flash_attn_fwd.launches += 1
         flash_attn_fwd.launches_by_dtype[str(q.dtype)[6:]] += 1
+        flash_attn_fwd.launches_by_causal[_CAUSAL[bool(causal)]] += 1
     return (out, lse) if return_lse else out
 
 
@@ -300,6 +303,7 @@ def flash_attn_bwd_dkv(q, k, v, do, lse, di, causal=False, scale=1.0):
                 q, k, causal, scale)
         flash_attn_bwd_dkv.launches += 1
         flash_attn_bwd_dkv.launches_by_dtype[str(q.dtype)[6:]] += 1
+        flash_attn_bwd_dkv.launches_by_causal[_CAUSAL[bool(causal)]] += 1
     return dk, dv
 
 
@@ -326,12 +330,15 @@ def flash_attn_bwd_dq(q, k, v, do, lse, di, causal=False, scale=1.0):
                 q, k, causal, scale)
         flash_attn_bwd_dq.launches += 1
         flash_attn_bwd_dq.launches_by_dtype[str(q.dtype)[6:]] += 1
+        flash_attn_bwd_dq.launches_by_causal[_CAUSAL[bool(causal)]] += 1
     return dq
 
 
+_CAUSAL = {True: 'causal', False: 'noncausal'}
 for _wrapper in (flash_attn_fwd, flash_attn_bwd_dkv, flash_attn_bwd_dq):
     _wrapper.launches = 0
     _wrapper.launches_by_dtype = {'float32': 0, 'bfloat16': 0}
+    _wrapper.launches_by_causal = {'causal': 0, 'noncausal': 0}
 del _wrapper
 
 

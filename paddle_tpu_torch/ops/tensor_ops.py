@@ -1,8 +1,10 @@
 """Tensor op lowerings: the startup program's init ops, range, dropout,
-the reshape2/transpose2 views, pad and top_k (ref:
-operators/fill_constant_op.cc, uniform_random_op.cc, gaussian_random_op.cc,
-range_op.cc, dropout_op.cc, reshape_op.cc, transpose_op.cc, pad_op.cc,
-top_k_op.cc; paddle_tpu/ops/tensor_ops.py:28,95,116,46,174,282,298,470,539).
+the reshape2/transpose2 views, pad, cum_sum, top_k and
+add_position_encoding (ref: operators/fill_constant_op.cc,
+uniform_random_op.cc, gaussian_random_op.cc, range_op.cc, dropout_op.cc,
+reshape_op.cc, transpose_op.cc, pad_op.cc, cum_op.h, top_k_op.cc,
+add_position_encoding_op.h; paddle_tpu/ops/tensor_ops.py:28,95,116,46,174,
+282,298,470,517,539,617).
 
 Random ops draw from the torch.Generator that ctx.rng() seeds for the op.
 torch's streams differ from JAX's threefry streams, so the two packages
@@ -215,6 +217,46 @@ def _pad(ctx, ins):
         flat += [int(p[2 * i]), int(p[2 * i + 1])]
     return {'Out': [torch.nn.functional.pad(
         x, flat, value=float(ctx.attr('pad_value', 0.0)))]}
+
+
+@register('cum_sum')
+def _cum_sum(ctx, ins):
+    """The running sum along `axis` (of the flattened x with flatten),
+    from the end with reverse, each element's own term left out with
+    exclusive."""
+    x = X(ins)
+    axis = ctx.attr('axis', -1)
+    if ctx.attr('flatten', False):
+        x = x.reshape(-1)
+        axis = 0
+    axis %= x.ndim
+    reverse = ctx.attr('reverse', False)
+    out = torch.flip(x, (axis,)) if reverse else x
+    if ctx.attr('exclusive', False):
+        pad = [0, 0] * (out.ndim - 1 - axis) + [1, 0]
+        out = torch.nn.functional.pad(out, pad).narrow(axis, 0,
+                                                       out.shape[axis])
+    out = torch.cumsum(out, dim=axis)
+    return {'Out': [torch.flip(out, (axis,)) if reverse else out]}
+
+
+@register('add_position_encoding')
+def _add_position_encoding(ctx, ins):
+    """alpha·x + beta·PE for x [batch, seq, dim]: PE[t] is
+    [sin(t / 10000^(i/half)), cos(t / 10000^(i/half))] over i < half =
+    dim/2, built in f32 and cast to x's dtype, as the reference builds
+    it; each product and the sum round to x's dtype."""
+    x = X(ins)
+    _, t, d = x.shape
+    half = d // 2
+    pos = torch.arange(t, dtype=torch.float32, device=x.device)[:, None]
+    div = torch.pow(torch.tensor(10000.0, device=x.device),
+                    torch.arange(half, dtype=torch.float32,
+                                 device=x.device) / half)
+    enc = torch.cat([torch.sin(pos / div), torch.cos(pos / div)], dim=1)
+    return {'Out': [x * weak_scalar(ctx.attr('alpha', 1.0), x)
+                    + enc[None].to(x.dtype)
+                    * weak_scalar(ctx.attr('beta', 1.0), x)]}
 
 
 @register('top_k')

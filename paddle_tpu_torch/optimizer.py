@@ -2,14 +2,16 @@
 (:22-141), `SGDOptimizer` (:143-155), `MomentumOptimizer` (:158-184) and
 `AdamOptimizer` (:248-297).
 
-`minimize` = append_backward + the optimizer's update ops, appended to the
-same program, with the JAX package's var names: the global learning-rate
-var `learning_rate_<n>` and per-parameter accumulators
-`<param>_<acc>_<n>` (Momentum's velocity; Adam's moment1, moment2,
-beta1_pow_acc, beta2_pow_acc), all persistable and initialized by the
-startup program. Gradient clipping, regularization, per-parameter learning
-rates and remat checkpoints are not ported yet: asking for any of them
-raises.
+`minimize` = append_backward, the gradient clip ops (clip.py), the
+regularization ops (regularizer.py), then the optimizer's update ops, all
+appended to the same program, with the JAX package's var names: the
+global learning-rate var `learning_rate_<n>` (or the Variable a schedule
+of layers/learning_rate_scheduler.py returns), a `scale` op for a
+parameter whose ParamAttr asks for another learning rate, and
+per-parameter accumulators `<param>_<acc>_<n>` (Momentum's velocity;
+Adam's moment1, moment2, beta1_pow_acc, beta2_pow_acc), all persistable
+and initialized by the startup program. Remat checkpoints are not ported
+yet: asking for them raises.
 """
 from __future__ import annotations
 
@@ -17,16 +19,15 @@ from collections import defaultdict
 
 from . import unique_name
 from .backward import OP_ROLE_OPTIMIZE, append_backward
+from .clip import append_gradient_clip_ops
 from .framework import Variable, default_main_program
 from .initializer import ConstantInitializer
 from .layer_helper import LayerHelper
+from .regularizer import append_regularization_ops
 
 
 class Optimizer(object):
     def __init__(self, learning_rate, regularization=None, name=None):
-        if regularization is not None:
-            raise NotImplementedError("Optimizer: regularization is not "
-                                      "ported yet")
         self.regularization = regularization
         self._name = name
         self._learning_rate = learning_rate
@@ -54,12 +55,21 @@ class Optimizer(object):
         return self._learning_rate_map.get(program or default_main_program())
 
     def _create_param_lr(self, param_and_grad):
+        """The global learning rate, or for a parameter whose ParamAttr
+        learning_rate is not 1 a `scale` op's output: the global rate
+        times that factor."""
         param = param_and_grad[0]
-        if (param.optimize_attr or {}).get('learning_rate', 1.0) != 1.0:
-            raise NotImplementedError(
-                "Optimizer: a per-parameter learning rate (ParamAttr "
-                "learning_rate != 1.0, a `scale` op) is not ported yet")
-        return self._global_learning_rate()
+        param_lr = (param.optimize_attr or {}).get('learning_rate', 1.0)
+        base = self._global_learning_rate()
+        if param_lr == 1.0:
+            return base
+        helper = LayerHelper('param_lr')
+        out = helper.create_variable_for_type_inference('float32')
+        helper.append_op(type='scale', inputs={'X': [base]},
+                         outputs={'Out': [out]},
+                         attrs={'scale': float(param_lr),
+                                'op_role': OP_ROLE_OPTIMIZE})
+        return out
 
     # -- accumulators ------------------------------------------------------
     def _add_accumulator(self, name, param, dtype=None, fill_value=0.0,
@@ -102,20 +112,19 @@ class Optimizer(object):
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None, checkpoints=None):
-        """Append the backward and the update ops; returns (optimize_ops,
-        params_grads). `checkpoints` (remat) is not ported yet: any value
-        but None raises."""
+        """Append the backward, the clip and regularization ops and the
+        update ops, in the reference's order (paddle_tpu/optimizer.py:
+        128-140); returns (optimize_ops, params_grads). `checkpoints`
+        (remat) is not ported yet: any value but None raises."""
         if checkpoints is not None:
             raise NotImplementedError(
                 "minimize: checkpoints (activation rematerialization) are "
                 "not ported yet")
         params_grads = self.backward(loss, startup_program, parameter_list,
                                      no_grad_set)
-        for p, _ in params_grads:
-            if p.regularizer is not None or p.gradient_clip_attr is not None:
-                raise NotImplementedError(
-                    "minimize: parameter %r asks for a regularizer or a "
-                    "gradient clip, which are not ported yet" % p.name)
+        params_grads = append_gradient_clip_ops(params_grads)
+        params_grads = append_regularization_ops(params_grads,
+                                                 self.regularization)
         return self._create_optimization_pass(params_grads, loss), \
             params_grads
 
