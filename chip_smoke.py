@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """On-card smoke run of paddle_tpu_torch: ResNet-50 and BERT-base served,
-BERT-base and ResNet-50 trained in f32 and in bf16 mixed precision, and
-BERT-base and Transformer-base trained at bench.py's own settings, on one
-NVIDIA GPU.
+BERT-base and ResNet-50 trained in f32 and in bf16 mixed precision,
+BERT-base and Transformer-base trained at bench.py's own settings, and a
+Transformer-base-wide decoder LM served token by token with continuous
+batching, on one NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -12,7 +13,7 @@ It builds the port's CUDA kernels from paddle_tpu_torch/csrc/ (bn_apply,
 flash_attn_fwd and flash_attn_bwd, one nvcc each, in parallel) and holds
 each against its plain PyTorch version on the card (bn_apply and its
 backward, which is plain torch, at batch 16 and 128, and in bf16 at 256).
-Then it drives nine paths, with random weights from a seed, TF32 off and
+Then it drives ten paths, with random weights from a seed, TF32 off and
 bf16 GEMMs reducing in f32:
 
 - ResNet-50 (depth 50, 224x224, 1000 classes) served through
@@ -54,6 +55,16 @@ bf16 GEMMs reducing in f32:
   of each backward kernel per step, 12 / 6 / 6 of them causal (the
   decoder's self-attention); each step's learning rate against noam's
   closed form, also under gradient_merge.enable(2).
+- continuous decode serving as bench.py:761-863 bench_decode_serving
+  drives it, at Transformer-base widths (decode-base:
+  build_decode_spec with vocab 32000, d_model 512, 8 heads, 6 layers,
+  d_ff 2048, 32 slots, a 512-long f32 cache, prompt buckets 64/128/256)
+  through export_decode -> DecodingPredictor: 64 requests of 64 new
+  tokens one at a time, then as Poisson arrivals at 8 times that request
+  rate (transcripts equal), then 3 beam-3 requests beside greedy traffic
+  (equal to their solo runs); no kernel launches on this path. The same
+  artifact served on the CPU holds the card's prefill and teacher-forced
+  step logits (1e-3 of the largest) and greedy transcripts.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after. The run compares GPU and CPU outputs of each served
@@ -93,9 +104,11 @@ import torch.nn.functional as F
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch import kernels
 from paddle_tpu_torch.contrib import gradient_merge, mixed_precision
+from paddle_tpu_torch.inference import DecodingPredictor, export_decode
 from paddle_tpu_torch.models.bert import bert_mlm_logits, build_bert_pretrain
 from paddle_tpu_torch.models.resnet import build_train_net, resnet_imagenet
-from paddle_tpu_torch.models.transformer import build_transformer_train
+from paddle_tpu_torch.models.transformer import (build_decode_spec,
+                                                 build_transformer_train)
 from paddle_tpu_torch.ops import bn_apply as bn_mod
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import tensor_ops
@@ -209,6 +222,22 @@ TRANS_GATE_BATCH = 2
 # microbatches and steps of the learning-rate check under gradient merge
 TRANS_LR_K = 2
 TRANS_LR_STEPS = 3
+# continuous decode serving (decode-base): build_decode_spec at the widths
+# bench_transformer trains (Transformer-base, Vaswani et al. 2017, Table 3:
+# d_model 512, 8 heads, d_ff 2048, 6 layers, vocabulary 32000) as a
+# decoder-only LM, 32 slots over a 512-long f32 cache, prompt buckets 64,
+# 128 and 256; traffic as bench.py:761-863 bench_decode_serving offers it
+DECODE = dict(vocab=32000, d_model=512, n_head=8, n_layer=6, d_ff=2048,
+              max_slots=32, max_cache_len=512, prompt_buckets=(64, 128, 256),
+              eos_id=1)
+DECODE_REQUESTS = 64
+DECODE_MAX_NEW = 64
+DECODE_RATE_X = 8          # Poisson load, x the measured sequential rate
+DECODE_BEAM = 3            # beam width and number of beam requests
+DECODE_GATE_PROMPTS = 4    # greedy transcripts compared GPU vs CPU
+DECODE_GATE_NEW = 16
+DECODE_TF_STEPS = 16       # teacher-forced steps compared GPU vs CPU
+DECODE_PROFILE_STEPS = 20  # full-occupancy steps timed and profiled
 # K1 and its backward are held against their plain versions at the batch of
 # ResNet-50 serving and at those of its f32 and AMP training, where the
 # largest BN outputs take the kernel's grid-stride loop through 2 (f32 at
@@ -591,16 +620,17 @@ _LIBRARY_KERNELS = ('cudnn', 'xmma', 'gemm', 'cutlass', 'nvjet', 'wgrad',
                     'dgrad', 'fprop', 'sm80_', 'sm90_')
 
 
-def _profile(run_once, label, what):
-    """Device time by kernel over 3 calls of run_once (torch.profiler; only
-    the CUDA kernels' own rows, so no op is counted twice), each kernel with
-    the torch ops that launched it. Returns {kernel name: device ms} over
-    the 3 calls, or None where the trace holds no device time."""
+def _profile(run_once, label, what, calls=3):
+    """Device time by kernel over `calls` calls of run_once
+    (torch.profiler; only the CUDA kernels' own rows, so no op is counted
+    twice), each kernel with the torch ops that launched it. Returns
+    {kernel name: device ms} over the calls, or None where the trace holds
+    no device time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(3):
+        for _ in range(calls):
             run_once()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -620,9 +650,9 @@ def _profile(run_once, label, what):
     busy_s = sum(r[0] for r in rows) * 1e-6
     library = sum(r[0] for r in rows if any(
         t in r[2] for t in _LIBRARY_KERNELS)) * 1e-6
-    print('profile %s 3 %s (profiler on): wall_ms=%r '
+    print('profile %s %d %s (profiler on): wall_ms=%r '
           'device_busy_ms=%r idle_share=%.3f cudnn_cublas_share=%.3f' % (
-              label, what, wall * 1e3, busy_s * 1e3,
+              label, calls, what, wall * 1e3, busy_s * 1e3,
               max(0.0, 1 - busy_s / wall), library / busy_s))
     for dev_us, count, key in rows[:12]:
         print('profile %s kernel=%r calls=%d device_ms=%r share=%.3f ops=%s'
@@ -2117,6 +2147,287 @@ def _k2_transformer_step_ms(k2_rows, bwd_rows):
     return out
 
 
+def build_decode_artifact(dirname):
+    """decode-base on the card: build_decode_spec(**DECODE) -> startup
+    (random weights from the program's seed) -> export_decode(dirname).
+    Returns (the artifact's signature, the step program's op census, the
+    prefill programs' op counts, parameter elements)."""
+    with fluid.unique_name.guard():
+        spec = build_decode_spec(**DECODE)
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(spec['startup'], scope=scope)
+    export_decode(spec, dirname, scope=scope)
+    with open(os.path.join(dirname, 'decode_signature.json')) as f:
+        sig = json.load(f)
+    n_params = sum(scope.get(n).numel() for n in sig['params'])
+    step_ops = collections.Counter(
+        op.type for op in spec['step']['program'].global_block().ops
+        if op.type != 'feed')
+    prefill_ops = {L: sum(op.type != 'feed' for op in
+                          e['program'].global_block().ops)
+                   for L, e in sorted(spec['prefill'].items())}
+    del scope
+    torch.cuda.empty_cache()
+    return sig, step_ops, prefill_ops, n_params
+
+
+def _decode_prompts():
+    """bench_decode_serving's prompts: lengths randint(4, the largest
+    bucket), ids in [2, vocab), from RandomState(SEED)."""
+    rng = np.random.RandomState(SEED)
+    return [rng.randint(2, DECODE['vocab'],
+                        int(rng.randint(4, max(DECODE['prompt_buckets']))))
+            for _ in range(DECODE_REQUESTS)]
+
+
+def _decode_step_bytes(sig):
+    """The least bytes a decode step moves: every weight read once (of the
+    embedding and position tables only the max_slots rows a step gathers),
+    the whole cache read (the attention's einsums read every row and mask
+    after) and one row a slot written per cache var, the logits written."""
+    S, V, D = sig['max_slots'], sig['vocab'], DECODE['d_model']
+    L, F = DECODE['n_layer'], DECODE['d_ff']
+    layer = 4 * D * D + 2 * D * F + F + D + 4 * D   # q k v o, ffn, LN
+    weights = (L * layer + D * V + 2 * S * D) * 4
+    cache = sig['cache_bytes'] + len(sig['state']) * S * D * 4
+    return weights, cache, S * V * 4
+
+
+def phase_decode_serving(dirname, sig):
+    """decode-base served through DecodingPredictor on the card, as
+    bench_decode_serving drives it: a sequential arm (generate, one request
+    at a time), then a Poisson arm at DECODE_RATE_X times the measured
+    sequential request rate, whose transcripts must equal the sequential
+    ones; then DECODE_BEAM beam-3 requests beside greedy traffic, whose
+    hypotheses and scores must equal their solo runs. No kernel of the
+    port launches on this path. Then DECODE_PROFILE_STEPS steps at full
+    occupancy, timed on the host clock and profiled. Returns (the
+    predictor, the sequential transcripts, the prompts, the launches)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pred = DecodingPredictor(dirname)      # CUDAPlace(0) unless asked
+    check(pred.place == fluid.CUDAPlace(0), 'decode predictor on %r'
+          % (pred.place,))
+    pred.warmup()
+    print('decode-base load_warmup_s=%.1f' % (time.perf_counter() - t0))
+    prompts = _decode_prompts()
+    reset_launches()
+    t0 = time.perf_counter()
+    seq = [pred.generate(p, max_new_tokens=DECODE_MAX_NEW) for p in prompts]
+    seq_s = time.perf_counter() - t0
+    seq_snap = pred.stats.snapshot()
+    pred.stats.reset()
+    rate = DECODE_RATE_X * len(prompts) / seq_s
+    arrivals = np.cumsum(np.random.RandomState(1).exponential(
+        1.0 / rate, len(prompts)))
+    streams = []
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        delay = t0 + arrivals[i] - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        streams.append(pred.submit(p, max_new_tokens=DECODE_MAX_NEW))
+    con = [s.result(600) for s in streams]
+    wall = time.perf_counter() - t0
+    snap = pred.stats.snapshot()
+    check(all(1 <= len(t) <= DECODE_MAX_NEW and
+              all(0 <= x < DECODE['vocab'] for x in t) for t in seq),
+          'decode transcripts out of range')
+    diverged = [i for i, (a, b) in enumerate(zip(con, seq)) if a != b]
+    check(not diverged, 'continuous decode transcripts differ from the '
+          'sequential ones for requests %s' % diverged)
+    n_tok = sum(len(t) for t in seq)
+    print('decode-base sequential arm: requests=%d tokens=%d wall_s=%r '
+          'tokens_per_s=%r steps=%d prefills=%d occupancy=%r '
+          'ttft_p50_ms=%r ttft_p99_ms=%r itl_p50_ms=%r itl_p99_ms=%r' % (
+              len(prompts), n_tok, seq_s, n_tok / seq_s, seq_snap['steps'],
+              seq_snap['prefills'], seq_snap['occupancy'],
+              seq_snap['ttft_p50_ms'], seq_snap['ttft_p99_ms'],
+              seq_snap['itl_p50_ms'], seq_snap['itl_p99_ms']))
+    print('decode-base continuous arm (Poisson, %g x the sequential rate = '
+          '%.2f req/s): tokens=%d wall_s=%r tokens_per_s=%r vs_sequential=%r'
+          ' steps=%d prefills=%d occupancy=%r ttft_p50_ms=%r ttft_p99_ms=%r '
+          'itl_p50_ms=%r itl_p99_ms=%r; transcripts equal the sequential '
+          'arm\'s (%d requests)' % (
+              DECODE_RATE_X, rate, n_tok, wall, n_tok / wall,
+              seq_s / wall, snap['steps'], snap['prefills'],
+              snap['occupancy'], snap['ttft_p50_ms'], snap['ttft_p99_ms'],
+              snap['itl_p50_ms'], snap['itl_p99_ms'], len(con)))
+
+    beam_prompts = prompts[:DECODE_BEAM]
+    solo = [pred.generate(p, max_new_tokens=DECODE_MAX_NEW, beam=DECODE_BEAM)
+            for p in beam_prompts]
+    greedy_idx = list(range(DECODE_BEAM, DECODE_BEAM + 8))
+    pred.stats.reset()
+    beams, greedy = [], []
+    for i, p in enumerate(beam_prompts):
+        beams.append(pred.submit(p, max_new_tokens=DECODE_MAX_NEW,
+                                 beam=DECODE_BEAM))
+        greedy += [pred.submit(prompts[j], max_new_tokens=DECODE_MAX_NEW)
+                   for j in greedy_idx[i::DECODE_BEAM]]
+    got = [s.result(600) for s in beams]
+    mixed = pred.stats.snapshot()
+    for (ids1, sc1), (ids2, sc2) in zip(solo, got):
+        check(ids1.shape == (DECODE_BEAM, ids1.shape[1])
+              and np.array_equal(ids1, ids2) and np.array_equal(sc1, sc2)
+              and list(sc1) == sorted(sc1, reverse=True),
+              'beam hypotheses or scores beside greedy traffic differ from '
+              'the solo run')
+    order = [j for i in range(DECODE_BEAM) for j in greedy_idx[i::DECODE_BEAM]]
+    check([s.result(600) for s in greedy] == [seq[j] for j in order],
+          'greedy transcripts beside beam requests differ')
+    counts = read_launches()
+    check(not any(counts.values()), 'the decode path launched %s' % counts)
+    print('decode-base beam: %d beam-%d requests beside %d greedy ones, '
+          'hypotheses and scores equal their solo runs (best scores %s); '
+          'reorders=%d steps=%d occupancy=%r; launches over the decode path '
+          '%s' % (DECODE_BEAM, DECODE_BEAM, len(greedy),
+                  [round(float(sc[0]), 4) for _, sc in solo],
+                  mixed['reorders'], mixed['steps'], mixed['occupancy'],
+                  json.dumps(counts)))
+
+    S = DECODE['max_slots']
+    rng = np.random.RandomState(2)
+    tokens = rng.randint(2, DECODE['vocab'], (S, 1)).astype(np.int64)
+    T = DECODE['max_cache_len']
+    pos = rng.randint(T // 8, T * 5 // 8, (S, 1)).astype(np.int32)
+    times = []
+    for _ in range(DECODE_PROFILE_STEPS):
+        t0 = time.perf_counter()
+        pred._dispatch_step(tokens, pos)   # returns the synced logits
+        times.append(time.perf_counter() - t0)
+    per_kernel = _profile(lambda: pred._dispatch_step(tokens, pos),
+                          'decode-base step, 32 active slots', 'steps',
+                          calls=DECODE_PROFILE_STEPS)
+    weights, cache, logits = _decode_step_bytes(sig)
+    busy = (sum(per_kernel.values()) / DECODE_PROFILE_STEPS
+            if per_kernel else None)
+    print('decode-base step at %d active slots: host-clock p50_ms=%r '
+          'p90_ms=%r (the step program through Executor.run and the [%d, %d]'
+          ' logits copy to the host); device_busy_ms_per_step=%r; byte bound '
+          '%r ms (%d weight + %d cache + %d logits bytes at %g B/s); '
+          'peak_allocated_gb=%.2f' % (
+              S, float(np.percentile(times, 50)) * 1e3,
+              float(np.percentile(times, 90)) * 1e3, S, DECODE['vocab'],
+              busy, (weights + cache + logits) / HBM_BYTES_PER_S * 1e3,
+              weights, cache, logits, HBM_BYTES_PER_S,
+              torch.cuda.max_memory_allocated() / 2 ** 30))
+    return pred, seq, prompts, counts
+
+
+def _top2_gap(row):
+    top = np.sort(np.asarray(row, np.float64))[::-1][:2]
+    return float(top[0] - top[1])
+
+
+def phase_decode_gpu_vs_cpu(dirname, pred, seq, prompts):
+    """The decode-base artifact served by the port on the CPU against the
+    card: each bucket's prefill logits (one prompt each, slot 0) and
+    DECODE_TF_STEPS steps of DECODE_GATE_PROMPTS slots decoding together,
+    fed the card's greedy tokens, each dispatch's logits within 1e-3 of
+    its largest |logit| (the serving gate); then the CPU's greedy
+    transcripts of those prompts against the card's under the margin rule:
+    a token is compared where every step up to it has a top-two logit gap
+    in the CPU's run above 8 times the largest teacher-forced difference
+    (4 times the measured difference, on each side). A prompt with a step
+    under that gap is compared up to that step, and the run says so; at
+    least 3/4 of the tokens must be compared."""
+    t0 = time.perf_counter()
+    cpu = DecodingPredictor(dirname, place=fluid.CPUPlace())
+    try:
+        pred._reset_state()
+        cpu._reset_state()
+        errs = []
+
+        def both(fn, *args):
+            g = getattr(pred, fn)(*args)
+            c = getattr(cpu, fn)(*args)
+            err, scale = float(np.abs(g - c).max()), float(np.abs(c).max())
+            check(np.isfinite(g).all() and err <= 1e-3 * scale,
+                  'decode %s GPU and CPU logits differ: %r of %r'
+                  % (fn, err, scale))
+            errs.append((err, scale))
+            return g
+
+        buckets = sorted(DECODE['prompt_buckets'])
+        for L in buckets:
+            p = next(p for p in prompts
+                     if min(b for b in buckets if len(p) <= b) == L)
+            padded = np.zeros((1, L), np.int64)
+            padded[0, :len(p)] = p
+            both('_dispatch_prefill', L, padded, len(p), 0)
+        n_pre = len(errs)
+        gate = prompts[:DECODE_GATE_PROMPTS]
+        last = []
+        for s, p in enumerate(gate):
+            L = min(b for b in buckets if len(p) <= b)
+            padded = np.zeros((1, L), np.int64)
+            padded[0, :len(p)] = p
+            last.append(int(np.argmax(both('_dispatch_prefill', L, padded,
+                                           len(p), s))))
+        S = DECODE['max_slots']
+        for t in range(DECODE_TF_STEPS):
+            tokens = np.zeros((S, 1), np.int64)
+            pos = np.zeros((S, 1), np.int32)
+            for s, p in enumerate(gate):
+                tokens[s, 0] = last[s]
+                pos[s, 0] = len(p) + t
+            logits = both('_dispatch_step', tokens, pos)
+            last = [int(np.argmax(logits[s])) for s in range(len(gate))]
+        worst = max(e / sc for e, sc in errs)
+        e_tf = max(e for e, _ in errs)
+        print('decode-base gpu_vs_cpu: %d prefills (one a bucket %s, then '
+              '%d slots) and %d teacher-forced steps, max_abs_err=%r '
+              'max_rel_err=%r (prefill per bucket %s) tolerance_rel=1e-3'
+              % (len(errs) - DECODE_TF_STEPS, buckets, len(gate),
+                 DECODE_TF_STEPS, e_tf, worst,
+                 ['%.3g' % (e / sc) for e, sc in errs[:n_pre]]))
+
+        margin_tol = 8 * e_tf
+        rec = collections.defaultdict(list)
+        first0, adv0 = cpu._first_token, cpu._advance_greedy
+
+        def first(req, logits):
+            rec[id(req.stream)].append(_top2_gap(logits))
+            return first0(req, logits)
+
+        def adv(req, logits, now):
+            rec[id(req.stream)].append(_top2_gap(logits[req.slots[0]]))
+            return adv0(req, logits, now)
+        cpu._first_token, cpu._advance_greedy = first, adv
+        cpu._reset_state()
+        n_new = min(DECODE_GATE_NEW, DECODE_MAX_NEW)
+        streams = [cpu.submit(p, max_new_tokens=n_new) for p in gate]
+        got = [s.result(600) for s in streams]
+        compared = total = 0
+        for i, (s, toks) in enumerate(zip(streams, got)):
+            want = seq[i][:n_new]
+            gaps = rec[id(s)]
+            k = next((j for j, g in enumerate(gaps) if g <= margin_tol),
+                     len(gaps))
+            if k < len(gaps):
+                print('decode-base gpu_vs_cpu: prompt %d step %d has a '
+                      'top-two gap of %r <= %r: compared up to that step'
+                      % (i, k, gaps[k], margin_tol))
+            check(toks[:k] == want[:k] and
+                  (k < len(gaps) or toks == want),
+                  'decode greedy transcript %d differs GPU vs CPU: %s vs %s'
+                  % (i, toks, want))
+            compared += min(k, len(want))
+            total += len(want)
+        check(compared * 4 >= total * 3, 'only %d of %d tokens compared'
+              % (compared, total))
+        print('decode-base gpu_vs_cpu greedy: %d prompts, %d of %d tokens '
+              'equal, every compared step with a CPU top-two gap above %r '
+              '(smallest gap %r); cpu side %.1fs' % (
+                  len(gate), compared, total, margin_tol,
+                  min(min(g) for g in rec.values()),
+                  time.perf_counter() - t0))
+    finally:
+        cpu.close()
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this run '
@@ -2255,6 +2566,30 @@ def main():
     phase_transformer_gpu_vs_cpu(0.1, amp=False)
     phase_transformer_gpu_vs_cpu(0.1, amp=True)
     phase_transformer_gpu_vs_cpu(0.0, amp=True)
+    torch.cuda.empty_cache()
+
+    # continuous decode serving at Transformer-base widths (decode-base)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        dsig, d_step_ops, d_prefill_ops, d_params = build_decode_artifact(d)
+        check(not {'fused_multihead_attention', 'batch_norm'} & set(
+            d_step_ops), 'decode step ops %s' % dict(d_step_ops))
+        print('model decode-base (build_decode_spec) vocab=%d d_model=%d '
+              'heads=%d layers=%d d_ff=%d slots=%d cache_len=%d buckets=%s '
+              'f32 cache_bytes=%d parameter_elements=%d step_ops=%d %s '
+              'prefill_ops=%s build_init_export_s=%.1f' % (
+                  DECODE['vocab'], DECODE['d_model'], DECODE['n_head'],
+                  DECODE['n_layer'], DECODE['d_ff'], DECODE['max_slots'],
+                  DECODE['max_cache_len'], list(DECODE['prompt_buckets']),
+                  dsig['cache_bytes'], d_params, sum(d_step_ops.values()),
+                  json.dumps(dict(d_step_ops)), json.dumps(d_prefill_ops),
+                  time.perf_counter() - t0))
+        decode_pred, decode_seq, decode_prompts, decode_counts = \
+            phase_decode_serving(d, dsig)
+        phase_decode_gpu_vs_cpu(d, decode_pred, decode_seq, decode_prompts)
+        decode_pred.close()
+    del decode_pred
+    torch.cuda.empty_cache()
 
     totals = phase_kernel_times()
     totals_amp = phase_kernel_times(RESNET_AMP_BATCH, torch.bfloat16)
@@ -2270,7 +2605,8 @@ def main():
              'resnet50_training_bf16': resnet_amp_counts,
              'bert_bench_training': bench_counts,
              'transformer_bench_training': trans_counts,
-             'transformer_bench_training_dropout0': trans0_counts}
+             'transformer_bench_training_dropout0': trans0_counts,
+             'decode_serving': decode_counts}
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}

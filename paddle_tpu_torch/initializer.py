@@ -94,6 +94,27 @@ class MSRAInitializer(Initializer):
         return NormalInitializer(0.0, std, self.seed)(var, block)
 
 
+class NumpyArrayInitializer(Initializer):
+    """The var set to a fixed numpy array by one assign_value op, its
+    values in the op's attrs (int32_values for an int32/int64 array,
+    fp32_values otherwise), as paddle_tpu/initializer.py:128 emits it."""
+
+    def __init__(self, value):
+        self.value = np.asarray(value)
+
+    def __call__(self, var, block):
+        vals = self.value.reshape(-1)
+        if self.value.dtype in (np.int32, np.int64):
+            attr = {'int32_values': [int(v) for v in vals]}
+        else:
+            attr = {'fp32_values': [float(v) for v in vals]}
+        return block.append_op(
+            type='assign_value', outputs={'Out': [var.name]},
+            attrs={'shape': list(self.value.shape), 'dtype': var.dtype,
+                   **attr},
+            infer_shape=False)
+
+
 # reference-compatible aliases
 Constant = ConstantInitializer
 Uniform = UniformInitializer

@@ -1,6 +1,6 @@
 """Neural-network layer functions (ref: python/paddle/fluid/layers/nn.py;
 paddle_tpu/layers/nn.py:25,52,71,182,234,275,356,370,388,510,691,736,776-793,
-842,849,867,900,1008,1057,1161,1955).
+842,849,857,867,900,937,983,1008,1057,1161,1573-1615,1955).
 
 The port's copies of the layers the serving and training slices need. Each appends the
 same ops with the same attrs and names as its paddle_tpu counterpart, so a
@@ -21,7 +21,8 @@ __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
            'reshape', 'transpose', 'fused_multihead_attention', 'matmul',
            'softmax_with_cross_entropy', 'reduce_sum', 'mean', 'softmax',
            'topk', 'pad', 'cast', 'square_error_cost',
-           'add_position_encoding']
+           'add_position_encoding', 'scale', 'slice', 'gather', 'kv_cache_write',
+           'kv_cache_prefill_write', 'kv_cache_attention']
 
 
 def _single(v, n):
@@ -372,4 +373,79 @@ def add_position_encoding(input, alpha, beta, name=None):
     helper.append_op(type='add_position_encoding', inputs={'X': input},
                      outputs={'Out': out},
                      attrs={'alpha': alpha, 'beta': beta})
+    return out
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
+          name=None):
+    """x·scale + bias, or (x + bias)·scale (ref nn.py scale;
+    paddle_tpu/layers/nn.py:857)."""
+    helper = LayerHelper('scale', act=act, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type='scale', inputs={'X': x}, outputs={'Out': out},
+        attrs={'scale': float(scale), 'bias': float(bias),
+               'bias_after_scale': bias_after_scale})
+    return helper.append_activation(out)
+
+
+def slice(input, axes, starts, ends):
+    """input[starts:ends] along `axes` (ref nn.py slice;
+    paddle_tpu/layers/nn.py:937)."""
+    helper = LayerHelper('slice')
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type='slice', inputs={'Input': input},
+                     outputs={'Out': out},
+                     attrs={'axes': axes, 'starts': starts, 'ends': ends})
+    return out
+
+
+def gather(input, index):
+    """Rows of `input` by the flattened int `index` (ref nn.py gather;
+    paddle_tpu/layers/nn.py:983)."""
+    helper = LayerHelper('gather')
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type='gather', inputs={'X': input, 'Index': index},
+                     outputs={'Out': out}, attrs={})
+    return out
+
+
+def kv_cache_write(cache, kv, pos):
+    """Write one decode step's K or V rows [max_slots, d] into the
+    persistable slot-paged `cache` [max_slots, max_cache_len, d] at each
+    slot's `pos` (int32 [max_slots] or [max_slots, 1]). The output is
+    `cache` itself (the ParamOut==Param discipline): the op updates it in
+    place and returns it (paddle_tpu/layers/nn.py:1573)."""
+    helper = LayerHelper('kv_cache_write')
+    helper.append_op(type='kv_cache_write',
+                     inputs={'Cache': cache, 'KV': kv, 'Pos': pos},
+                     outputs={'Out': cache}, attrs={})
+    return cache
+
+
+def kv_cache_prefill_write(cache, kv, slot):
+    """Write a whole prompt's K or V rows [1, bucket_len, d] into ONE slot
+    of the paged `cache` (int32 `slot`, shape [1] or [1, 1]), in place like
+    kv_cache_write (paddle_tpu/layers/nn.py:1588)."""
+    helper = LayerHelper('kv_cache_prefill_write')
+    helper.append_op(type='kv_cache_prefill_write',
+                     inputs={'Cache': cache, 'KV': kv, 'Slot': slot},
+                     outputs={'Out': cache}, attrs={})
+    return cache
+
+
+def kv_cache_attention(query, k_cache, v_cache, pos, n_head, scale=None):
+    """One-token-per-slot attention over the slot-paged KV cache: `query`
+    [max_slots, d] attends rows j <= pos of its own slot, heads split
+    inside the op; returns the merged context [max_slots, d]
+    (paddle_tpu/layers/nn.py:1599)."""
+    helper = LayerHelper('kv_cache_attention')
+    out = helper.create_variable_for_type_inference(query.dtype)
+    helper.append_op(type='kv_cache_attention',
+                     inputs={'Q': query, 'KCache': k_cache,
+                             'VCache': v_cache, 'Pos': pos},
+                     outputs={'Out': out},
+                     attrs={'n_head': int(n_head),
+                            'scale': float(scale or 0.0)})
+    out.stop_gradient = True
     return out

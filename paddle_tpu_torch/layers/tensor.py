@@ -1,11 +1,22 @@
 """Tensor-creation layers (ref: python/paddle/fluid/layers/tensor.py;
-paddle_tpu/layers/tensor.py:77,158)."""
+paddle_tpu/layers/tensor.py:18,77,158)."""
 from __future__ import annotations
 
 from ..framework import convert_dtype
 from ..layer_helper import LayerHelper
 
-__all__ = ['fill_constant', 'range']
+__all__ = ['create_parameter', 'fill_constant', 'range']
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    """A parameter of `shape` in the main program, its init op in the
+    startup program (LayerHelper.create_parameter)."""
+    from ..param_attr import ParamAttr
+    helper = LayerHelper("create_parameter", name=name)
+    attr = attr or ParamAttr(name=name)
+    return helper.create_parameter(attr, shape, dtype, is_bias,
+                                   default_initializer)
 
 
 def fill_constant(shape, dtype, value, force_cpu=False, out=None):

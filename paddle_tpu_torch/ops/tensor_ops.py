@@ -1,10 +1,12 @@
-"""Tensor op lowerings: the startup program's init ops, range, dropout,
-the reshape2/transpose2 views, pad, cum_sum, top_k and
-add_position_encoding (ref: operators/fill_constant_op.cc,
-uniform_random_op.cc, gaussian_random_op.cc, range_op.cc, dropout_op.cc,
-reshape_op.cc, transpose_op.cc, pad_op.cc, cum_op.h, top_k_op.cc,
-add_position_encoding_op.h; paddle_tpu/ops/tensor_ops.py:28,95,116,46,174,
-282,298,470,517,539,617).
+"""Tensor op lowerings: the startup program's init ops (assign_value
+among them), range, dropout, the reshape2/transpose2 views, slice,
+gather, pad, cum_sum, top_k and add_position_encoding (ref:
+operators/fill_constant_op.cc, assign_value_op.cc, uniform_random_op.cc,
+gaussian_random_op.cc, range_op.cc, dropout_op.cc, reshape_op.cc,
+transpose_op.cc, slice_op.cc, gather_op.cc, pad_op.cc, cum_op.h,
+top_k_op.cc, add_position_encoding_op.h;
+paddle_tpu/ops/tensor_ops.py:28,73,95,116,46,174,282,298,379,445,470,517,
+539,617).
 
 Random ops draw from the torch.Generator that ctx.rng() seeds for the op.
 torch's streams differ from JAX's threefry streams, so the two packages
@@ -33,6 +35,23 @@ def _fill_constant(ctx, ins):
     shape, dt = _shape_dtype(ctx)
     return {'Out': [torch.full(shape, ctx.attr('value', 0.0), dtype=dt,
                                device=ctx.device)]}
+
+
+@register('assign_value', no_grad=True)
+def _assign_value(ctx, ins):
+    """The constant the attrs hold (int32_values, or int64_values, for an
+    integer or bool dtype; fp32_values otherwise), in the declared dtype
+    and shape, made on the executor's device."""
+    dt = to_torch_dtype(ctx.attr('dtype') or 'float32')
+    if dt.is_floating_point:
+        vals = ctx.attr('fp32_values')
+    else:
+        vals = ctx.attr('int32_values') or ctx.attr('int64_values')
+    host = np.asarray(vals, dtype=np.float32 if dt.is_floating_point
+                      else np.int64)
+    return {'Out': [torch.as_tensor(host).reshape(
+        [int(s) for s in ctx.attr('shape')]).to(device=ctx.device,
+                                                 dtype=dt)]}
 
 
 @register('uniform_random', no_grad=True)
@@ -204,6 +223,41 @@ def _transpose2(ctx, ins):
     takes the strides as they are."""
     x = X(ins)
     return {'Out': [x.permute(*ctx.attr('axis'))], 'XShape': [_xshape(x)]}
+
+
+@register('slice')
+def _slice(ctx, ins):
+    """Input[starts:ends] along each of `axes`, a view. Starts and ends
+    clamp as the reference's do: a negative one counts from the end (and
+    stops at 0), a positive one stops at the dim's size."""
+    x = ins['Input'][0]
+    idx = [slice(None)] * x.ndim
+    for a, s, e in zip(ctx.attr('axes'), ctx.attr('starts'),
+                       ctx.attr('ends')):
+        dim = x.shape[a]
+        s = max(s + dim, 0) if s < 0 else min(s, dim)
+        e = max(e + dim, 0) if e < 0 else min(e, dim)
+        idx[a] = slice(s, e)
+    return {'Out': [x[tuple(idx)]]}
+
+
+@register('gather')
+def _gather(ctx, ins):
+    """Rows of X by Index, an int tensor of any shape, flattened: Out is
+    [Index.numel()] + X.shape[1:]. An index in [-n, 0) counts from the end,
+    as jnp.take wraps it. One outside [-n, n) raises: jnp.take would fill
+    its row, but on the card an out-of-range index_select is a device
+    assert that ends the CUDA context, so the range is checked on the host
+    first (one sync)."""
+    x = X(ins)
+    n = x.shape[0]
+    raw = ins['Index'][0].reshape(-1).long()
+    idx = torch.where(raw < 0, raw + n, raw)
+    if idx.device.type != 'meta' and idx.numel() and bool(
+            ((idx < 0) | (idx >= n)).any()):
+        raise IndexError("gather: Index holds a value outside [-%d, %d): %s"
+                         % (n, n, raw[:8].tolist()))
+    return {'Out': [torch.index_select(x, 0, idx)]}
 
 
 @register('pad')
