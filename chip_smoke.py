@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """On-card smoke run of paddle_tpu_torch: ResNet-50 and BERT-base served,
 BERT-base and ResNet-50 trained in f32 and in bf16 mixed precision,
-BERT-base and Transformer-base trained at bench.py's own settings, and a
+BERT-base and Transformer-base trained at bench.py's own settings, a
 Transformer-base-wide decoder LM served token by token with continuous
-batching, on one NVIDIA GPU.
+batching, and the image-classification zoo (SmallNet, AlexNet, VGG-19,
+GoogLeNet, SE-ResNeXt-50) trained and GoogLeNet served at bench.py's
+settings, on one NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -13,8 +15,8 @@ It builds the port's CUDA kernels from paddle_tpu_torch/csrc/ (bn_apply,
 flash_attn_fwd and flash_attn_bwd, one nvcc each, in parallel) and holds
 each against its plain PyTorch version on the card (bn_apply and its
 backward, which is plain torch, at batch 16 and 128, and in bf16 at 256).
-Then it drives ten paths, with random weights from a seed, TF32 off and
-bf16 GEMMs reducing in f32:
+Then it drives sixteen paths, with random weights from a seed, TF32 off
+and bf16 GEMMs reducing in f32:
 
 - ResNet-50 (depth 50, 224x224, 1000 classes) served through
   save_inference_model -> create_predictor(Config(dir)) -> Predictor.run,
@@ -65,6 +67,18 @@ bf16 GEMMs reducing in f32:
   (equal to their solo runs); no kernel launches on this path. The same
   artifact served on the CPU holds the card's prefill and teacher-forced
   step logits (1e-3 of the largest) and greedy transcripts.
+- the image-classification rows of bench.py (BENCHES, bench.py:1771-1790)
+  as it runs them: build_train_net -> enable_bf16 -> Executor.run, 2
+  warm-up and 10 timed steps on one fixed batch, for SmallNet at 32x32
+  (batch 256), AlexNet (256), VGG-19 (128; 4 bf16 bn_apply launches a
+  step: its two 2-D fc -> batch_norm heads, [128, 4096], and the forward
+  each batch_norm_grad re-runs), GoogLeNet (256; 9 inception concats) and
+  SE-ResNeXt-50 (128, half of ResNet-50's bench batch; groups=32
+  convolutions, squeeze-excitation, 106 bf16 bn_apply launches a step),
+  each with its device time a step by bench.py's two-point slope over
+  Executor.run_steps; and GoogLeNet inference served in f32 at batch 16
+  through Predictor.run (no kernel launches), its device time a batch by
+  the slope over Predictor.run_batches.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after. The run compares GPU and CPU outputs of each served
@@ -77,7 +91,13 @@ bf16, causal K2 against the CPU's plain attention), and ResNet-50's
 backward with card and CPU
 fed the card's forward values (f32 and bf16), checks dropout and its
 gradient on the card (keep share, Out and dX exact, fresh masks per step
-and microbatch), times the kernels (CUDA events),
+and microbatch), holds one step of each zoo model at batch 2 (bf16, and
+f32 for VGG-19 and SE-ResNeXt-50) on the card against the CPU (the CPU
+given the card's dropout masks, the backward fed the card's forward
+values) and GoogLeNet's served logits, holds run_steps(4) on VGG-19 and
+run_batches(8) on GoogLeNet against run() bit for bit (the one phase that
+sets torch.backends.cudnn.deterministic), checks and times bn_apply at
+the zoo's shapes, times the kernels (CUDA events),
 the requests and the steps (host clock), and profiles a few requests and
 steps. Every check that fails
 raises, so the exit code is 0 only when all phases passed. Without a
@@ -105,6 +125,8 @@ import paddle_tpu_torch as fluid
 from paddle_tpu_torch import kernels
 from paddle_tpu_torch.contrib import gradient_merge, mixed_precision
 from paddle_tpu_torch.inference import DecodingPredictor, export_decode
+from paddle_tpu_torch.models import (alexnet, googlenet, se_resnext, smallnet,
+                                     vgg)
 from paddle_tpu_torch.models.bert import bert_mlm_logits, build_bert_pretrain
 from paddle_tpu_torch.models.resnet import build_train_net, resnet_imagenet
 from paddle_tpu_torch.models.transformer import (build_decode_spec,
@@ -238,6 +260,54 @@ DECODE_GATE_PROMPTS = 4    # greedy transcripts compared GPU vs CPU
 DECODE_GATE_NEW = 16
 DECODE_TF_STEPS = 16       # teacher-forced steps compared GPU vs CPU
 DECODE_PROFILE_STEPS = 20  # full-occupancy steps timed and profiled
+# the image-classification rows of bench.py (BENCHES, bench.py:1771-1790) as
+# _bench_image_train (:395-429) and bench_smallnet (:1079-1110) run them:
+# build_train_net -> enable_bf16 -> Executor.run(startup) -> Executor.run
+# on one fixed batch of standard normal images and uniform labels. Each
+# path: its model module and build_train_net's arguments, batch, image side,
+# classes, training FLOPs an image as bench.py counts them (None where its
+# row gives none), the K of bench.py's run_steps device-time slope
+# (device_k) and the bn_apply launches a step (each batch_norm op and the
+# forward its batch_norm_grad re-runs). SE-ResNeXt-50 (Hu et al. 2018, the
+# reference's multi-device parity model) has no bench row: it runs at half
+# of ResNet-50's bench batch.
+ZOO = {
+    'smallnet_cifar_training_bf16': dict(
+        module=smallnet, kwargs={}, batch=256, side=32, classes=10,
+        flops=None, k=16, bn=0),
+    'alexnet_training_bf16': dict(
+        module=alexnet, kwargs={}, batch=256, side=224, classes=1000,
+        flops=3 * 2 * 0.77e9, k=4, bn=0),
+    'vgg19_training_bf16': dict(
+        module=vgg, kwargs={'depth': 19}, batch=128, side=224, classes=1000,
+        flops=3 * 2 * 19.6e9, k=4, bn=4),
+    'googlenet_training_bf16': dict(
+        module=googlenet, kwargs={}, batch=256, side=224, classes=1000,
+        flops=3 * 2 * googlenet.GOOGLENET_FWD_MACS, k=4, bn=0),
+    'se_resnext50_training_bf16': dict(
+        module=se_resnext, kwargs={'depth': 50}, batch=128, side=224,
+        classes=1000, flops=None, k=4, bn=106),
+}
+# the GPU-vs-CPU gates of the zoo: batch 2 at full image size, bf16 for
+# every path and f32 too for the two that launch bn_apply
+ZOO_GATE_BATCH = 2
+ZOO_F32_GATES = ('vgg19_training_bf16', 'se_resnext50_training_bf16')
+# best of this many calls at each point of bench.py's two-point slope
+SLOPE_REPS = 3
+# GoogLeNet served as bench.py:593,616-663 bench_googlenet_infer serves it:
+# f32, batch 16, 50 back-to-back requests and one sync, and its device time
+# a batch by the same slope over Predictor.run_batches at K 8
+GOOGLENET_SERVE_BATCH = 16
+GOOGLENET_LATENCY_REQUESTS = 20
+GOOGLENET_THROUGHPUT_REQUESTS = 50
+GOOGLENET_DEVICE_K = 8
+# run_steps(4) against 4 run() calls on VGG-19, run_batches(8) against 8
+# run() calls on GoogLeNet serving, bit for bit
+EXACT_STEPS = 4
+EXACT_BATCHES = 8
+# K1 at the zoo's shapes: VGG-19's two fc -> batch_norm heads, 2-D
+# [128, 4096] (inner size 1)
+VGG_BN_SHAPES = [((4096,), 2)]
 # K1 and its backward are held against their plain versions at the batch of
 # ResNet-50 serving and at those of its f32 and AMP training, where the
 # largest BN outputs take the kernel's grid-stride loop through 2 (f32 at
@@ -282,6 +352,43 @@ def _grid_passes(x):
     return math.ceil(x.numel() * x.element_size() // 16 / BN_GRID_THREADS)
 
 
+def _bn_vs_plain(batch, shapes, dtypes, gen, max_abs):
+    """bn_apply vs bn_apply_reference at each (C, ...) of `shapes` with
+    `batch` in front, in each of `dtypes`, act None and relu, within 1 ulp
+    (one_ulp_bound); the largest |error| by dtype goes into max_abs.
+    Returns the most grid-stride passes a case took."""
+    passes = 0
+    for shape, _ in shapes:
+        c = shape[0]
+        x32 = torch.randn((batch,) + tuple(shape), device='cuda',
+                          generator=gen)
+        k = torch.rand(c, device='cuda', generator=gen) + 0.5
+        b = torch.randn(c, device='cuda', generator=gen)
+        for dtype in dtypes:
+            x = x32.to(dtype)
+            passes = max(passes, _grid_passes(x))
+            for act in (None, 'relu'):
+                y = bn_mod.bn_apply(x, k, b, act)
+                ref = bn_mod.bn_apply_reference(x, k, b, act)
+                torch.cuda.synchronize()
+                err = (y.float() - ref.float()).abs()
+                bound = bn_mod.one_ulp_bound(x, k, b)
+                ulps = float((err / bound.clamp_min(1e-30)).max())
+                abs_err = float(err.max())
+                max_abs[dtype] = max(max_abs.get(dtype, 0.0), abs_err)
+                print('kernel_check shape=%s dtype=%s act=%s '
+                      'grid_passes=%d max_abs_err=%r max_err_ulps=%.3f'
+                      % (tuple(x.shape), str(dtype)[6:], act,
+                         _grid_passes(x), abs_err, ulps))
+                check(bool((err <= bound).all()),
+                      'bn_apply differs from its plain version by more '
+                      'than 1 ulp at %s %s act=%s' % (tuple(x.shape), dtype,
+                                                      act))
+            del x, y, ref, err, bound
+        del x32
+    return passes
+
+
 def phase_kernel_vs_plain():
     """bn_apply vs bn_apply_reference at every ResNet-50 BN shape, at each
     batch and dtype of BN_CHECKS, act None and relu. Tolerance:
@@ -289,34 +396,8 @@ def phase_kernel_vs_plain():
     grid-stride loop through more than one pass."""
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     max_abs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    passes = 0
-    for batch, dtypes in BN_CHECKS:
-        for (c, h, w), _ in BN_SHAPES:
-            shape = (batch, c, h, w)
-            x32 = torch.randn(shape, device='cuda', generator=gen)
-            k = torch.rand(c, device='cuda', generator=gen) + 0.5
-            b = torch.randn(c, device='cuda', generator=gen)
-            for dtype in dtypes:
-                x = x32.to(dtype)
-                passes = max(passes, _grid_passes(x))
-                for act in (None, 'relu'):
-                    y = bn_mod.bn_apply(x, k, b, act)
-                    ref = bn_mod.bn_apply_reference(x, k, b, act)
-                    torch.cuda.synchronize()
-                    err = (y.float() - ref.float()).abs()
-                    bound = bn_mod.one_ulp_bound(x, k, b)
-                    ulps = float((err / bound.clamp_min(1e-30)).max())
-                    abs_err = float(err.max())
-                    max_abs[dtype] = max(max_abs[dtype], abs_err)
-                    print('kernel_check shape=%s dtype=%s act=%s '
-                          'grid_passes=%d max_abs_err=%r max_err_ulps=%.3f'
-                          % (shape, str(dtype)[6:], act, _grid_passes(x),
-                             abs_err, ulps))
-                    check(bool((err <= bound).all()),
-                          'bn_apply differs from its plain version by more '
-                          'than 1 ulp at %s %s act=%s' % (shape, dtype, act))
-                del x, y, ref, err, bound
-            del x32
+    passes = max(_bn_vs_plain(batch, BN_SHAPES, dtypes, gen, max_abs)
+                 for batch, dtypes in BN_CHECKS)
     check(passes > 1, 'no check took bn_apply\'s grid-stride loop through '
           'a second pass')
     return max_abs
@@ -570,23 +651,26 @@ def _busy_ms(fn, inputs):
     return busy_us * 1e-3 / KERNEL_REPS
 
 
-def phase_kernel_times(batch=BN_BATCH, dtype=torch.float32):
-    """bn_apply, its plain version and torch.addcmul at each ResNet-50 BN
-    shape (act None as the model runs it; batch 16 f32 as served, batch 256
-    bf16 as AMP training runs it), beside the shape's bound: max(bytes /
-    HBM rate, operations / f32 rate), x read and y written in `dtype`, k
-    and b read in f32."""
+def phase_kernel_times(batch=BN_BATCH, dtype=torch.float32, shapes=BN_SHAPES,
+                       what='ResNet-50'):
+    """bn_apply, its plain version and torch.addcmul at each (C, ...) BN
+    shape of `shapes` (ResNet-50's by default, act None as the model runs
+    it; batch 16 f32 as served, batch 256 bf16 as AMP training runs it),
+    beside the shape's bound: max(bytes / HBM rate, operations / f32
+    rate), x read and y written in `dtype`, k and b read in f32."""
     gen = torch.Generator(device='cuda').manual_seed(SEED + 4)
     size = dtype.itemsize
     totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    for (c, h, w), count in BN_SHAPES:
-        numel = batch * c * h * w
+    for shape, count in shapes:
+        c = shape[0]
+        numel = batch * int(np.prod(shape))
         copies = max(2, math.ceil(2 * L2_BYTES / (numel * size)))
-        xs = [torch.randn(batch, c, h, w, device='cuda',
+        xs = [torch.randn((batch,) + tuple(shape), device='cuda',
                           generator=gen).to(dtype) for _ in range(copies)]
         k = torch.rand(c, device='cuda', generator=gen) + 0.5
         b = torch.randn(c, device='cuda', generator=gen)
-        k4, b4 = (t.to(dtype).view(1, c, 1, 1) for t in (k, b))
+        k4, b4 = (t.to(dtype).view((1, c) + (1,) * (len(shape) - 1))
+                  for t in (k, b))
         before = bn_mod.bn_apply.launches
         ms = _time_ms(lambda x: bn_mod.bn_apply(x, k, b), xs)
         check(bn_mod.bn_apply.launches - before == KERNEL_REPS + 2,
@@ -597,14 +681,15 @@ def phase_kernel_times(batch=BN_BATCH, dtype=torch.float32):
         bound = max(nbytes / HBM_BYTES_PER_S, 2 * numel / F32_OPS_PER_S) * 1e3
         print('kernel_time shape=%s dtype=%s count=%d kernel_ms=%r '
               'bound_ms=%r plain_ms=%r library_ms=%r bound_share=%.3f' % (
-                  (batch, c, h, w), str(dtype)[6:], count, ms, bound, plain,
-                  lib, bound / ms))
+                  (batch,) + tuple(shape), str(dtype)[6:], count, ms, bound,
+                  plain, lib, bound / ms))
         for key, v in (('ms', ms), ('plain_ms', plain), ('library_ms', lib),
                        ('bound_ms', bound)):
             totals[key] += count * v
         del xs
-    print('kernel_time all 53 BN applies of one batch-%d %s pass: %s'
-          % (batch, str(dtype)[6:], json.dumps(totals)))
+    print('kernel_time all %d BN applies of one batch-%d %s %s pass: %s'
+          % (sum(n for _, n in shapes), batch, str(dtype)[6:], what,
+             json.dumps(totals)))
     return totals
 
 
@@ -1206,20 +1291,24 @@ def _ulp_moved(a, rng, amp):
     f32 scaled by 1 + 1e-7·N(0, 1); with amp, one bf16 ulp at each
     element's magnitude, up or down (a bf16 value lands on its neighbour,
     an f32 parameter on a value whose bf16 cast does). numpy arrays and
-    torch tensors (bf16 ones too) alike."""
+    torch tensors (bf16 ones too) alike; a tensor's draws are made where
+    it lies, by a torch generator seeded from rng, so a large one (VGG-19
+    has 144M parameters) never goes through numpy."""
     if isinstance(a, torch.Tensor):
         if not a.is_floating_point():
             return a
-        m, e = torch.frexp(a.float())
-        sign = torch.from_numpy(rng.choice([-1.0, 1.0], tuple(a.shape))).to(
-            device=a.device, dtype=torch.float32)
+        gen = torch.Generator(device=a.device).manual_seed(
+            int(rng.randint(2 ** 31)))
+        x = a.float()
         if amp:
-            step = torch.where(m == 0, 0.0, torch.ldexp(torch.ones_like(m),
+            m, e = torch.frexp(x)
+            step = torch.where(m == 0, 0.0, torch.ldexp(torch.ones_like(x),
                                                         e - 8))
-            return (a.float() + sign * step).to(a.dtype)
-        noise = torch.from_numpy(rng.randn(*a.shape)).to(
-            device=a.device, dtype=torch.float32)
-        return (a.float() * (1 + 1e-7 * noise)).to(a.dtype)
+            sign = torch.randint(0, 2, x.shape, generator=gen,
+                                 device=x.device) * 2 - 1
+            return (x + sign * step).to(a.dtype)
+        noise = torch.randn(x.shape, generator=gen, device=x.device)
+        return (x * (1 + 1e-7 * noise)).to(a.dtype)
     if a.dtype.kind != 'f':
         return a
     if amp:
@@ -2428,6 +2517,540 @@ def phase_decode_gpu_vs_cpu(dirname, pred, seq, prompts):
         cpu.close()
 
 
+def _phase_seconds(label, t0):
+    print('phase %s seconds %.1f' % (label, time.perf_counter() - t0))
+
+
+def build_zoo_training(name, amp=True):
+    """ZOO[name]'s program as bench.py builds it: build_train_net at its
+    image side and classes, seeded initialization, marked for bf16 by
+    enable_bf16 (with amp)."""
+    spec = ZOO[name]
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    side = spec['side']
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, _, loss, acc = spec['module'].build_train_net(
+            dshape=(3, side, side), class_dim=spec['classes'],
+            **spec['kwargs'])
+    return _mark(main, amp), startup, loss, acc
+
+
+def _zoo_feed(spec, batch, gen):
+    """One batch as bench.py:411-416 makes it: standard normal images and
+    uniform labels, made on the card."""
+    side = spec['side']
+    return {'data': torch.randn(batch, 3, side, side, device='cuda',
+                                generator=gen),
+            'label': torch.randint(0, spec['classes'], (batch, 1),
+                                   device='cuda', generator=gen)}
+
+
+def _slope_ms(run_k, k):
+    """bench.py:318-355's device time a unit (a step or a batch): the best
+    of SLOPE_REPS calls of run_k(K) and of run_k(K/2), each after one
+    untimed call, on the host clock and ending in a sync; (T(K) - T(K/2))
+    / (K - K/2). run_k dispatches K units through run_steps (or
+    run_batches) on a K-group staged outside the timed region. The port's
+    run_steps is a Python loop of run() calls, so the slope is the larger
+    of a unit's device time and its host time."""
+    def timed(kk):
+        run_k(kk)
+        torch.cuda.synchronize()
+        best = float('inf')
+        for _ in range(SLOPE_REPS):
+            t0 = time.perf_counter()
+            run_k(kk)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return best
+    k2 = max(1, k // 2)
+    tk, tk2 = timed(k), timed(k2)
+    return (tk - tk2) / (k - k2) * 1e3
+
+
+def _grouped_conv_ms(run_once, calls=3):
+    """Device ms a call of the kernels that grouped convolutions launch
+    (cuDNN's forward, data and filter gradients and their layout
+    transposes), under torch.profiler with shapes recorded: the kernels of
+    each op whose input shapes hold an input [N, C, H, W] followed by a
+    filter [C, C/g, kh, kw] with g > 1 (the forward's (x, w), the
+    backward's (input, weight)). None where the trace holds no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(calls):
+            run_once()
+        torch.cuda.synchronize()
+    grouped = total = 0.0
+    for e in prof.events():
+        us = sum(k.duration for k in e.kernels)
+        total += us
+        shapes = [s for s in (e.input_shapes or [])]
+        if us and any(
+                len(a) == 4 and len(w) == 4 and w[1] > 0 and w[0] == a[1]
+                and a[1] % w[1] == 0 and a[1] // w[1] > 1
+                for a, w in zip(shapes, shapes[1:])):
+            grouped += us
+    if not total:
+        return None
+    return grouped * 1e-3 / calls
+
+
+def phase_zoo_training(name):
+    """ZOO[name] on the card as bench.py runs its row: the op census,
+    startup, TRAIN_WARMUP_STEPS, then TRAIN_STEPS timed steps (host clock
+    around Executor.run and a sync) on one fixed batch, fetching the loss
+    and the accuracy. Each timed step launches bn_apply exactly
+    ZOO[name]['bn'] times, all bf16, and no other kernel of the port; every
+    loss is finite. Prints p50, p90, img/s, MFU where bench.py gives the
+    FLOPs, peak allocated memory, the device ms a step by bench.py's slope
+    over run_steps (_slope_ms), and a 3-step profile (with SE-ResNeXt, the
+    grouped convolutions' share). Returns the launches over the timed
+    steps and a summary."""
+    spec = ZOO[name]
+    t0 = time.perf_counter()
+    main, startup, loss, acc = build_zoo_training(name)
+    ops = main.global_block().ops
+    census = collections.Counter(op.type for op in ops)
+    groups = [op.attrs.get('groups') or 1 for op in ops
+              if op.type == 'conv2d']
+    grouped = sum(g > 1 for g in groups)
+    check(2 * census['batch_norm'] == spec['bn']
+          and census['batch_norm_grad'] == census['batch_norm'],
+          '%s: %d batch_norm ops' % (name, census['batch_norm']))
+    print('model %s build_train_net(%s) %dx%d classes=%d bf16 (enable_bf16) '
+          'ops=%d batch_norm=%d concat=%d dropout=%d conv2d=%d grouped=%d '
+          'parameters=%d parameter_elements=%d build_s=%.1f' % (
+              name, spec['kwargs'], spec['side'], spec['side'],
+              spec['classes'], len(ops), census['batch_norm'],
+              census['concat'], census['dropout'], census['conv2d'], grouped,
+              len(main.all_parameters()),
+              sum(int(np.prod(p.shape)) for p in main.all_parameters()),
+              time.perf_counter() - t0))
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 30)
+    batch = spec['batch']
+    feed = _zoo_feed(spec, batch, gen)
+    losses, accs = [], []
+
+    def step():
+        return exe.run(main, feed=feed, fetch_list=[loss, acc], scope=scope,
+                       return_numpy=False)
+
+    def record(out):
+        losses.append(float(out[0].reshape(-1)[0]))
+        accs.append(float(out[1].reshape(-1)[0]))
+
+    for _ in range(TRAIN_WARMUP_STEPS):
+        record(step())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want = {'bn_apply': spec['bn'], 'flash_attn_fwd': 0,
+            'flash_attn_bwd_dkv': 0, 'flash_attn_bwd_dq': 0}
+    reset_launches()
+    times = []
+    for _ in range(TRAIN_STEPS):
+        before, before_dt = read_launches(), read_launches_by_dtype()
+        t1 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        after = read_launches()
+        launched = {k: after[k] - before[k] for k in after}
+        check(launched == want, '%s: a step launched %s, not %s'
+              % (name, launched, want))
+        by_dt = _by_dtype_step(before_dt, read_launches_by_dtype())
+        check(by_dt['bn_apply']['bfloat16'] == spec['bn'],
+              '%s: a step launched bn_apply %s, not all bf16'
+              % (name, by_dt['bn_apply']))
+        record(out)
+    counts = read_launches()
+    counts_by_dtype = read_launches_by_dtype()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses), '%s: non-finite loss: %s'
+          % (name, losses))
+    p50 = float(np.percentile(times, 50))
+    img_s = batch / p50
+    mfu = None if spec['flops'] is None else \
+        img_s * spec['flops'] / BF16_OPS_PER_S
+    print('%s batch=%d lr=0.01 momentum=0.9 losses=%s accuracies=%s' % (
+        name, batch, json.dumps([round(x, 5) for x in losses]),
+        json.dumps([round(x, 4) for x in accs])))
+    print('%s launches over %d timed steps: %s (per step: %s; by dtype: %s)'
+          % (name, TRAIN_STEPS, json.dumps(counts), json.dumps(want),
+             json.dumps(counts_by_dtype)))
+    print('%s step p50_ms=%r p90_ms=%r img_per_s=%r mfu=%s%s '
+          'peak_allocated_gb=%.2f (host clock, %d steps, each ending in a '
+          'sync)' % (name, p50 * 1e3, float(np.percentile(times, 90)) * 1e3,
+                     img_s, 'null' if mfu is None else '%.4f' % mfu,
+                     '' if mfu is None else ' (flops_per_img %g at %g bf16 '
+                     'dense FLOP/s)' % (spec['flops'], BF16_OPS_PER_S),
+                     peak / 2 ** 30, TRAIN_STEPS))
+
+    def run_k(kk):
+        group = {n: t.expand((kk,) + tuple(t.shape)) for n, t in feed.items()}
+        exe.run_steps(main, feed=group, fetch_list=[loss], scope=scope,
+                      return_numpy=False)
+    device_ms = _slope_ms(run_k, spec['k'])
+    print('%s run_steps slope: device_ms_per_step=%r (K=%d and %d, best of '
+          '%d each; host and device overlap: the larger of the two a step)'
+          % (name, device_ms, spec['k'], spec['k'] // 2, SLOPE_REPS))
+
+    def once():
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                return_numpy=False)
+    per_kernel = _profile(once, '%s batch=%d' % (name, batch), 'steps')
+    busy = sum(per_kernel.values()) / 3 if per_kernel else None
+    summary = dict(batch=batch, ops=len(ops), p50_ms=p50 * 1e3,
+                   img_per_s=img_s, mfu=mfu, peak_gb=peak / 2 ** 30,
+                   device_ms_slope=device_ms, device_busy_ms=busy)
+    if per_kernel and spec['bn']:
+        summary['bn_apply_ms'] = sum(
+            ms for k, ms in per_kernel.items() if 'bn_apply' in k) / 3
+        print('profile %s: bn_apply device_ms_per_step=%r share=%.3f' % (
+            name, summary['bn_apply_ms'], summary['bn_apply_ms'] / busy))
+    if grouped:
+        g_ms = _grouped_conv_ms(once)
+        summary['grouped_conv_ms'] = g_ms
+        print('profile %s: grouped convolutions (groups=%d, %d ops) '
+              'device_ms_per_step=%s share=%s' % (
+                  name, max(groups), grouped,
+                  'not measured' if g_ms is None else repr(g_ms),
+                  'not measured' if g_ms is None or not busy
+                  else '%.3f' % (g_ms / busy)))
+    del scope, feed
+    torch.cuda.empty_cache()
+    _phase_seconds(name, t0)
+    return counts, summary
+
+
+def _forward_program(main):
+    """The forward ops of `main` (those without an op_role) as a program
+    of their own, marked for bf16 where `main` is."""
+    fwd = _mark(main.clone(), getattr(main, '_amp_bf16', False))
+    fwd.global_block().ops = [op for op in fwd.global_block().ops
+                              if not op.attrs.get('op_role')]
+    return fwd
+
+
+def phase_zoo_gpu_vs_cpu(name, amp):
+    """One training step of ZOO[name] at ZOO_GATE_BATCH and full image
+    size, card against CPU, from one initial state (run on the card,
+    carried to the CPU with weights.py), every dropout op given the mask
+    the card drew: the loss of the forward ops, then the gradient of every
+    parameter from the backward and Momentum ops fed the card's forward
+    values of the step (these are ReLU networks: fed the same values, both
+    take the same relu masks; phase_resnet_backward_gpu_vs_cpu's design).
+    Each within max(1e-5 of its largest value, 4 times the noise): the
+    largest move over NOISE_DRAWS one-ulp draws (f32, or one bf16 ulp with
+    amp; _perturbed, on the card) of the parameters (and, for the
+    gradients, the fed values) on the card plus that on the CPU. The card launches bn_apply once per
+    batch_norm op in the forward and once in the backward, in the path's
+    dtype."""
+    t0 = time.perf_counter()
+    label = '%s_gpu_vs_cpu_%s' % (name[:-len('_bf16')], _precision(amp))
+    main, startup, loss, _ = build_zoo_training(name, amp)
+    n_bn = ZOO[name]['bn'] // 2
+    dtype = 'bfloat16' if amp else 'float32'
+    forward = _forward_program(main)
+    update, fed_names = _update_program(main)
+    params = {p.name for p in main.all_parameters()}
+    grads = sorted(n + '@GRAD' for n in params)
+    gpu = fluid.Executor(fluid.CUDAPlace(0))
+    cpu = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    gpu.run(startup, scope=scope)
+    state = {v.name: scope.get(v.name).clone() for v in main.list_vars()
+             if v.persistable}
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 31)
+    feed = _zoo_feed(ZOO[name], ZOO_GATE_BATCH, gen)
+    masks = {}
+    real = tensor_ops.draw_dropout_keep
+
+    def card_masks(ctx, shape, p):
+        if ctx.device.type == 'meta':
+            return real(ctx, shape, p)
+        key = ctx.op.output('Mask')[0]
+        if key not in masks:
+            check(ctx.device.type == 'cuda', 'the CPU ran before the card')
+            masks[key] = real(ctx, shape, p)
+        return masks[key].to(ctx.device)
+
+    def launched(fn):
+        before = read_launches_by_dtype()['bn_apply']
+        out = fn()
+        after = read_launches_by_dtype()['bn_apply']
+        got = {k: after[k] - before[k] for k in after}
+        check(got[dtype] == n_bn and sum(got.values()) == n_bn,
+              '%s: bn_apply launched %s, not %d %s' % (label, got, n_bn,
+                                                       dtype))
+        return out
+
+    tensor_ops.draw_dropout_keep = card_masks
+    try:
+        fed = dict(zip(fed_names, gpu.run(main, feed=feed,
+                                          fetch_list=fed_names, scope=scope,
+                                          return_numpy=False)))
+        del scope
+        block = update.global_block()
+        for n, t in fed.items():
+            block.var(n).dtype = fluid.convert_dtype(t.dtype)
+        runs = {}
+        for exe, device in ((gpu, 'cuda'), (cpu, 'cpu')):
+            for i in range(NOISE_DRAWS + 1):
+                st, fd = state, fed
+                if i:
+                    st = _perturbed(state, SEED + 40 + 2 * i, amp, params)
+                    fd = _perturbed(fed, SEED + 41 + 2 * i, amp)
+                sc = fluid.Scope()
+                for n, t in st.items():
+                    sc.set(n, t.to(device))
+
+                def fwd():
+                    return exe.run(forward, feed={n: t.to(device) for n, t
+                                                  in feed.items()},
+                                   fetch_list=[loss.name], scope=sc)
+
+                def bwd():
+                    return exe.run(update, feed={n: t.to(device) for n, t
+                                                 in fd.items()},
+                                   fetch_list=grads, scope=sc)
+                runs[device, i] = (launched(fwd) if device == 'cuda'
+                                   else fwd()) + (
+                    launched(bwd) if device == 'cuda' else bwd())
+                del sc
+    finally:
+        tensor_ops.draw_dropout_keep = real
+    n_dropout = sum(op.type == 'dropout' for op in forward.global_block().ops)
+    check(len(masks) == n_dropout, '%s: %d masks drawn, not %d'
+          % (label, len(masks), n_dropout))
+    worst, failed = (0.0, ''), []
+    first_conv = next(op.input('Filter')[0] for op in forward.global_block().ops
+                      if op.type == 'conv2d')
+    shown = {loss.name, first_conv + '@GRAD', 'batch_norm_0.w_0@GRAD',
+             main.all_parameters()[-1].name + '@GRAD'}
+    for j, name_j in enumerate([loss.name] + grads):
+        g, w = runs['cuda', 0][j], runs['cpu', 0][j]
+        noise = sum(max(float(np.abs(runs[d, i][j] - runs[d, 0][j]).max())
+                        for i in range(1, NOISE_DRAWS + 1))
+                    for d in ('cuda', 'cpu'))
+        err, top = float(np.abs(g - w).max()), float(np.abs(w).max())
+        tol = max(1e-5 * top, 4 * noise)
+        if name_j in shown:
+            print('%s batch=%d %s shape=%s max_abs_err=%r max_abs=%r '
+                  'one_ulp_noise=%r tolerance=%r' % (
+                      label, ZOO_GATE_BATCH, name_j, tuple(w.shape), err, top,
+                      noise, tol))
+        if not (g.shape == w.shape and np.isfinite(g).all() and err <= tol
+                and (top > 0 or name_j == loss.name)):
+            failed.append((name_j, err, tol, top))
+        worst = max(worst, (err / tol, name_j))
+    print('%s batch=%d: the loss and %d gradients (the backward fed the '
+          'card\'s forward values, %d of them bf16; %d card masks given to '
+          'the CPU) worst err/tol=%.3f (%s)' % (
+              label, ZOO_GATE_BATCH, len(grads),
+              sum(t.dtype == torch.bfloat16 for t in fed.values()),
+              len(masks), worst[0], worst[1]))
+    check(not failed, 'GPU and CPU %s differ (name, err, tolerance, largest '
+          'value): %s' % (label, failed[:10]))
+    _phase_seconds(label, t0)
+
+
+def build_googlenet_serving(dirname):
+    """GoogLeNet's inference program (is_train=False: dropout scales by
+    its keep rate) at 224x224 and 1000 classes, initialized on the card by
+    the startup program and saved as an inference model, as
+    bench.py:616-634 builds it. Returns its op count."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED + 32
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        img = fluid.layers.data('data', shape=[3, 224, 224], dtype='float32')
+        logits = googlenet.googlenet(img, class_dim=1000, is_train=False)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        fluid.io.save_inference_model(dirname, ['data'], [logits], exe, main)
+    return len(main.global_block().ops)
+
+
+def phase_googlenet_serving(dirname):
+    """GoogLeNet served at batch GOOGLENET_SERVE_BATCH in f32 through
+    create_predictor(Config(dir)) -> Predictor.run, as bench.py's
+    googlenet_infer row serves it: GOOGLENET_LATENCY_REQUESTS requests
+    each ending in a sync (p50, p90), then GOOGLENET_THROUGHPUT_REQUESTS
+    back to back with one sync (img/s); no kernel of the port launches.
+    Then the device ms a batch by bench.py's slope over run_batches, a
+    3-request profile, and the CPU's logits from the same directory
+    against the card's, within 1e-3 of the largest logit."""
+    t0 = time.perf_counter()
+    pred = fluid.inference.create_predictor(fluid.inference.Config(dirname))
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 33)
+    x = torch.randn(GOOGLENET_SERVE_BATCH, 3, 224, 224, device='cuda',
+                    generator=gen)
+    pred.warmup([x])
+    torch.cuda.synchronize()
+    reset_launches()
+    times = []
+    for _ in range(GOOGLENET_LATENCY_REQUESTS):
+        t1 = time.perf_counter()
+        out, = pred.run([x], return_numpy=False)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    t1 = time.perf_counter()
+    for _ in range(GOOGLENET_THROUGHPUT_REQUESTS):
+        out, = pred.run([x], return_numpy=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = read_launches()
+    check(not any(counts.values()), 'GoogLeNet serving launched %s' % counts)
+    img_s = GOOGLENET_SERVE_BATCH * GOOGLENET_THROUGHPUT_REQUESTS / wall
+    print('googlenet_serving batch=%d f32 p50_ms=%r p90_ms=%r (host clock, '
+          '%d requests, each ending in a sync) img_per_s=%r (%d requests, '
+          'one sync) launches=%s' % (
+              GOOGLENET_SERVE_BATCH, float(np.percentile(times, 50)) * 1e3,
+              float(np.percentile(times, 90)) * 1e3,
+              GOOGLENET_LATENCY_REQUESTS, img_s,
+              GOOGLENET_THROUGHPUT_REQUESTS, json.dumps(counts)))
+
+    def run_k(kk):
+        pred.run_batches([[x]] * kk, return_numpy=False)
+    device_ms = _slope_ms(run_k, GOOGLENET_DEVICE_K)
+    print('googlenet_serving run_batches slope: device_ms_per_batch=%r '
+          'device_img_per_s=%r (K=%d and %d, best of %d each)' % (
+              device_ms, GOOGLENET_SERVE_BATCH / device_ms * 1e3,
+              GOOGLENET_DEVICE_K, GOOGLENET_DEVICE_K // 2, SLOPE_REPS))
+    _profile(lambda: pred.run([x], return_numpy=False),
+             'googlenet_serving batch=%d' % GOOGLENET_SERVE_BATCH,
+             'requests')
+    got = out.cpu().numpy()
+    want, = fluid.inference.create_predictor(fluid.inference.Config(
+        dirname).disable_gpu()).run([x.cpu()])
+    err, top = float(np.abs(got - want).max()), float(np.abs(want).max())
+    print('googlenet_serving gpu_vs_cpu batch=%d logits max_abs_err=%r '
+          'max_abs=%r rel=%r tolerance=%r' % (
+              GOOGLENET_SERVE_BATCH, err, top, err / top, 1e-3 * top))
+    check(got.shape == want.shape == (GOOGLENET_SERVE_BATCH, 1000)
+          and np.isfinite(got).all() and err <= 1e-3 * top,
+          'GPU and CPU GoogLeNet logits differ: %r of %r' % (err, top))
+    _phase_seconds('googlenet_serving', t0)
+    return pred, counts
+
+
+def phase_run_steps_exactness(gnet_pred):
+    """Executor.run_steps and Predictor.run_batches against run() on the
+    card, bit for bit, with torch.backends.cudnn.deterministic set in this
+    phase alone (cuDNN's backward algorithms may otherwise sum with
+    atomics, and two runs of one step would differ): VGG-19 at its bench
+    batch in bf16 (its two dropout ops need the per-step random stream),
+    run_steps(EXACT_STEPS, fetch_policy='stack') on EXACT_STEPS distinct
+    batches against as many run() calls, each from the same initial
+    state on a fresh Executor: the same losses and every parameter and
+    velocity after; and GoogLeNet serving's run_batches(EXACT_BATCHES)
+    against as many run() calls."""
+    t0 = time.perf_counter()
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    print('run_steps_exactness: this phase alone sets '
+          'torch.backends.cudnn.deterministic = True')
+    try:
+        name = 'vgg19_training_bf16'
+        spec = ZOO[name]
+        main, startup, loss, _ = build_zoo_training(name)
+        persist = [v.name for v in main.list_vars() if v.persistable]
+        scope = fluid.Scope()
+        fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=scope)
+        start = {n: scope.get(n).clone() for n in persist
+                 if scope.get(n) is not None}
+        del scope
+        gen = torch.Generator(device='cuda').manual_seed(SEED + 34)
+        feeds = [_zoo_feed(spec, spec['batch'], gen)
+                 for _ in range(EXACT_STEPS)]
+        runs = []
+        for k in (1, EXACT_STEPS):
+            exe = fluid.Executor(fluid.CUDAPlace(0))
+            scope = fluid.Scope()
+            for n, t in start.items():
+                scope.set(n, t.clone())
+            if k == 1:
+                losses = torch.stack([exe.run(
+                    main, feed=f, fetch_list=[loss], scope=scope,
+                    return_numpy=False)[0] for f in feeds])
+            else:
+                losses, = exe.run_steps(
+                    main, feed={n: torch.stack([f[n] for f in feeds])
+                                for n in feeds[0]},
+                    fetch_list=[loss], scope=scope, fetch_policy='stack',
+                    return_numpy=False)
+            runs.append((losses, {n: scope.get(n) for n in start}))
+            del scope
+        (la, sa), (lb, sb) = runs
+        moved = sum(not torch.equal(sa[n], start[n]) for n in start)
+        differ = [n for n in start if not torch.equal(sa[n], sb[n])]
+        print('run_steps_exactness %s batch=%d: losses run()=%s '
+              'run_steps=%s; %d persistables (%d moved), %d differ' % (
+                  name, spec['batch'], la.reshape(-1).tolist(),
+                  lb.reshape(-1).tolist(), len(start), moved, len(differ)))
+        check(torch.equal(la, lb) and not differ and moved > 0,
+              'run_steps(%d) differs from %d run() calls: losses %s / %s, '
+              'persistables %s' % (EXACT_STEPS, EXACT_STEPS, la.tolist(),
+                                   lb.tolist(), differ[:10]))
+        del runs, start, sa, sb, feeds
+        torch.cuda.empty_cache()
+        batches = [[torch.randn(GOOGLENET_SERVE_BATCH, 3, 224, 224,
+                                device='cuda', generator=gen)]
+                   for _ in range(EXACT_BATCHES)]
+        want = [gnet_pred.run(b, return_numpy=False)[0] for b in batches]
+        got = gnet_pred.run_batches(batches, return_numpy=False)
+        equal = [torch.equal(g[0], w) for g, w in zip(got, want)]
+        print('run_steps_exactness googlenet_serving run_batches(%d) == %d '
+              'run() calls: %s' % (EXACT_BATCHES, EXACT_BATCHES, equal))
+        check(len(got) == EXACT_BATCHES and all(equal),
+              'run_batches differs from run(): %s' % equal)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    _phase_seconds('run_steps_exactness', t0)
+
+
+def phase_zoo_kernel(se_shapes):
+    """bn_apply at the zoo's new shapes: VGG-19's 2-D [128, 4096] (inner
+    size 1) and SE-ResNeXt-50's 53 BN outputs at batch 128, in f32 and
+    bf16: against its plain version (_bn_vs_plain), then timed with its
+    bound, plain version and torch.addcmul (phase_kernel_times). Returns
+    {label: totals} and the largest |error| by dtype."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 35)
+    max_abs = {}
+    out = {}
+    for what, shapes, batch in (
+            ('vgg19_fc_bn_2d', VGG_BN_SHAPES, ZOO['vgg19_training_bf16'][
+                'batch']),
+            ('se_resnext50', se_shapes, ZOO['se_resnext50_training_bf16'][
+                'batch'])):
+        _bn_vs_plain(batch, shapes, (torch.float32, torch.bfloat16), gen,
+                     max_abs)
+        for dtype in (torch.float32, torch.bfloat16):
+            out['%s_batch%d_%s' % (what, batch, str(dtype)[6:])] = \
+                phase_kernel_times(batch, dtype, shapes, what)
+    _phase_seconds('zoo_kernel', t0)
+    return out, max_abs
+
+
+def _se_bn_shapes():
+    """The (C, H, W) of SE-ResNeXt-50's 53 batch_norm inputs at 224x224,
+    with counts, from its program."""
+    main = build_zoo_training('se_resnext50_training_bf16')[0]
+    block = main.global_block()
+    shapes = collections.Counter(
+        tuple(block.var(op.input('X')[0]).shape[1:])
+        for op in block.ops if op.type == 'batch_norm')
+    check(sum(shapes.values()) == 53, 'SE-ResNeXt-50 BN shapes %s' % shapes)
+    return sorted(shapes.items(), key=lambda kv: -kv[1])
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this run '
@@ -2591,6 +3214,29 @@ def main():
     del decode_pred
     torch.cuda.empty_cache()
 
+    # the image-classification zoo at bench.py's settings: SmallNet,
+    # AlexNet, VGG-19, GoogLeNet and SE-ResNeXt-50 trained in bf16, the
+    # GPU-vs-CPU gates, GoogLeNet served, run_steps and run_batches held
+    # against run() bit for bit, and K1 at the zoo's shapes
+    zoo_counts, zoo_summary = {}, {}
+    for name in ZOO:
+        zoo_counts[name], zoo_summary[name] = phase_zoo_training(name)
+    for name in ZOO:
+        phase_zoo_gpu_vs_cpu(name, amp=True)
+        if name in ZOO_F32_GATES:
+            phase_zoo_gpu_vs_cpu(name, amp=False)
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        n_ops = build_googlenet_serving(d)
+        print('model googlenet inference 224x224 classes=1000 f32 ops=%d '
+              'build_init_save_s=%.1f' % (n_ops, time.perf_counter() - t0))
+        gnet_pred, gnet_counts = phase_googlenet_serving(d)
+        phase_run_steps_exactness(gnet_pred)
+    del gnet_pred
+    torch.cuda.empty_cache()
+    zoo_k1, zoo_k1_abs = phase_zoo_kernel(_se_bn_shapes())
+
     totals = phase_kernel_times()
     totals_amp = phase_kernel_times(RESNET_AMP_BATCH, torch.bfloat16)
     k2_rows = phase_flash_times()
@@ -2606,7 +3252,9 @@ def main():
              'bert_bench_training': bench_counts,
              'transformer_bench_training': trans_counts,
              'transformer_bench_training_dropout0': trans0_counts,
-             'decode_serving': decode_counts}
+             'decode_serving': decode_counts,
+             'googlenet_serving': gnet_counts}
+    paths.update(zoo_counts)
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}
@@ -2665,6 +3313,13 @@ def main():
             k1_amp or {}, batch=RESNET_AMP_BATCH,
             launches=resnet_amp_counts['bn_apply'] // TRAIN_STEPS),
         'bf16_batch%d' % RESNET_AMP_BATCH: totals_amp,
+        'max_abs_err_zoo_shapes': {str(dt)[6:]: err
+                                   for dt, err in zoo_k1_abs.items()},
+        'zoo_shapes': zoo_k1,
+        'zoo_training_steps': {
+            name: {k: zoo_summary[name].get(k) for k in (
+                'batch', 'bn_apply_ms', 'device_busy_ms')}
+            for name in ZOO if ZOO[name]['bn']},
         'ms': totals['ms'], 'plain_ms': totals['plain_ms'],
         'bound_ms': totals['bound_ms'], 'bound_by': 'bytes',
         'library_ms': totals['library_ms']}, {

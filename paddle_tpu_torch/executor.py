@@ -18,6 +18,11 @@ step function, this one interprets it eagerly (core/lowering.py):
 Each Executor counts its runs of each program (by `Program._uid`, as
 paddle_tpu/executor.py:270-282 does); the count seeds the ops' random
 draws, so dropout draws fresh masks at every step.
+
+`run_steps` (paddle_tpu/executor.py:373) runs K steps from one call on a
+group of K stacked or listed feeds. Where the JAX executor scans the
+traced step K times in one dispatch, this one calls `run` K times, so the
+steps share `run`'s counter and are `run`'s steps bit for bit.
 """
 from __future__ import annotations
 
@@ -108,6 +113,58 @@ class Executor(object):
                              "not computed by the program and not fed"
                              % missing)
         fetches = interp.fetches + [env[n] for n in fetch_names]
+        if return_numpy:
+            return [_to_numpy(t) for t in fetches]
+        return fetches
+
+    def run_steps(self, program=None, reader=None, fetch_list=None,
+                  steps=None, feed=None, scope=None, return_numpy=True,
+                  fetch_policy='final', checkpoint=None):
+        """Run K training steps (or inference batches) from one call, as
+        paddle_tpu/executor.py:373-470 `run_steps` does, with its feed and
+        fetch contract: `feed` maps each name to a stacked [K, ...] array
+        or tensor, or to a list or tuple of K per-step values; `steps`,
+        where given, must equal K. Step i runs `run` on the i-th entry of
+        every feed, so the steps take the same per-step counter as `run`
+        (the same dropout masks, Momentum state and gradient merge) and
+        the two interleave freely: run_steps(K) is K `run` calls bit for
+        bit.
+
+        fetch_policy: 'final' returns the last step's fetches; 'stack'
+        returns each fetch stacked over a leading K axis.
+
+        Not ported yet: the `reader=` feed source and `checkpoint=`
+        (their modules, reader/ and core/checkpoint.py, are not in the
+        port) raise NotImplementedError."""
+        if fetch_policy not in ('final', 'stack'):
+            raise ValueError("fetch_policy must be 'final' or 'stack', "
+                             "got %r" % (fetch_policy,))
+        if steps is not None and int(steps) < 1:
+            raise ValueError("run_steps: steps must be >= 1, got %d"
+                             % int(steps))
+        program = program if program is not None else default_main_program()
+        if reader is not None or checkpoint is not None:
+            raise NotImplementedError(
+                "run_steps: the reader= feed source and checkpoint= are not "
+                "ported yet (reader/ and core/checkpoint.py: ROADMAP.md "
+                "queue 1 item 11); pass feed= as stacked [K, ...] values or "
+                "K-lists")
+        if not feed:
+            raise ValueError(
+                "run_steps needs a feed source: pass feed= (stacked arrays "
+                "or K-lists)")
+        k = _step_count(feed, steps)
+        outs = []
+        for i in range(k):
+            outs.append(self.run(program, feed={n: v[i]
+                                                for n, v in feed.items()},
+                                 fetch_list=fetch_list, scope=scope,
+                                 return_numpy=False))
+        if fetch_policy == 'final':
+            fetches = outs[-1]
+        else:
+            fetches = [torch.stack([o[j] for o in outs])
+                       for j in range(len(outs[0]))]
         if return_numpy:
             return [_to_numpy(t) for t in fetches]
         return fetches
@@ -212,6 +269,33 @@ class Executor(object):
                 "loop and is not a carried output; fetch the loss or a "
                 "persistable instead" % (missing,))
         return outer
+
+
+def _step_count(feed, steps):
+    """K of a run_steps feed group: the length of each list or tuple, the
+    leading dim of each stacked value (paddle_tpu/executor.py:546-576).
+    Raises unless every feed gives the same K and `steps`, where given,
+    equals it."""
+    ks = set()
+    for name, value in feed.items():
+        if isinstance(value, (list, tuple)):
+            ks.add(len(value))
+            continue
+        shape = tuple(getattr(value, 'shape', None) or np.shape(value))
+        if not shape:
+            raise ValueError("run_steps feed %r has no leading step "
+                             "dimension" % name)
+        ks.add(int(shape[0]))
+    if len(ks) != 1:
+        raise ValueError("run_steps: feeds disagree on the step dimension: "
+                         "%s" % sorted(ks))
+    k = ks.pop()
+    if k < 1:
+        raise ValueError("run_steps: the feed carries no step")
+    if steps is not None and int(steps) != k:
+        raise ValueError("run_steps(steps=%d) but the feed carries %d "
+                         "stacked steps" % (int(steps), k))
+    return k
 
 
 def _check_ga_feeds(feed, k):

@@ -3,8 +3,9 @@ paddle_api.h PaddlePredictor; paddle_tpu/inference/predictor.py:19-167).
 
 load -> run: the directory written by `io.save_inference_model` (by either
 package) is loaded into the predictor's own Scope on its device, and each
-`run` interprets the pruned program with the Executor. The predictor runs
-on the card unless the Config asks for the CPU with `disable_gpu()`.
+`run` interprets the pruned program with the Executor; `run_batches` runs
+K batches through `Executor.run_steps`. The predictor runs on the card
+unless the Config asks for the CPU with `disable_gpu()`.
 """
 from __future__ import annotations
 
@@ -56,19 +57,43 @@ class Predictor(object):
     def get_output_names(self):
         return [v.name for v in self._fetch_vars]
 
-    def run(self, inputs, return_numpy=True):
-        """inputs: a list in feed order or a dict name -> array/tensor.
-        Returns the outputs as numpy arrays, or as device tensors with
-        return_numpy=False (an async serving loop then syncs once)."""
+    def _feed(self, inputs):
         if isinstance(inputs, (list, tuple)):
             if len(inputs) != len(self._feed_names):
                 raise ValueError(
                     "predictor expects %d inputs (%s), got %d"
                     % (len(self._feed_names), self._feed_names, len(inputs)))
             inputs = dict(zip(self._feed_names, inputs))
-        return self._exe.run(self._program, feed=dict(inputs),
+        return dict(inputs)
+
+    def run(self, inputs, return_numpy=True):
+        """inputs: a list in feed order or a dict name -> array/tensor.
+        Returns the outputs as numpy arrays, or as device tensors with
+        return_numpy=False (an async serving loop then syncs once)."""
+        return self._exe.run(self._program, feed=self._feed(inputs),
                              fetch_list=self.get_output_names(),
                              scope=self._scope, return_numpy=return_numpy)
+
+    def run_batches(self, batches, return_numpy=True):
+        """Bulk inference over K batches, each a list (feed order) or dict
+        as `run` takes it, through Executor.run_steps with
+        fetch_policy='stack' (paddle_tpu/inference/predictor.py:116-146).
+        Returns K per-batch output lists, each equal to a `run` of its
+        batch; every batch must have the same shapes."""
+        feeds = [self._feed(b) for b in batches]
+        if not feeds:
+            return []
+        missing = [n for n in self._feed_names
+                   if any(n not in f for f in feeds)]
+        if missing:
+            raise ValueError("batches missing feeds: %r (predictor "
+                             "expects %s)" % (missing, self._feed_names))
+        outs = self._exe.run_steps(
+            self._program, feed={n: [f[n] for f in feeds]
+                                 for n in self._feed_names},
+            fetch_list=self.get_output_names(), scope=self._scope,
+            fetch_policy='stack', return_numpy=return_numpy)
+        return [[o[i] for o in outs] for i in range(len(feeds))]
 
     def warmup(self, sample_inputs):
         """One run ahead of serving (cuDNN picks its algorithms)."""

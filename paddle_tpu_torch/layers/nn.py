@@ -1,6 +1,6 @@
 """Neural-network layer functions (ref: python/paddle/fluid/layers/nn.py;
 paddle_tpu/layers/nn.py:25,52,71,182,234,275,356,370,388,510,691,736,776-793,
-842,849,857,867,900,937,983,1008,1057,1161,1573-1615,1955).
+842,849,857,867,900,937,983,1008,1049,1057,1161,1573-1615,1955).
 
 The port's copies of the layers the serving and training slices need. Each appends the
 same ops with the same attrs and names as its paddle_tpu counterpart, so a
@@ -17,10 +17,11 @@ from ..param_attr import ParamAttr
 
 __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
            'dropout', 'relu', 'elementwise_add', 'elementwise_sub',
-           'elementwise_max', 'elementwise_min', 'elementwise_pow',
-           'reshape', 'transpose', 'fused_multihead_attention', 'matmul',
+           'elementwise_mul', 'elementwise_div', 'elementwise_max',
+           'elementwise_min', 'elementwise_pow', 'reshape', 'transpose',
+           'fused_multihead_attention', 'matmul',
            'softmax_with_cross_entropy', 'reduce_sum', 'mean', 'softmax',
-           'topk', 'pad', 'cast', 'square_error_cost',
+           'topk', 'pad', 'cast', 'concat', 'square_error_cost',
            'add_position_encoding', 'scale', 'slice', 'gather', 'kv_cache_write',
            'kv_cache_prefill_write', 'kv_cache_attention']
 
@@ -224,6 +225,8 @@ def _elementwise_layer(op_type):
 
 elementwise_add = _elementwise_layer('elementwise_add')
 elementwise_sub = _elementwise_layer('elementwise_sub')
+elementwise_mul = _elementwise_layer('elementwise_mul')
+elementwise_div = _elementwise_layer('elementwise_div')
 elementwise_max = _elementwise_layer('elementwise_max')
 elementwise_min = _elementwise_layer('elementwise_min')
 elementwise_pow = _elementwise_layer('elementwise_pow')
@@ -361,6 +364,16 @@ def cast(x, dtype):
     helper.append_op(type='cast', inputs={'X': x}, outputs={'Out': out},
                      attrs={'in_dtype': x.dtype,
                             'out_dtype': convert_dtype(dtype)})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    """The variables of the list `input` joined along `axis` (ref nn.py
+    concat; paddle_tpu/layers/nn.py:1049)."""
+    helper = LayerHelper('concat', name=name)
+    out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op(type='concat', inputs={'X': input},
+                     outputs={'Out': out}, attrs={'axis': axis})
     return out
 
 

@@ -1,12 +1,12 @@
 """Tensor op lowerings: the startup program's init ops (assign_value
-among them), range, dropout, the reshape2/transpose2 views, slice,
+among them), range, dropout, the reshape2/transpose2 views, concat, slice,
 gather, pad, cum_sum, top_k and add_position_encoding (ref:
 operators/fill_constant_op.cc, assign_value_op.cc, uniform_random_op.cc,
 gaussian_random_op.cc, range_op.cc, dropout_op.cc, reshape_op.cc,
-transpose_op.cc, slice_op.cc, gather_op.cc, pad_op.cc, cum_op.h,
-top_k_op.cc, add_position_encoding_op.h;
-paddle_tpu/ops/tensor_ops.py:28,73,95,116,46,174,282,298,379,445,470,517,
-539,617).
+transpose_op.cc, concat_op.cc, slice_op.cc, gather_op.cc, pad_op.cc,
+cum_op.h, top_k_op.cc, add_position_encoding_op.h;
+paddle_tpu/ops/tensor_ops.py:28,73,95,116,46,174,282,298,359,379,445,470,
+517,539,617).
 
 Random ops draw from the torch.Generator that ctx.rng() seeds for the op.
 torch's streams differ from JAX's threefry streams, so the two packages
@@ -223,6 +223,18 @@ def _transpose2(ctx, ins):
     takes the strides as they are."""
     x = X(ins)
     return {'Out': [x.permute(*ctx.attr('axis'))], 'XShape': [_xshape(x)]}
+
+
+@register('concat')
+def _concat(ctx, ins):
+    """The X entries joined along `axis`. Mixed entries take their common
+    dtype: torch.cat promotes a bf16 and an f32 entry to f32 as
+    jnp.concatenate does, inside the amp scope as outside it (unlike the
+    elementwise ops' amp.unify). Its gradient is the generic one
+    (core/lowering.py): autograd splits dOut back into the entries, each
+    cast to its entry's dtype."""
+    xs = [x for x in ins['X'] if x is not None]
+    return {'Out': [torch.cat(xs, dim=ctx.attr('axis', 0))]}
 
 
 @register('slice')

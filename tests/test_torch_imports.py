@@ -41,6 +41,24 @@ def test_source_imports_no_jax_package(relpath):
     assert not bad, '%s imports %s' % (relpath, bad)
 
 
+ZOO = ('smallnet', 'alexnet', 'vgg', 'googlenet', 'se_resnext')
+
+
+@pytest.mark.parametrize('model', ZOO)
+def test_zoo_model_is_audited_and_builds_on_the_port(model):
+    """Each image-zoo model module is the port's own copy: it is among the
+    audited sources, and its layers come from paddle_tpu_torch, as
+    `import paddle_tpu_torch as fluid` (never the top-level models/ or
+    paddle_tpu)."""
+    relpath = os.path.join('paddle_tpu_torch', 'models', model + '.py')
+    assert relpath in _port_sources()
+    with open(os.path.join(ROOT, relpath)) as f:
+        tree = ast.parse(f.read(), relpath)
+    imports = [(a.name, a.asname) for node in ast.walk(tree)
+               if isinstance(node, ast.Import) for a in node.names]
+    assert ('paddle_tpu_torch', 'fluid') in imports, imports
+
+
 _BLOCKED_IMPORT = r'''
 import importlib, pkgutil, sys
 

@@ -1,5 +1,6 @@
-"""The training slices' ops (BERT's, then ResNet-50's), each as a one-op
-program with its gradient op, in both packages on the CPU.
+"""The training slices' ops (BERT's, ResNet-50's, then the image zoo's
+concat and squeeze-excitation scaling), each as a one-op program with its
+gradient op, in both packages on the CPU.
 
 Each case builds the forward op over data vars and, where it has inputs to
 differentiate, the `<type>_grad` op that append_backward would emit (the
@@ -253,6 +254,21 @@ CASES = {
     'batch_norm_train': _batch_norm_case(_r(4, 3, 5, 5)),
     'batch_norm_train_offset': _batch_norm_case(3.0 + _r(2, 6, 7, 7)),
     'batch_norm_train_nhwc': _batch_norm_case(_r(3, 4, 4, 5), c_axis=3),
+    'concat_2_axis1': _case(
+        'concat', {'X': [('a', _r(2, 3, 4)), ('b', _r(2, 5, 4, seed=1))]},
+        {'Out': 'out'}, {'axis': 1}, diff=['a', 'b']),
+    'concat_4_inception': _case(
+        'concat', {'X': [('a', _r(2, 4, 3, 3)), ('b', _r(2, 6, 3, 3, seed=1)),
+                         ('c', _r(2, 2, 3, 3, seed=2)),
+                         ('d', _r(2, 3, 3, 3, seed=3))]},
+        {'Out': 'out'}, {'axis': 1}, diff=['a', 'b', 'c', 'd']),
+    'concat_2_axis0_one_differentiated': _case(
+        'concat', {'X': [('a', _r(3, 4)), ('b', _r(2, 4, seed=1))]},
+        {'Out': 'out'}, {'axis': 0}, diff=['b']),
+    'elementwise_mul_axis0_excite': _case(
+        'elementwise_mul',
+        {'X': ('x', _r(2, 3, 4, 4)), 'Y': ('y', _r(2, 3, seed=6, low=0.0))},
+        {'Out': 'out'}, {'axis': 0}, diff=['x', 'y']),
     'conv2d_3x3_pad1': _case(
         'conv2d', {'Input': ('x', _r(2, 3, 8, 8)),
                    'Filter': ('w', 0.3 * _r(4, 3, 3, 3, seed=1))},
@@ -305,6 +321,14 @@ AMP_CASES = {
     'amp-conv2d_f32_image': ('conv2d_s2d_stem_4x4', []),
     'amp-conv2d_3x3': ('conv2d_3x3_pad1', ['x']),
     'amp-conv2d_1x1_stride2': ('conv2d_1x1_stride2', ['x']),
+    'amp-concat_2': ('concat_2_axis1', ['a', 'b']),
+    'amp-concat_4': ('concat_4_inception', ['a', 'b', 'c', 'd']),
+    # a bf16/f32 mix promotes to f32, as jnp.concatenate does; each
+    # entry's gradient comes back in its own dtype
+    'amp-concat_2_mixed': ('concat_2_axis1', ['b']),
+    'amp-concat_4_mixed': ('concat_4_inception', ['a', 'c']),
+    'amp-elementwise_mul_axis0_excite': ('elementwise_mul_axis0_excite',
+                                         ['x', 'y']),
 }
 # bf16 ulps of a tensor's largest value that an AMP case may differ by
 AMP_ULPS = 1
