@@ -15,7 +15,7 @@ It builds the port's CUDA kernels from paddle_tpu_torch/csrc/ (bn_apply,
 flash_attn_fwd and flash_attn_bwd, one nvcc each, in parallel) and holds
 each against its plain PyTorch version on the card (bn_apply and its
 backward, which is plain torch, at batch 16 and 128, and in bf16 at 256).
-Then it drives sixteen paths, with random weights from a seed, TF32 off
+Then it drives eighteen paths, with random weights from a seed, TF32 off
 and bf16 GEMMs reducing in f32:
 
 - ResNet-50 (depth 50, 224x224, 1000 classes) served through
@@ -79,6 +79,23 @@ and bf16 GEMMs reducing in f32:
   Executor.run_steps; and GoogLeNet inference served in f32 at batch 16
   through Predictor.run (no kernel launches), its device time a batch by
   the slope over Predictor.run_batches.
+- ResNet-50 served as bench.py:665-749 resnet50_serving serves it, from
+  the first path's saved directory: export_compiled at buckets
+  1/8/32/128 -> BatchingPredictor(batch_timeout_ms=5) -> warmup, one
+  device copy of the parameters for all buckets; 32 batch-1
+  CompiledPredictor.run calls back to back, the capacity from 5
+  full-bucket calls, then 256 batch-1 requests arriving as a Poisson
+  stream at 80% of it, with 53 f32 bn_apply launches per batch
+  dispatched; run_batches at bucket 8 (its slope, and 8 batches equal to
+  8 run() calls bit for bit); 32 concurrent submits to a single-bucket
+  {32} artifact, each equal to its unbatched run bit for bit; each
+  bucket's logits against the CPU's.
+- the bf16 ResNet-50 training program above exported by
+  export_train_step and trained by CompiledTrainer at batch 64: 3 steps
+  equal to 3 Executor.run steps bit for bit (losses and every
+  persistable, under torch.backends.cudnn.deterministic), a resume from
+  a checkpoint taking step 3 as the first trainer did, 106 bf16 bn_apply
+  launches a step.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after. The run compares GPU and CPU outputs of each served
@@ -115,6 +132,7 @@ import platform
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -124,7 +142,10 @@ import torch.nn.functional as F
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch import kernels
 from paddle_tpu_torch.contrib import gradient_merge, mixed_precision
-from paddle_tpu_torch.inference import DecodingPredictor, export_decode
+from paddle_tpu_torch.inference import (BatchingPredictor, CompiledPredictor,
+                                        CompiledTrainer, DecodingPredictor,
+                                        export_compiled, export_decode,
+                                        export_train_step)
 from paddle_tpu_torch.models import (alexnet, googlenet, se_resnext, smallnet,
                                      vgg)
 from paddle_tpu_torch.models.bert import bert_mlm_logits, build_bert_pretrain
@@ -305,16 +326,40 @@ GOOGLENET_DEVICE_K = 8
 # run() calls on GoogLeNet serving, bit for bit
 EXACT_STEPS = 4
 EXACT_BATCHES = 8
+# artifact serving as bench.py:665-746 _bench_image_serving runs
+# resnet50_serving (:749): export_compiled at buckets 1/8/32/128 from a
+# RandomState(0) sample of 128 images, BatchingPredictor(batch_timeout_ms=5),
+# 5 full-bucket calls for the capacity, then 256 batch-1 requests arriving
+# as a Poisson stream (RandomState(1)) at 80% of it
+ARTIFACT_BUCKETS = (1, 8, 32, 128)
+ARTIFACT_TIMEOUT_MS = 5.0
+ARTIFACT_CAPACITY_CALLS = 5
+ARTIFACT_REQUESTS = 256
+ARTIFACT_RATE_SHARE = 0.8
+ARTIFACT_SEQ_REQUESTS = 32     # batch-1 CompiledPredictor.run, back to back
+ARTIFACT_PROFILE_REQUESTS = 64  # a second Poisson pass under the profiler
+ARTIFACT_EXACT_BUCKET = 32     # 32 concurrent batch-1 submits, bit for bit
+ARTIFACT_SLOPE_BUCKET = 8      # run_batches slope and exactness, K = 8
+ARTIFACT_CPU_ROWS = 8          # each bucket's first rows against the CPU
+# export_train_step -> CompiledTrainer on bench.py:431's ResNet-50 (s2d
+# stem, Momentum) in bf16 at batch 64: 3 steps against Executor.run, and a
+# resume from a checkpoint after step 2
+TRAINER_BATCH = 64
+TRAINER_STEPS = 3
 # K1 at the zoo's shapes: VGG-19's two fc -> batch_norm heads, 2-D
 # [128, 4096] (inner size 1)
 VGG_BN_SHAPES = [((4096,), 2)]
-# K1 and its backward are held against their plain versions at the batch of
-# ResNet-50 serving and at those of its f32 and AMP training, where the
-# largest BN outputs take the kernel's grid-stride loop through 2 (f32 at
-# 128, bf16 at 256) and more passes: (batch, dtypes)
-BN_CHECKS = ((BN_BATCH, (torch.float32, torch.bfloat16)),
-             (RESNET_TRAIN_BATCH, (torch.float32, torch.bfloat16)),
-             (RESNET_AMP_BATCH, (torch.bfloat16,)))
+# K1 and its backward are held against their plain versions at every batch
+# and dtype a ResNet-50 path launches them with: serving at BN_BATCH, the
+# batcher's f32 buckets below 128, f32 and AMP training, and the compiled
+# trainer's bf16 batch; the largest BN outputs take the kernel's
+# grid-stride loop through 2 (f32 at 128, bf16 at 256) and more passes:
+# (batch, dtypes)
+BN_CHECKS = (tuple((b, (torch.float32,)) for b in ARTIFACT_BUCKETS[:-1])
+             + ((BN_BATCH, (torch.float32, torch.bfloat16)),
+                (TRAINER_BATCH, (torch.bfloat16,)),
+                (RESNET_TRAIN_BATCH, (torch.float32, torch.bfloat16)),
+                (RESNET_AMP_BATCH, (torch.bfloat16,))))
 
 
 def check(cond, msg):
@@ -3039,6 +3084,350 @@ def phase_zoo_kernel(se_shapes):
     return out, max_abs
 
 
+def _scope_bytes(scope):
+    return sum(t.numel() * t.element_size() for t in scope._vars.values()
+               if t is not None)
+
+
+def _poisson(batcher, x1, rate, n):
+    """n batch-1 requests submitted at the arrival times of a Poisson
+    stream at `rate` req/s (RandomState(1)), as bench.py:720-731 sends
+    them; returns the wall seconds until the last one resolved."""
+    arrivals = np.cumsum(np.random.RandomState(1).exponential(1.0 / rate,
+                                                              n))
+    futs = []
+    t0 = time.perf_counter()
+    for i in range(n):
+        delay = t0 + arrivals[i] - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        futs.append(batcher.submit([x1]))
+    for f in futs:
+        f.result(600)
+    return time.perf_counter() - t0
+
+
+def _instrument(batcher):
+    """Wrap the batcher's staging and each bucket's run: the batches each
+    bucket takes (Counter under 'batches'), and the host seconds of each
+    batch's staging and of its program's dispatch (lists under 'stage'
+    and 'dispatch'; the dispatch returns before the card has finished)."""
+    seen = {'batches': collections.Counter(), 'stage': [], 'dispatch': []}
+    stage = batcher._stage
+
+    def staged(batch, rows, bs):
+        t0 = time.perf_counter()
+        out = stage(batch, rows, bs)
+        seen['stage'].append(time.perf_counter() - t0)
+        return out
+    batcher._stage = staged
+    for b, pred in batcher._preds.items():
+        def counted(args, _b=b, _call=pred._call_flat):
+            seen['batches'][_b] += 1
+            t0 = time.perf_counter()
+            out = _call(args)
+            seen['dispatch'].append(time.perf_counter() - t0)
+            return out
+        pred._call_flat = counted
+    return seen
+
+
+def phase_resnet_artifact_serving(dirname, n_bn):
+    """ResNet-50 (the served directory of phase_serving: 224x224, 1000
+    classes, random BN state, f32) as bench.py's resnet50_serving row
+    serves it: export_compiled at ARTIFACT_BUCKETS -> BatchingPredictor ->
+    warmup; the card's allocated bytes before and after the batcher loads
+    (one copy of the parameters for all buckets: at most 1.1x the
+    persistable bytes); ARTIFACT_SEQ_REQUESTS batch-1
+    CompiledPredictor.run calls through bucket 1; the capacity from
+    ARTIFACT_CAPACITY_CALLS full-bucket batcher.run calls; ARTIFACT_REQUESTS
+    Poisson batch-1 requests at ARTIFACT_RATE_SHARE of it (served img/s,
+    occupancy, p50/p95/p99, batches per bucket; exactly n_bn f32 bn_apply
+    launches per batch dispatched over the capacity and Poisson arms); a
+    shorter Poisson pass under the profiler; run_batches at bucket
+    ARTIFACT_SLOPE_BUCKET (slope, and 8 batches equal to 8 run() calls
+    bit for bit); a single-bucket {ARTIFACT_EXACT_BUCKET} artifact taking
+    as many concurrent batch-1 submits, each equal to CompiledPredictor.run
+    of that request through the bucket bit for bit; and each bucket's
+    first logits against the CPU's within 1e-3 of the largest."""
+    t0 = time.perf_counter()
+    pred = fluid.inference.create_predictor(fluid.inference.Config(dirname))
+    sample = np.random.RandomState(0).randn(
+        max(ARTIFACT_BUCKETS), 3, 224, 224).astype(np.float32)
+    adir = os.path.join(dirname, 'artifact')
+    t1 = time.perf_counter()
+    export_compiled(pred, [sample], adir, batch_sizes=ARTIFACT_BUCKETS)
+    export_s = time.perf_counter() - t1
+    persist = _scope_bytes(pred._scope)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    batcher = BatchingPredictor(adir, batch_timeout_ms=ARTIFACT_TIMEOUT_MS)
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    print('artifact_serving export_s=%r buckets=%s persistable_bytes=%d '
+          'allocated_before=%d after_load=%d rise=%d rise_over_persistable'
+          '=%.4f (gate <= 1.1)' % (export_s, batcher.buckets, persist, mem0,
+                                   mem1, mem1 - mem0,
+                                   (mem1 - mem0) / persist))
+    check(batcher.buckets == list(ARTIFACT_BUCKETS), 'buckets %s'
+          % batcher.buckets)
+    check(mem1 - mem0 <= 1.1 * persist,
+          'the batcher loaded %d bytes for %d persistable bytes: more than '
+          'one copy' % (mem1 - mem0, persist))
+    try:
+        batcher.warmup()
+        x1 = sample[:1]
+
+        seq = CompiledPredictor(os.path.join(adir, 'bucket_00001'))
+        for _ in range(2):
+            seq.run([x1])
+        t1 = time.perf_counter()
+        for _ in range(ARTIFACT_SEQ_REQUESTS):
+            seq.run([x1])
+        seq_img_s = ARTIFACT_SEQ_REQUESTS / (time.perf_counter() - t1)
+        del seq
+        torch.cuda.synchronize()
+
+        seen = _instrument(batcher)
+        reset_launches()
+        t1 = time.perf_counter()
+        for _ in range(ARTIFACT_CAPACITY_CALLS):
+            batcher.run([sample], timeout=600)
+        cap_img_s = (max(ARTIFACT_BUCKETS) * ARTIFACT_CAPACITY_CALLS
+                     / (time.perf_counter() - t1))
+        cap_batches = batcher.stats.snapshot()['batches']
+        cap_host = (np.mean(seen['stage']) * 1e3,
+                    np.mean(seen['dispatch']) * 1e3)
+        batcher.stats.reset()   # report the Poisson run, not calibration
+        del seen['stage'][:], seen['dispatch'][:]
+        rate = ARTIFACT_RATE_SHARE * cap_img_s
+        wall = _poisson(batcher, x1, rate, ARTIFACT_REQUESTS)
+        snap = batcher.stats.snapshot()
+        counts = read_launches()
+        by_dtype = read_launches_by_dtype()['bn_apply']
+        dispatched = cap_batches + snap['batches']
+        buckets = dict(seen['batches'])
+        buckets[max(ARTIFACT_BUCKETS)] -= ARTIFACT_CAPACITY_CALLS
+        host = (np.mean(seen['stage']) * 1e3,
+                np.mean(seen['dispatch']) * 1e3)
+        print('artifact_serving poisson host ms a batch, in order: staging '
+              '%s dispatch %s' % (
+                  [round(t * 1e3, 2) for t in seen['stage']],
+                  [round(t * 1e3, 2) for t in seen['dispatch']]))
+        print('artifact_serving sequential batch-1 CompiledPredictor.run '
+              'img_per_s=%r (%d requests back to back, each ending in a '
+              'sync)' % (seq_img_s, ARTIFACT_SEQ_REQUESTS))
+        print('artifact_serving capacity img_per_s=%r (%d batcher.run calls '
+              'at bucket %d; a batch: host staging %.2f ms, host dispatch '
+              '%.2f ms)' % ((cap_img_s, ARTIFACT_CAPACITY_CALLS,
+                             max(ARTIFACT_BUCKETS)) + cap_host))
+        print('artifact_serving poisson requests=%d served_img_per_s=%r '
+              'offered_req_per_s=%r batches=%d occupancy=%r p50_ms=%r '
+              'p95_ms=%r p99_ms=%r shed=%d expired=%d batches_by_bucket=%s '
+              'speedup_vs_sequential=%r; a batch: host staging %.2f ms, '
+              'host dispatch %.2f ms' % ((
+                  ARTIFACT_REQUESTS, ARTIFACT_REQUESTS / wall, rate,
+                  snap['batches'], snap['occupancy'], snap['p50_ms'],
+                  snap['p95_ms'], snap['p99_ms'], snap['shed'],
+                  snap['expired'], json.dumps(buckets),
+                  ARTIFACT_REQUESTS / wall / seq_img_s) + host))
+        print('artifact_serving launches=%s bn_apply_by_dtype=%s over %d '
+              'dispatched batches' % (json.dumps(counts), json.dumps(by_dtype),
+                                      dispatched))
+        check(snap['requests'] == ARTIFACT_REQUESTS and not snap['shed']
+              and not snap['expired'], 'poisson arm: %s' % snap)
+        check(sum(seen['batches'].values()) == dispatched,
+              'bucket counts %s vs %d batches' % (dict(seen['batches']),
+                                                  dispatched))
+        check(counts['bn_apply'] == n_bn * dispatched
+              and by_dtype.get('float32', 0) == counts['bn_apply'],
+              'bn_apply launched %s over %d batches, not %d f32 each'
+              % (by_dtype, dispatched, n_bn))
+        check(counts['flash_attn_fwd'] == counts['flash_attn_bwd_dkv']
+              == counts['flash_attn_bwd_dq'] == 0,
+              'artifact serving launched a flash-attention kernel')
+
+        _profile(lambda: _poisson(batcher, x1, rate,
+                                  ARTIFACT_PROFILE_REQUESTS),
+                 'artifact_serving poisson', 'passes of %d requests'
+                 % ARTIFACT_PROFILE_REQUESTS, calls=1)
+
+        # the same bucket's predictor the batcher runs, sharing its model
+        b8 = batcher._preds[ARTIFACT_SLOPE_BUCKET]
+        gen = np.random.RandomState(2)
+        xs = [gen.randn(ARTIFACT_SLOPE_BUCKET, 3, 224, 224).astype(
+            np.float32) for _ in range(EXACT_BATCHES)]
+        want = [b8.run([x])[0] for x in xs]
+        got = b8.run_batches([[x] for x in xs])
+        equal = [np.array_equal(g[0], w) for g, w in zip(got, want)]
+        print('artifact_serving run_batches(%d) == %d run() calls at bucket '
+              '%d: %s' % (EXACT_BATCHES, EXACT_BATCHES,
+                          ARTIFACT_SLOPE_BUCKET, equal))
+        check(all(equal), 'run_batches differs from run(): %s' % equal)
+        device_ms = _slope_ms(lambda kk: b8.run_batches([[xs[0]]] * kk),
+                              EXACT_BATCHES)
+        print('artifact_serving run_batches slope at bucket %d: '
+              'ms_per_batch=%r img_per_s=%r (K=%d and %d, best of %d each) '
+              'bulk_stats=%s' % (
+                  ARTIFACT_SLOPE_BUCKET, device_ms,
+                  ARTIFACT_SLOPE_BUCKET / device_ms * 1e3, EXACT_BATCHES,
+                  EXACT_BATCHES // 2, SLOPE_REPS, json.dumps(b8.bulk_stats())))
+
+        cpu = CompiledPredictor(
+            os.path.join(adir, 'bucket_%05d' % ARTIFACT_CPU_ROWS),
+            platform='cpu')
+        want, = cpu.run([sample[:ARTIFACT_CPU_ROWS]])
+        top = float(np.abs(want).max())
+        for b in ARTIFACT_BUCKETS:
+            got, = batcher._preds[b].run([sample[:b]])
+            rows = min(b, ARTIFACT_CPU_ROWS)
+            err = float(np.abs(got[:rows] - want[:rows]).max())
+            print('artifact_serving gpu_vs_cpu bucket=%d rows=%d '
+                  'max_abs_err=%r max_abs_logit=%r rel=%r tolerance_rel=1e-3'
+                  % (b, rows, err, top, err / top))
+            check(got.shape == (b, 1000) and np.isfinite(got).all()
+                  and err <= 1e-3 * top,
+                  'bucket %d logits differ from the CPU: %r of %r'
+                  % (b, err, top))
+    finally:
+        batcher.close()
+    del batcher
+    torch.cuda.empty_cache()
+
+    edir = os.path.join(dirname, 'artifact_%d' % ARTIFACT_EXACT_BUCKET)
+    export_compiled(pred, [sample[:ARTIFACT_EXACT_BUCKET]], edir,
+                    batch_sizes=[ARTIFACT_EXACT_BUCKET])
+    del pred
+    n = ARTIFACT_EXACT_BUCKET
+    reqs = [sample[i:i + 1] for i in range(n)][::-1]  # rows move
+    solo = CompiledPredictor(edir)
+    want = [solo.run([r])[0] for r in reqs]
+    with BatchingPredictor(edir, batch_timeout_ms=2000.0) as exact:
+        exact.warmup()
+        results = [None] * n
+        gate = threading.Barrier(n)
+
+        def client(i):
+            gate.wait(timeout=120)
+            results[i] = exact.submit([reqs[i]]).result(timeout=600)
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        esnap = exact.stats.snapshot()
+    equal = sum(np.array_equal(results[i][0], want[i]) for i in range(n))
+    print('artifact_serving bit_identity bucket=%d concurrent=%d batches=%d '
+          'equal=%d/%d' % (n, n, esnap['batches'], equal, n))
+    check(equal == n and esnap['requests'] == n,
+          '%d of %d batched requests differ from their unbatched run'
+          % (n - equal, n))
+    del solo
+    torch.cuda.empty_cache()
+    _phase_seconds('resnet_artifact_serving', t0)
+    return counts
+
+
+def phase_compiled_trainer():
+    """bench.py:431's ResNet-50 training program (s2d stem, Momentum) in
+    bf16 (enable_bf16) at batch TRAINER_BATCH, exported by
+    export_train_step and trained by CompiledTrainer: TRAINER_STEPS steps
+    against as many Executor.run steps from the same state, bit for bit
+    (losses and every persistable), with torch.backends.cudnn.deterministic
+    set and restored here as phase_run_steps_exactness does; exactly
+    2 x 53 bf16 bn_apply launches a step; and a trainer resumed by
+    load_state from a checkpoint saved after step 2 takes step 3 as the
+    first one did."""
+    t0 = time.perf_counter()
+    main, startup, loss, acc = build_resnet_training(amp=True)
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=scope)
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 40)
+    feed = {n: t.cpu().numpy()
+            for n, t in _resnet_feed(TRAINER_BATCH, gen).items()}
+    with tempfile.TemporaryDirectory() as d:
+        tdir = os.path.join(d, 'train_artifact')
+        t1 = time.perf_counter()
+        export_train_step(main, feed, [loss, acc], tdir, scope=scope)
+        export_s = time.perf_counter() - t1
+        start = {n: scope.get(n).clone() for n in
+                 (v.name for v in main.list_vars() if v.persistable)
+                 if scope.get(n) is not None}
+        del scope
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        print('compiled_trainer: this phase sets '
+              'torch.backends.cudnn.deterministic = True and restores it')
+        try:
+            trainer = CompiledTrainer(tdir)
+            check(trainer.place == fluid.CUDAPlace(0), 'trainer place')
+            reset_launches()
+            times, losses = [], []
+            for _ in range(TRAINER_STEPS):
+                t1 = time.perf_counter()
+                losses.append(trainer.step(feed)[0])
+                times.append(time.perf_counter() - t1)
+            counts = read_launches()
+            by_dtype = read_launches_by_dtype()['bn_apply']
+            final = trainer.state
+
+            exe = fluid.Executor(fluid.CUDAPlace(0))
+            escope = fluid.Scope()
+            for n, t in start.items():
+                escope.set(n, t.clone())
+            want = [exe.run(main, feed=feed, fetch_list=[loss, acc],
+                            scope=escope)[0] for _ in range(TRAINER_STEPS)]
+            differ = [n for n in final if not np.array_equal(
+                final[n], escope.get(n).cpu().numpy())]
+            moved = sum(not torch.equal(escope.get(n), start[n])
+                        for n in start)
+            del escope, exe
+            print('compiled_trainer resnet50 s2d bf16 batch=%d export_s=%r '
+                  'state_vars=%d losses=%s executor_losses=%s; %d '
+                  'persistables (%d moved), %d differ; step_ms=%s '
+                  'launches=%s bn_apply_by_dtype=%s' % (
+                      TRAINER_BATCH, export_s, len(final),
+                      [float(l[0]) for l in losses],
+                      [float(w[0]) for w in want], len(final), moved,
+                      len(differ), [t * 1e3 for t in times],
+                      json.dumps(counts), json.dumps(by_dtype)))
+            check(all(np.array_equal(l, w) for l, w in zip(losses, want))
+                  and not differ and moved > 0,
+                  'CompiledTrainer differs from Executor.run: %s vs %s, %s'
+                  % (losses, want, differ[:10]))
+            check(counts['bn_apply'] == 2 * 53 * TRAINER_STEPS
+                  and by_dtype.get('bfloat16', 0) == counts['bn_apply'],
+                  'bn_apply launched %s over %d trainer steps, not 106 bf16 '
+                  'a step' % (by_dtype, TRAINER_STEPS))
+
+            first = CompiledTrainer(tdir)
+            for _ in range(TRAINER_STEPS - 1):
+                first.step(feed)
+            ckpt = os.path.join(d, 'ckpt.npz')
+            first.save_state(ckpt)
+            del first
+            resumed = CompiledTrainer(tdir)
+            resumed.load_state(ckpt)
+            last = resumed.step(feed)[0]
+            rstate = resumed.state
+            rdiffer = [n for n in final
+                       if not np.array_equal(final[n], rstate[n])]
+            print('compiled_trainer resume after step %d: step %d loss=%r '
+                  '(first trainer %r), %d persistables differ' % (
+                      TRAINER_STEPS - 1, TRAINER_STEPS, float(last[0]),
+                      float(losses[-1][0]), len(rdiffer)))
+            check(np.array_equal(last, losses[-1]) and not rdiffer,
+                  'resumed trainer differs: %r vs %r, %s'
+                  % (last, losses[-1], rdiffer[:10]))
+        finally:
+            torch.backends.cudnn.deterministic = prev
+    torch.cuda.empty_cache()
+    _phase_seconds('compiled_trainer', t0)
+    return counts
+
+
 def _se_bn_shapes():
     """The (C, H, W) of SE-ResNeXt-50's 53 batch_norm inputs at 224x224,
     with counts, from its program."""
@@ -3090,6 +3479,9 @@ def main():
               'persistable_elements=%d' % (n_bn, n_params))
         pred, images, resnet_counts = phase_serving(d, n_bn)
         phase_cpu_agreement(d, pred, images)
+        # bench.py's resnet50_serving: the same directory exported and
+        # served by the batcher
+        artifact_counts = phase_resnet_artifact_serving(d, n_bn)
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         n_ops, n_fused, n_params = build_and_save_bert(d)
@@ -3163,6 +3555,8 @@ def main():
     torch.cuda.empty_cache()
     phase_resnet_backward_gpu_vs_cpu(ra_main, ra_startup, amp=True)
     torch.cuda.empty_cache()
+    # the same bf16 program trained from an export_train_step artifact
+    trainer_counts = phase_compiled_trainer()
 
     # bench.py's bench_bert: S=128, batch 64, dropout 0.1 (the composed
     # attention), bf16, gradient merge k=2
@@ -3253,7 +3647,9 @@ def main():
              'transformer_bench_training': trans_counts,
              'transformer_bench_training_dropout0': trans0_counts,
              'decode_serving': decode_counts,
-             'googlenet_serving': gnet_counts}
+             'googlenet_serving': gnet_counts,
+             'resnet50_artifact_serving': artifact_counts,
+             'resnet50_compiled_trainer_bf16': trainer_counts}
     paths.update(zoo_counts)
 
     def by_path(name):

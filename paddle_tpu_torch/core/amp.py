@@ -15,30 +15,36 @@ A program is marked with `program._amp_bf16 = True`
 block inside `scope(True)`, so one set of lowerings serves both precisions.
 Build-time shape inference runs outside the scope: declared var dtypes stay
 float32, as in the reference.
+
+The switch is per thread. The reference reads its copy only while jit
+traces a step, once, on one thread; the port reads it at every op of every
+`Executor.run`, and a serving thread (inference/batching.py) may run f32
+inference while another thread trains in bf16.
 """
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 import torch.nn.functional as F
 
-_state = {'bf16': False}
+_state = threading.local()
 _AMP_FLOATS = (torch.float32, torch.bfloat16)
 
 
 def enabled():
-    return _state['bf16']
+    return getattr(_state, 'bf16', False)
 
 
 @contextlib.contextmanager
 def scope(on):
-    prev = _state['bf16']
-    _state['bf16'] = bool(on)
+    prev = enabled()
+    _state.bf16 = bool(on)
     try:
         yield
     finally:
-        _state['bf16'] = prev
+        _state.bf16 = prev
 
 
 def _is_amp_float(x):

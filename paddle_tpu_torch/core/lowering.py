@@ -95,7 +95,6 @@ class Interpreter(object):
         self.env = env
         self.step = step
         self.micro = micro
-        self.fetches = []
         self.written = set()
 
     def read(self, name, op):
@@ -113,10 +112,9 @@ class Interpreter(object):
 
     def run_op(self, op, block):
         t = op.type
-        if t == 'feed':
-            return  # env pre-populated by the executor
-        if t == 'fetch':
-            self.fetches.append(self.read(op.inputs['X'][0], op))
+        if t in ('feed', 'fetch'):
+            # feeds are in env already; the Executor returns its
+            # fetch_list, not what a program's own fetch ops name
             return
         d = registry.get(t)
         if d is None:

@@ -19,6 +19,12 @@ Each Executor counts its runs of each program (by `Program._uid`, as
 paddle_tpu/executor.py:270-282 does); the count seeds the ops' random
 draws, so dropout draws fresh masks at every step.
 
+Threads: each `run` builds its own interpreter and environment, and the
+AMP switch is per thread, so several threads may run programs through one
+Executor at once (the serving batcher's worker and a caller's
+CompiledPredictor.run do) as long as those programs write no persistable
+and draw no random numbers: the step counter's increment is not atomic.
+
 `run_steps` (paddle_tpu/executor.py:373) runs K steps from one call on a
 group of K stacked or listed feeds. Where the JAX executor scans the
 traced step K times in one dispatch, this one calls `run` K times, so the
@@ -112,7 +118,10 @@ class Executor(object):
             raise ValueError("fetch targets %r have no value after the run: "
                              "not computed by the program and not fed"
                              % missing)
-        fetches = interp.fetches + [env[n] for n in fetch_names]
+        # a program's own fetch ops (the reference's protobuf format keeps
+        # them) are not returned: fetch_list names the outputs, as
+        # paddle_tpu/executor.py returns them
+        fetches = [env[n] for n in fetch_names]
         if return_numpy:
             return [_to_numpy(t) for t in fetches]
         return fetches

@@ -35,12 +35,23 @@ _TORCH_DTYPE = {
 }
 _DTYPE_NAME = {v: k for k, v in _TORCH_DTYPE.items()}
 
+# reference proto VarType.Type enum values (framework.proto:106): dtype
+# attrs of programs in the reference's protobuf format arrive as these ints
+_PROTO_DTYPE = {0: 'bool', 1: 'int16', 2: 'int32', 3: 'int64',
+                4: 'float16', 5: 'float32', 6: 'float64',
+                20: 'uint8', 21: 'int8'}
+PROTO_DTYPE_ENUM = {v: k for k, v in _PROTO_DTYPE.items()}
+
 
 def convert_dtype(dtype):
-    """Canonicalize a dtype spec (str / np.dtype / torch.dtype) to a
-    string."""
+    """Canonicalize a dtype spec (str / np.dtype / torch.dtype / reference
+    VarType enum int) to a string."""
     if dtype is None:
         return None
+    if isinstance(dtype, int) and not isinstance(dtype, bool):
+        if dtype in _PROTO_DTYPE:
+            return _PROTO_DTYPE[dtype]
+        raise TypeError("unknown dtype enum %r" % (dtype,))
     if isinstance(dtype, torch.dtype):
         return _DTYPE_NAME[dtype]
     if isinstance(dtype, str):

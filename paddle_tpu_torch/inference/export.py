@@ -1,8 +1,34 @@
-"""Decode-serving artifacts (ref: paddle_tpu/inference/export.py:348
-export_decode).
+"""Artifact export (ref: paddle_tpu/inference/export.py): the serving
+artifact of `export_compiled`, the training artifact of
+`export_train_step`, and the decode-serving artifact of `export_decode`.
 
-torch cannot load the reference's jax.export modules, so the port has its
-own artifact format, read by inference/decoding.py DecodingPredictor:
+torch cannot load the reference's jax.export modules and the port
+compiles nothing, so the port has its own artifact formats. Each holds
+the program as JSON and its parameters or state once, beside a signature
+with the reference's keys and 'format': 'paddle_tpu_torch'.
+
+`export_compiled` (read by serve.py CompiledPredictor and batching.py
+BatchingPredictor):
+
+  signature.json          version 3: feeds {name, shape, dtype}, fetches
+                          {name, lod_levels, shape}, tier; 'buckets' in a
+                          multi-bucket artifact, whose top level mirrors
+                          the largest bucket
+  __model__               the predictor's program as JSON, with feed and
+                          fetch names (written once)
+  params/                 its persistables (io.save_vars; written once)
+  bucket_<n>/signature.json   one per batch bucket, with 'root': '..':
+                          a bucket directory loads on its own, from the
+                          root's program and parameters
+
+`export_train_step` (read by serve.py CompiledTrainer):
+
+  train_signature.json    feeds, fetches, state {name, shape, dtype}, the
+                          AMP mark and the seed root
+  train_program.json      the train program as JSON
+  train_state0.npz        every persistable the program reads or writes
+
+`export_decode` (read by inference/decoding.py DecodingPredictor):
 
   decode_signature.json   kind, layout, slots, cache length, buckets,
                           eos and vocab, the cache state and every
@@ -15,9 +41,12 @@ own artifact format, read by inference/decoding.py DecodingPredictor:
                           per var and a manifest), the cache vars left
                           out: the server makes them zero
 
-No AOT sidecar and no reorder program: the port interprets the programs,
-and a beam reorder is an index copy over the slot axis of each cache
-tensor (DecodingPredictor._dispatch_reorder).
+No AOT sidecar (`precompile=`) and no reorder program: the port
+interprets the programs, and a beam reorder is an index copy over the
+slot axis of each cache tensor (DecodingPredictor._dispatch_reorder).
+The export optimisation pipeline (_optimize_for_export) and the static
+peak-bytes estimate wait for the passes (ROADMAP.md queue 1 item 4): the
+port exports a predictor's program as it was loaded.
 """
 from __future__ import annotations
 
@@ -25,11 +54,17 @@ import json
 import os
 
 import numpy as np
+import torch
 
 from .. import io as _io
+from ..core import amp, config as _config
+from ..core.lowering import Interpreter
+from ..core.registry import META
 from ..core.scope import global_scope, scope_guard
-from ..framework import convert_dtype
+from ..executor import _to_numpy
+from ..framework import Variable, convert_dtype, to_torch_dtype
 from . import decoding as _decoding
+from . import serve as _serve
 
 
 def _write_program(entry, out_dir):
@@ -132,4 +167,217 @@ def export_decode(spec, out_dir, scope=None):
     with _io._atomic_file(os.path.join(out_dir,
                                        _decoding._DECODE_SIGNATURE)) as f:
         f.write(json.dumps(sig, indent=1).encode())
+    return out_dir
+
+
+# -- export_compiled ---------------------------------------------------------
+def _write_model(predictor, program, out_dir):
+    """The program as JSON (with feed and fetch names) and its
+    persistables under out_dir: written once per artifact."""
+    d = _io.program_to_dict(program)
+    d['feed_names'] = list(predictor._feed_names)
+    d['fetch_names'] = [v.name for v in predictor._fetch_vars]
+    os.makedirs(out_dir, exist_ok=True)
+    with _io._atomic_file(os.path.join(out_dir, _serve._PROGRAM_FILE)) as f:
+        f.write(json.dumps(d).encode())
+    with scope_guard(predictor._scope):
+        _io.save_vars(None, os.path.join(out_dir, _serve._PARAMS_DIR),
+                      main_program=program, predicate=_io.is_persistable)
+
+
+def _fetch_shapes(predictor, program, sample):
+    """Each fetch's shape at this sample's feed shapes: the program run on
+    the 'meta' device (shapes and dtypes, no data), as the reference's
+    export trace records them."""
+    block = program.global_block()
+    env = {}
+    for v in program.list_vars():
+        val = predictor._scope.get(v.name) if v.persistable else None
+        if val is not None:
+            env[v.name] = torch.empty(val.shape, dtype=val.dtype,
+                                      device=META)
+    for n, a in sample.items():
+        env[n] = torch.empty(a.shape, dtype=to_torch_dtype(
+            block.var(n).dtype), device=META)
+    with torch.no_grad(), amp.scope(getattr(program, '_amp_bf16', False)):
+        Interpreter(program, META, env).run_block(block)
+    return [list(env[v.name].shape) for v in predictor._fetch_vars]
+
+
+def _export_single(predictor, program, sample, out_dir, root='.'):
+    """One fixed-shape signature under out_dir (the program and parameters
+    are at `root`, relative to out_dir); `sample` is {feed name: numpy
+    array}."""
+    feed_sig = [{'name': n, 'shape': list(sample[n].shape),
+                 'dtype': sample[n].dtype.name}
+                for n in predictor._feed_names]
+    fetch_sig = [{'name': v.name, 'lod_levels': 0, 'shape': shape}
+                 for v, shape in zip(predictor._fetch_vars,
+                                     _fetch_shapes(predictor, program,
+                                                   sample))]
+    # 'bf16' is the reference's name of the default (unquantized) tier
+    sig = {'version': 3, 'format': _serve._FORMAT, 'feeds': feed_sig,
+           'fetches': fetch_sig, 'tier': 'bf16'}
+    if root != '.':
+        sig['root'] = root
+    os.makedirs(out_dir, exist_ok=True)
+    with _io._atomic_file(os.path.join(out_dir, _serve._SIGNATURE)) as f:
+        f.write(json.dumps(sig, indent=1).encode())
+    return sig
+
+
+def _export_tier(predictor, program, sample, out_dir, sizes):
+    """The artifact tree: one signature when `sizes` is None, else one per
+    bucket under bucket_<n>/ and a top signature mirroring the largest
+    bucket, with the bucket list."""
+    _write_model(predictor, program, out_dir)
+    if sizes is None:
+        return _export_single(predictor, program, sample, out_dir)
+    flat = [n for n, a in sample.items() if a.ndim < 1]
+    if flat:
+        raise ValueError("feeds %r have no batch dimension to bucket on"
+                         % flat)
+    lead = {a.shape[0] for a in sample.values()}
+    if len(lead) != 1:
+        raise ValueError(
+            "multi-bucket export needs one uniform leading batch dim; "
+            "sample feeds disagree: %s" % sorted(lead))
+    for b in sizes:
+        # np.resize tiles the sample rows up or down to the bucket: only
+        # shapes and dtypes matter for a signature
+        resized = {n: np.resize(a, (b,) + a.shape[1:])
+                   for n, a in sample.items()}
+        sig = _export_single(predictor, program, resized,
+                             os.path.join(out_dir, _serve._BUCKET_DIR % b),
+                             root='..')
+    sig.pop('root')
+    sig['buckets'] = sizes
+    with _io._atomic_file(os.path.join(out_dir, _serve._SIGNATURE)) as f:
+        f.write(json.dumps(sig, indent=1).encode())
+    return sig
+
+
+def export_compiled(predictor, sample_inputs, out_dir, batch_sizes=None,
+                    quantize=None, calibration=None,
+                    quantize_mode='abs_max', calibration_q=99.9):
+    """Export `predictor`'s program (a Predictor's, as loaded) as a
+    serving artifact for CompiledPredictor and BatchingPredictor.
+
+    sample_inputs: list (feed order) or dict of arrays fixing shapes and
+    dtypes. Dense feeds only: a LoD feed raises NotImplementedError
+    (ROADMAP.md queue 1 item 8).
+
+    batch_sizes: optional batch buckets (e.g. [1, 8, 32, 128]) for a
+    multi-bucket artifact: a signature per bucket under
+    out_dir/bucket_<n>/, the top level mirroring the largest, the program
+    and parameters written once for all of them.
+
+    quantize='int8' (the reference's post-training int8 tier) is not
+    ported yet (ROADMAP.md queue 1 item 6) and raises
+    NotImplementedError; `calibration`, `quantize_mode` and
+    `calibration_q` belong to it. Returns out_dir."""
+    if quantize is not None:
+        if quantize != 'int8':
+            raise ValueError("quantize must be None or 'int8', got %r"
+                             % (quantize,))
+        raise NotImplementedError(
+            "export_compiled(quantize='int8'): the post-training int8 tier "
+            "is not ported yet (ROADMAP.md queue 1 item 6)")
+    feed_names = list(predictor._feed_names)
+    if isinstance(sample_inputs, (list, tuple)):
+        sample = dict(zip(feed_names, sample_inputs))
+    else:
+        sample = dict(sample_inputs)
+    missing = [n for n in feed_names if n not in sample]
+    if missing:
+        raise ValueError("sample_inputs missing feeds: %r" % missing)
+    program = predictor._program
+    for name in feed_names:
+        v = program.global_block().var(name)
+        if int(getattr(v, 'lod_level', 0) or 0) or isinstance(
+                sample[name], tuple):
+            raise NotImplementedError(
+                "export_compiled: feed %r carries a LoD; LoD artifacts are "
+                "not ported yet (ROADMAP.md queue 1 item 8)" % name)
+    sample = {n: np.asarray(sample[n]) for n in feed_names}
+    sizes = None
+    if batch_sizes is not None:
+        sizes = sorted({int(b) for b in batch_sizes})
+        if not sizes or sizes[0] < 1:
+            raise ValueError("batch_sizes must be positive ints, got %r"
+                             % (batch_sizes,))
+    _export_tier(predictor, program, sample, out_dir, sizes)
+    return out_dir
+
+
+# -- export_train_step -------------------------------------------------------
+def export_train_step(program, sample_inputs, fetch_list, out_dir,
+                      scope=None, seed=None):
+    """Export a train step (forward, backward and optimizer update) as a
+    training artifact for CompiledTrainer.
+
+    program: the built train program (optimizer applied; its AMP mark,
+    `program._amp_bf16`, is kept). sample_inputs: {name: array} fixing
+    the feed shapes and dtypes. fetch_list: Variables or names fetched
+    each step (put the loss here). scope: where the startup program ran
+    (default: the global scope); every persistable the program reads or
+    writes becomes the artifact's initial state. seed: the random draws'
+    root (default program.random_seed, else 1234567 under
+    FLAGS_deterministic, else the process's entropy root, as the
+    Executor falls back): CompiledTrainer's steps draw what the
+    Executor's would. Gradient-merge programs and LoD feeds or fetches
+    are refused, as in the reference. Returns out_dir."""
+    if int(getattr(program, '_grad_accum_k', 1) or 1) > 1:
+        raise ValueError(
+            "export_train_step does not support gradient-merge programs; "
+            "export the k=1 form and accumulate in the serving loop")
+    scope = scope if scope is not None else global_scope()
+    sample = {n: np.asarray(v) for n, v in dict(sample_inputs).items()}
+    feed_names = sorted(sample)
+    fetch_names = [f.name if isinstance(f, Variable) else str(f)
+                   for f in fetch_list]
+    block = program.global_block()
+    for name in feed_names:
+        v = block._find_var_recursive(name)
+        if v is not None and getattr(v, 'lod_level', 0):
+            raise ValueError(
+                "export_train_step serves dense tensors only; feed %r is "
+                "a LoD tensor" % name)
+    for name in fetch_names:
+        v = block._find_var_recursive(name)
+        if v is not None and getattr(v, 'lod_level', 0):
+            raise ValueError(
+                "export_train_step fetches must be dense; %r carries lod "
+                "— fetch the loss or a dense metric" % name)
+    persist = {v.name for v in program.list_vars() if v.persistable}
+    written = {n for op in block.ops for n in op.output_arg_names()
+               if n in persist}
+    state = {n: _to_numpy(scope.get(n)) for n in sorted(persist)
+             if scope.get(n) is not None}
+    extra = sorted(written - set(state))
+    if extra:
+        raise ValueError(
+            "train-step state %r is written by the program but absent "
+            "from the scope — run the startup program before export so "
+            "every optimizer slot is materialized" % (extra,))
+    if seed is None:
+        seed = _config.step_seed(program)
+    d = _io.program_to_dict(program)
+    d['feed_names'] = feed_names
+    d['fetch_names'] = fetch_names
+    os.makedirs(out_dir, exist_ok=True)
+    with _io._atomic_file(os.path.join(out_dir, _serve._TRAIN_PROGRAM)) as f:
+        f.write(json.dumps(d).encode())
+    sig = {'version': 1, 'format': _serve._FORMAT,
+           'feeds': [{'name': n, 'shape': list(sample[n].shape),
+                      'dtype': sample[n].dtype.name} for n in feed_names],
+           'fetches': fetch_names,
+           'state': [{'name': n, 'shape': list(a.shape),
+                      'dtype': a.dtype.name} for n, a in state.items()],
+           'rng': {'seed': int(seed)},
+           'amp_bf16': bool(getattr(program, '_amp_bf16', False))}
+    with _io._atomic_file(os.path.join(out_dir,
+                                       _serve._TRAIN_SIGNATURE)) as f:
+        f.write(json.dumps(sig, indent=1).encode())
+    np.savez(os.path.join(out_dir, _serve._TRAIN_STATE0), **state)
     return out_dir

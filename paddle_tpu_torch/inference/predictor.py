@@ -2,10 +2,14 @@
 paddle_api.h PaddlePredictor; paddle_tpu/inference/predictor.py:19-167).
 
 load -> run: the directory written by `io.save_inference_model` (by either
-package) is loaded into the predictor's own Scope on its device, and each
-`run` interprets the pruned program with the Executor; `run_batches` runs
-K batches through `Executor.run_steps`. The predictor runs on the card
-unless the Config asks for the CPU with `disable_gpu()`.
+package; parameters one file each or, with `params_file`, in one file) or
+by the reference's own save_inference_model (a protobuf `__model__`,
+inference/ref_format.py; detected by its first byte unless
+`Config.ref_format` says which) is loaded into the predictor's own Scope on
+its device, and each `run` interprets the pruned program with the
+Executor; `run_batches` runs K batches through `Executor.run_steps`. The
+predictor runs on the card unless the Config asks for the CPU with
+`disable_gpu()`.
 """
 from __future__ import annotations
 
@@ -20,10 +24,16 @@ class Config(object):
     """AnalysisConfig equivalent: where the model lives and where it runs
     (CUDAPlace(0) unless disable_gpu() is called)."""
 
-    def __init__(self, model_dir=None, prog_file=None):
+    def __init__(self, model_dir=None, prog_file=None, params_file=None):
         self.model_dir = model_dir
         self.prog_file = prog_file
+        self.params_file = params_file
+        self.ref_format = None   # None = autodetect, True/False to force
         self._place = CUDAPlace(0)
+
+    def set_model(self, model_dir, params_file=None):
+        self.model_dir = model_dir
+        self.params_file = params_file
 
     def disable_gpu(self):
         self._place = CPUPlace()
@@ -39,17 +49,23 @@ class Predictor(object):
 
     def _load(self):
         from .. import io as ptt_io
+        from . import ref_format
         cfg = self._config
-        path = os.path.join(cfg.model_dir, cfg.prog_file or '__model__')
-        with open(path, 'rb') as f:
-            if f.read(1) != b'{':
-                raise ValueError(
-                    "%s is not a JSON program: the port loads directories "
-                    "written by save_inference_model, not the reference's "
-                    "protobuf format" % path)
+        ref = cfg.ref_format
+        if ref is None:
+            # the JSON program of save_inference_model starts with '{';
+            # the reference's protobuf ProgramDesc does not
+            path = os.path.join(cfg.model_dir, cfg.prog_file or '__model__')
+            with open(path, 'rb') as f:
+                ref = f.read(1) != b'{'
+        if ref:
+            return ref_format.load_reference_inference_model(
+                cfg.model_dir, self._exe, model_filename=cfg.prog_file,
+                params_filename=cfg.params_file, scope=self._scope)
         with scope_guard(self._scope):
-            return ptt_io.load_inference_model(cfg.model_dir, self._exe,
-                                               model_filename=cfg.prog_file)
+            return ptt_io.load_inference_model(
+                cfg.model_dir, self._exe, model_filename=cfg.prog_file,
+                params_filename=cfg.params_file)
 
     def get_input_names(self):
         return list(self._feed_names)

@@ -9,6 +9,9 @@ directory saved by either package loads in the other:
 - one file per var: b'PTPU', u32 version, u32 header length, a JSON header
   (dtype, shape, lod, crc32 of the payload), then the raw little-endian
   payload;
+- or, with `filename=` (`params_filename=` for an inference model), every
+  var in that one file: u32 count, then per var a u32 name length, the
+  name and the var's bytes as above (paddle_tpu/io.py:333-502);
 - `.ptpu_manifest.json`: sha256 and size of every file of the last
   completed save, written last, so a partial or mixed directory fails to
   load instead of loading stale values.
@@ -154,23 +157,39 @@ def _serialize_tensor(f, value):
     f.write(payload)
 
 
-def _deserialize_tensor(raw, device):
-    if raw[:4] != _MAGIC:
+def _deserialize_tensor(raw, device, pos=0):
+    """The tensor serialized at raw[pos:], on `device`, and the offset
+    just past it."""
+    if raw[pos:pos + 4] != _MAGIC:
         raise ValueError("not a paddle_tpu tensor file (bad magic %r)"
-                         % raw[:4])
-    (hlen,) = struct.unpack('<I', raw[8:12])
-    header = json.loads(raw[12:12 + hlen].decode())
+                         % raw[pos:pos + 4])
+    (hlen,) = struct.unpack('<I', raw[pos + 8:pos + 12])
+    start = pos + 12 + hlen
+    header = json.loads(raw[pos + 12:start].decode())
     if header['lod']:
         raise NotImplementedError("LoD tensors are not supported by the "
-                                  "port yet")
+                                  "port yet (ROADMAP.md queue 1 item 8)")
     dt = np.dtype(header['dtype'])
     n = int(np.prod(header['shape'])) if header['shape'] else 1
-    payload = raw[12 + hlen:12 + hlen + n * dt.itemsize]
+    end = start + n * dt.itemsize
+    payload = raw[start:end]
     if 'crc32' in header and (zlib.crc32(payload) & 0xffffffff) \
             != header['crc32']:
         raise ValueError("tensor payload CRC mismatch — corrupt checkpoint")
     data = np.frombuffer(payload, dtype=dt).reshape(header['shape'])
-    return torch.from_numpy(data.copy()).to(device)
+    return torch.from_numpy(data.copy()).to(device), end
+
+
+def _parse_var_blob(raw, device):
+    """{name: tensor} of a single-file save (count, then per var its name
+    and serialized tensor)."""
+    (n,) = struct.unpack('<I', raw[:4])
+    pos, loaded = 4, {}
+    for _ in range(n):
+        (ln,) = struct.unpack('<I', raw[pos:pos + 4])
+        name = raw[pos + 4:pos + 4 + ln].decode()
+        loaded[name], pos = _deserialize_tensor(raw, device, pos + 4 + ln)
+    return loaded
 
 
 # ---------------------------------------------------------------------------
@@ -257,22 +276,37 @@ def _resolve_vars(main_program, vars, predicate):
 
 
 def save_vars(executor, dirname, main_program=None, vars=None,
-              predicate=None):
-    """Write each var present in the global scope to dirname/<name>, then
-    the manifest. Returns the paths written."""
+              predicate=None, filename=None):
+    """Write each var present in the global scope to dirname/<name>, or
+    all of them to dirname/<filename>, then the manifest. Returns the paths
+    written."""
     vars = _resolve_vars(main_program, vars, predicate or (lambda v: True))
     scope = global_scope()
+    present = [(v, scope.get(v.name)) for v in vars]
+    present = [(v, val) for v, val in present if val is not None]
     os.makedirs(dirname, exist_ok=True)
     entries, written = {}, []
-    for v in vars:
-        val = scope.get(v.name)
-        if val is None:
-            continue
-        path = os.path.join(dirname, v.name)
+    if filename is None:
+        for v, val in present:
+            path = os.path.join(dirname, v.name)
+            with _atomic_file(path) as f:
+                hf = _HashingFile(f)
+                _serialize_tensor(hf, val)
+            entries[v.name] = {'sha256': hf.sha.hexdigest(),
+                               'bytes': hf.nbytes}
+            written.append(path)
+    else:
+        path = os.path.join(dirname, filename)
         with _atomic_file(path) as f:
             hf = _HashingFile(f)
-            _serialize_tensor(hf, val)
-        entries[v.name] = {'sha256': hf.sha.hexdigest(), 'bytes': hf.nbytes}
+            hf.write(struct.pack('<I', len(present)))
+            for v, val in present:
+                name = v.name.encode()
+                hf.write(struct.pack('<I', len(name)))
+                hf.write(name)
+                _serialize_tensor(hf, val)
+        entries[filename] = {'sha256': hf.sha.hexdigest(),
+                             'bytes': hf.nbytes}
         written.append(path)
     # the manifest is written LAST: its digests committing to the files
     # above is what makes an interrupted save detectable
@@ -281,23 +315,34 @@ def save_vars(executor, dirname, main_program=None, vars=None,
 
 
 def load_vars(executor, dirname, main_program=None, vars=None,
-              predicate=None):
-    """Load vars from dirname into the global scope, on the executor's
-    device."""
+              predicate=None, filename=None):
+    """Load vars from dirname (one file each, or all from
+    dirname/<filename>) into the global scope, on the executor's device.
+    A var a single file does not hold is left as it is, as in the
+    reference."""
     vars = _resolve_vars(main_program, vars, predicate or (lambda v: True))
     scope = global_scope()
     manifest = _load_manifest(dirname)
+    if filename is None:
+        for v in vars:
+            raw = _read_verified(dirname, v.name, manifest)
+            scope.set(v.name, _deserialize_tensor(raw, executor.device)[0])
+        return
+    loaded = _parse_var_blob(_read_verified(dirname, filename, manifest),
+                             executor.device)
     for v in vars:
-        raw = _read_verified(dirname, v.name, manifest)
-        scope.set(v.name, _deserialize_tensor(raw, executor.device))
+        if v.name in loaded:
+            scope.set(v.name, loaded[v.name])
 
 
-def save_persistables(executor, dirname, main_program=None):
-    return save_vars(executor, dirname, main_program, None, is_persistable)
+def save_persistables(executor, dirname, main_program=None, filename=None):
+    return save_vars(executor, dirname, main_program, None, is_persistable,
+                     filename)
 
 
-def load_persistables(executor, dirname, main_program=None):
-    load_vars(executor, dirname, main_program, None, is_persistable)
+def load_persistables(executor, dirname, main_program=None, filename=None):
+    load_vars(executor, dirname, main_program, None, is_persistable,
+              filename)
 
 
 # ---------------------------------------------------------------------------
@@ -322,7 +367,8 @@ def prune_program(program, feed_names, fetch_names):
 
 
 def save_inference_model(dirname, feeded_var_names, target_vars, executor,
-                         main_program=None, model_filename=None):
+                         main_program=None, model_filename=None,
+                         params_filename=None):
     main_program = main_program or default_main_program()
     fetch_names = [v.name if isinstance(v, Variable) else v
                    for v in target_vars]
@@ -337,18 +383,19 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
         hf.write(json.dumps(d).encode())
     _write_manifest(dirname, {model_name: {
         'sha256': hf.sha.hexdigest(), 'bytes': hf.nbytes}})
-    save_persistables(executor, dirname, pruned)
+    save_persistables(executor, dirname, pruned, params_filename)
     return fetch_names
 
 
-def load_inference_model(dirname, executor, model_filename=None):
+def load_inference_model(dirname, executor, model_filename=None,
+                         params_filename=None):
     """(program, feed_names, fetch_vars) of the model in dirname, its
     persistables loaded into the global scope on the executor's device."""
     model_name = model_filename or '__model__'
     raw = _read_verified(dirname, model_name, _load_manifest(dirname))
     d = json.loads(raw.decode())
     program = program_from_dict(d)
-    load_persistables(executor, dirname, program)
+    load_persistables(executor, dirname, program, params_filename)
     feed_names = d.get('feed_names', [])
     fetch_vars = [program.global_block().var(n)
                   for n in d.get('fetch_names', [])]

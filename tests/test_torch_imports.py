@@ -87,3 +87,54 @@ def test_package_and_chip_smoke_import_with_jax_blocked():
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert 'imported' in r.stdout
+
+
+SERVING_MODULES = ('inference.serve', 'inference.batching',
+                   'inference.export', 'inference.proto',
+                   'inference.ref_format')
+
+_ONE_MODULE = r'''
+import importlib, sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'):
+            raise ImportError('blocked import: ' + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+mod = importlib.import_module(sys.argv[1])
+leaked = sorted(m for m in sys.modules
+                if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))
+assert not leaked, leaked
+print('imported', mod.__name__)
+'''
+
+
+@pytest.fixture(scope='module')
+def serving_imports():
+    """Each serving module imported first in a fresh interpreter, the
+    interpreters started together: {module: CompletedProcess-like
+    (returncode, stdout, stderr)}."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs = {m: subprocess.Popen(
+        [sys.executable, '-c', _ONE_MODULE, 'paddle_tpu_torch.' + m],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for m in SERVING_MODULES}
+    out = {}
+    for m, p in procs.items():
+        stdout, stderr = p.communicate(timeout=300)
+        out[m] = (p.returncode, stdout, stderr)
+    return out
+
+
+@pytest.mark.parametrize('module', SERVING_MODULES)
+def test_serving_module_imports_alone_with_jax_blocked(serving_imports,
+                                                       module):
+    """Each artifact-serving module, imported first in a fresh
+    interpreter, loads neither jax nor paddle_tpu."""
+    name = 'paddle_tpu_torch.' + module
+    assert os.path.join(*name.split('.')) + '.py' in _port_sources()
+    rc, stdout, stderr = serving_imports[module]
+    assert rc == 0, stderr
+    assert 'imported ' + name in stdout
