@@ -134,13 +134,14 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 import paddle_tpu_torch as fluid
-from paddle_tpu_torch import kernels
+from paddle_tpu_torch import kernels, passes
 from paddle_tpu_torch.contrib import gradient_merge, mixed_precision
 from paddle_tpu_torch.inference import (BatchingPredictor, CompiledPredictor,
                                         CompiledTrainer, DecodingPredictor,
@@ -155,6 +156,7 @@ from paddle_tpu_torch.models.transformer import (build_decode_spec,
 from paddle_tpu_torch.ops import bn_apply as bn_mod
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import tensor_ops
+from paddle_tpu_torch.core.lowering import TraceError
 
 SEED = 0
 BATCHES = (1, 8, 16)
@@ -237,8 +239,19 @@ RESNET_GATE_BATCH = 4
 # bf16 mixed precision (contrib.mixed_precision.enable_bf16 on the programs
 # above): ResNet-50 at bench.py:431's defaults, bf16 at batch 256
 RESNET_AMP_BATCH = 256
+# bench_resnet's batch with PTPU_BENCH_DTYPE=f32 (bench.py:431-445)
+RESNET_F32_BENCH_BATCH = 256
+RESNET_F32_BENCH_MORE_STEPS = 8
 # one-ulp draws of the GPU-vs-CPU gates' noise, on each side
 NOISE_DRAWS = 3
+# peak allocated bytes of each training phase's timed steps, by label
+PEAKS = {}
+# the same phases' peaks (GB) before the Executor freed each value after
+# its last reader, as PERF.md records them from earlier runs of this
+# script on an NVIDIA H100 80GB HBM3 at 700 W: f32 ResNet-50 at batch 128,
+# bf16 at batch 256
+PEAK_GB_NOTHING_FREED = {'resnet_training': 38.3,
+                         'resnet_training_bf16': 40.88}
 # BERT-base pretraining as bench.py:504-540 bench_bert runs it: S=128,
 # batch 64, build_bert_pretrain's default dropout 0.1 (the attention
 # takes the composed branch), Adam(lr 1e-4), bf16 AMP (enable_bf16) and
@@ -351,15 +364,25 @@ TRAINER_STEPS = 3
 VGG_BN_SHAPES = [((4096,), 2)]
 # K1 and its backward are held against their plain versions at every batch
 # and dtype a ResNet-50 path launches them with: serving at BN_BATCH, the
-# batcher's f32 buckets below 128, f32 and AMP training, and the compiled
-# trainer's bf16 batch; the largest BN outputs take the kernel's
-# grid-stride loop through 2 (f32 at 128, bf16 at 256) and more passes:
-# (batch, dtypes)
-BN_CHECKS = (tuple((b, (torch.float32,)) for b in ARTIFACT_BUCKETS[:-1])
-             + ((BN_BATCH, (torch.float32, torch.bfloat16)),
-                (TRAINER_BATCH, (torch.bfloat16,)),
-                (RESNET_TRAIN_BATCH, (torch.float32, torch.bfloat16)),
-                (RESNET_AMP_BATCH, (torch.bfloat16,))))
+# batcher's f32 buckets below 128, f32 and AMP training, the compiled
+# trainer's bf16 batch and f32 training at bench_resnet's batch; the
+# largest BN outputs take the kernel's grid-stride loop through 2 (f32 at
+# 128, bf16 at 256) and more passes: (batch, dtypes), one entry a batch
+def _bn_checks(*entries):
+    merged = {}
+    for batch, dtypes in entries:
+        have = merged.setdefault(batch, [])
+        have += [d for d in dtypes if d not in have]
+    return tuple((batch, tuple(dtypes)) for batch, dtypes in merged.items())
+
+
+BN_CHECKS = _bn_checks(
+    *((b, (torch.float32,)) for b in ARTIFACT_BUCKETS[:-1]),
+    (BN_BATCH, (torch.float32, torch.bfloat16)),
+    (TRAINER_BATCH, (torch.bfloat16,)),
+    (RESNET_TRAIN_BATCH, (torch.float32, torch.bfloat16)),
+    (RESNET_AMP_BATCH, (torch.bfloat16,)),
+    (RESNET_F32_BENCH_BATCH, (torch.float32,)))
 
 
 def check(cond, msg):
@@ -1139,14 +1162,17 @@ def _mark(main, amp):
     return main
 
 
-def build_bert_training(amp=False):
+def build_bert_training(amp=False, checkpoints=None):
     """Full-width BERT-base pretraining at S=512: the masked-LM loss and
     Adam(lr 1e-4).minimize, dropout 0, seeded initialization; with amp,
-    marked for bf16 by contrib.mixed_precision.enable_bf16."""
+    marked for bf16 by contrib.mixed_precision.enable_bf16; with
+    `checkpoints` (True: each layer's output), remat segments
+    (passes/recompute.py)."""
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = SEED
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
-        _, loss = build_bert_pretrain(dropout=0.0, lr=1e-4, **BERT)
+        _, loss = build_bert_pretrain(dropout=0.0, lr=1e-4,
+                                      checkpoints=checkpoints, **BERT)
     return _mark(main, amp), startup, loss
 
 
@@ -1263,6 +1289,7 @@ def phase_bert_training(main, startup, loss, amp=False):
           'peak_allocated_gb=%.2f (host clock, %d steps, each ending in a '
           'sync)' % (label, p50 * 1e3, float(np.percentile(times, 90)) * 1e3,
                      tokens / p50, peak / 2 ** 30, TRAIN_STEPS))
+    PEAKS[label] = peak
     return exe, scope, feed, counts
 
 
@@ -1521,15 +1548,17 @@ def phase_dropout_on_card():
           '4 different masks' % BENCH_K)
 
 
-def build_bert_bench_training(amp=True):
+def build_bert_bench_training(amp=True, checkpoints=None):
     """bench.py:504-540's BERT-base program: build_bert_pretrain at S=128
     with its defaults (dropout 0.1, Adam lr 1e-4), seeded initialization,
-    enable_bf16 (with amp) and gradient_merge.enable(2). Returns (main,
+    enable_bf16 (with amp) and gradient_merge.enable(2); `checkpoints` as
+    PTPU_BENCH_BERT_REMAT passes it (bench.py:512-521). Returns (main,
     startup, loss, feeds)."""
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = SEED
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
-        feeds, loss = build_bert_pretrain(**BENCH_BERT)
+        feeds, loss = build_bert_pretrain(checkpoints=checkpoints,
+                                          **BENCH_BERT)
     gradient_merge.enable(BENCH_K, _mark(main, amp))
     return main, startup, loss, feeds
 
@@ -1671,6 +1700,7 @@ def _bench_training(label, main, startup, loss, feed, want_ops, want_step,
           'peak_allocated_gb=%.2f (host clock, %d steps, each ending in a '
           'sync)' % (label, p50 * 1e3, float(np.percentile(times, 90)) * 1e3,
                      tokens / p50, mfu, peak / 2 ** 30, steps))
+    PEAKS[label] = peak
     per_kernel = _profile(
         lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
                         return_numpy=False), '%s %s' % (label, desc), 'steps')
@@ -1917,10 +1947,10 @@ def _resnet_feed(bs, gen):
 
 
 def phase_resnet_training(main, startup, loss, acc, batch=RESNET_TRAIN_BATCH,
-                          amp=False):
+                          amp=False, more_steps=RESNET_MORE_STEPS):
     """Train ResNet-50 on the card: TRAIN_WARMUP_STEPS, then TRAIN_STEPS
     timed steps (host clock around Executor.run and a sync), then
-    RESNET_MORE_STEPS untimed ones, all on one fixed batch of `batch`,
+    `more_steps` untimed ones, all on one fixed batch of `batch`,
     fetching the loss and the accuracy. Every step after the warm-up
     launches bn_apply twice per batch_norm op (the op and the forward its
     batch_norm_grad re-runs under autograd), all in the path's dtype (bf16
@@ -1932,7 +1962,9 @@ def phase_resnet_training(main, startup, loss, acc, batch=RESNET_TRAIN_BATCH,
     step 12, 5.00 and 5.61 at step 22, from 7.61. With amp, the last
     warm-up step also fetches every parameter gradient for the dtype gate,
     which also reads the state after the warm-up steps."""
-    label = 'resnet_training' + ('_bf16' if amp else '')
+    label = 'resnet_training' + ('_bf16' if amp else '') + (
+        '' if batch == (RESNET_AMP_BATCH if amp else RESNET_TRAIN_BATCH)
+        else '_batch%d' % batch)
     ops = main.global_block().ops
     n_bn = sum(op.type == 'batch_norm' for op in ops)
     n_bn_grad = sum(op.type == 'batch_norm_grad' for op in ops)
@@ -1966,7 +1998,7 @@ def phase_resnet_training(main, startup, loss, acc, batch=RESNET_TRAIN_BATCH,
             'flash_attn_bwd_dkv': 0, 'flash_attn_bwd_dq': 0}
     reset_launches()
     times = []
-    for i in range(TRAIN_STEPS + RESNET_MORE_STEPS):
+    for i in range(TRAIN_STEPS + more_steps):
         before, before_dt = read_launches(), read_launches_by_dtype()
         t0 = time.perf_counter()
         out = step()
@@ -2000,11 +2032,12 @@ def phase_resnet_training(main, startup, loss, acc, batch=RESNET_TRAIN_BATCH,
     print('%s launches over %d timed steps: %s (per step: %s; by dtype: %s; '
           'the same in each of the %d untimed steps)' % (
               label, TRAIN_STEPS, json.dumps(counts), json.dumps(want),
-              json.dumps(counts_by_dtype), RESNET_MORE_STEPS))
+              json.dumps(counts_by_dtype), more_steps))
     print('%s step p50_ms=%r p90_ms=%r img_per_s=%r peak_allocated_gb=%.2f '
           '(host clock, %d steps, each ending in a sync)' % (
               label, p50 * 1e3, float(np.percentile(times, 90)) * 1e3,
               batch / p50, peak / 2 ** 30, TRAIN_STEPS))
+    PEAKS[label] = peak
     return exe, scope, feed, counts
 
 
@@ -2283,14 +2316,18 @@ def _k2_transformer_step_ms(k2_rows, bwd_rows):
 
 def build_decode_artifact(dirname):
     """decode-base on the card: build_decode_spec(**DECODE) -> startup
-    (random weights from the program's seed) -> export_decode(dirname).
+    (random weights from the program's seed) -> export_decode(dirname),
+    each program after the inference pipeline (a fallback fails).
     Returns (the artifact's signature, the step program's op census, the
     prefill programs' op counts, parameter elements)."""
     with fluid.unique_name.guard():
         spec = build_decode_spec(**DECODE)
     scope = fluid.Scope()
     fluid.Executor(fluid.CUDAPlace(0)).run(spec['startup'], scope=scope)
-    export_decode(spec, dirname, scope=scope)
+    with warnings.catch_warnings():
+        # the inference pipeline's fallback to the raw programs warns
+        warnings.simplefilter('error', RuntimeWarning)
+        export_decode(spec, dirname, scope=scope)
     with open(os.path.join(dirname, 'decode_signature.json')) as f:
         sig = json.load(f)
     n_params = sum(scope.get(n).numel() for n in sig['params'])
@@ -3084,6 +3121,14 @@ def phase_zoo_kernel(se_shapes):
     return out, max_abs
 
 
+def _artifact_passes(adir):
+    """The inference pipeline's reports that export_compiled recorded in
+    the artifact's top signature (empty after a fallback to the raw
+    program)."""
+    with open(os.path.join(adir, 'signature.json')) as f:
+        return json.load(f).get('passes', [])
+
+
 def _scope_bytes(scope):
     return sum(t.numel() * t.element_size() for t in scope._vars.values()
                if t is not None)
@@ -3135,8 +3180,11 @@ def _instrument(batcher):
 def phase_resnet_artifact_serving(dirname, n_bn):
     """ResNet-50 (the served directory of phase_serving: 224x224, 1000
     classes, random BN state, f32) as bench.py's resnet50_serving row
-    serves it: export_compiled at ARTIFACT_BUCKETS -> BatchingPredictor ->
-    warmup; the card's allocated bytes before and after the batcher loads
+    serves it: export_compiled at ARTIFACT_BUCKETS (the program after the
+    inference pipeline, which folds the 16 residual relus into their
+    elementwise_add; a RuntimeWarning, the pipeline's fallback, fails the
+    phase) -> BatchingPredictor -> warmup; the card's allocated bytes
+    before and after the batcher loads
     (one copy of the parameters for all buckets: at most 1.1x the
     persistable bytes); ARTIFACT_SEQ_REQUESTS batch-1
     CompiledPredictor.run calls through bucket 1; the capacity from
@@ -3148,16 +3196,39 @@ def phase_resnet_artifact_serving(dirname, n_bn):
     ARTIFACT_SLOPE_BUCKET (slope, and 8 batches equal to 8 run() calls
     bit for bit); a single-bucket {ARTIFACT_EXACT_BUCKET} artifact taking
     as many concurrent batch-1 submits, each equal to CompiledPredictor.run
-    of that request through the bucket bit for bit; and each bucket's
-    first logits against the CPU's within 1e-3 of the largest."""
+    of that request through the bucket bit for bit; each bucket's
+    peak_bytes_est beside the measured peak of one batch; and each
+    bucket's first logits against the CPU's within 1e-3 of the largest."""
     t0 = time.perf_counter()
     pred = fluid.inference.create_predictor(fluid.inference.Config(dirname))
     sample = np.random.RandomState(0).randn(
         max(ARTIFACT_BUCKETS), 3, 224, 224).astype(np.float32)
     adir = os.path.join(dirname, 'artifact')
     t1 = time.perf_counter()
-    export_compiled(pred, [sample], adir, batch_sizes=ARTIFACT_BUCKETS)
-    export_s = time.perf_counter() - t1
+    with warnings.catch_warnings():
+        # the pipeline's fallback to the raw program warns: fail on it
+        warnings.simplefilter('error', RuntimeWarning)
+        export_compiled(pred, [sample], adir, batch_sizes=ARTIFACT_BUCKETS)
+        export_s = time.perf_counter() - t1
+    reports = _artifact_passes(adir)
+    names = [r['pass'] for r in reports]
+    check(names == passes.pipeline_names(passes.INFERENCE_PIPELINE),
+          'resnet export pipeline ran %s' % names)
+    fused = reports[names.index('fuse_activation')]['details']['fused']
+    with open(os.path.join(adir, '__model__')) as f:
+        model_ops = collections.Counter(op['type'] for op in
+                                        json.load(f)['blocks'][0]['ops'])
+    raw_ops = collections.Counter(op.type for op in
+                                  pred._program.global_block().ops)
+    print('artifact_serving inference pipeline: ops %d -> %d (relu %d -> '
+          '%d; %d activations fused into their producer), reports: %s' % (
+              sum(raw_ops.values()), sum(model_ops.values()),
+              raw_ops['relu'], model_ops['relu'], fused,
+              json.dumps(reports)))
+    check(fused == 16 and model_ops['batch_norm'] == n_bn
+          and sum(model_ops.values()) == reports[-1]['ops']['after'],
+          'the exported ResNet-50 program is not the pipeline\'s: %s'
+          % dict(model_ops))
     persist = _scope_bytes(pred._scope)
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
@@ -3273,6 +3344,25 @@ def phase_resnet_artifact_serving(dirname, n_bn):
                   ARTIFACT_SLOPE_BUCKET / device_ms * 1e3, EXACT_BATCHES,
                   EXACT_BATCHES // 2, SLOPE_REPS, json.dumps(b8.bulk_stats())))
 
+        # each bucket's static peak_bytes_est (passes/dataflow.py) beside
+        # the allocated bytes one batch adds above the loaded model
+        for b in ARTIFACT_BUCKETS:
+            with open(os.path.join(adir, 'bucket_%05d' % b,
+                                   'signature.json')) as f:
+                est = json.load(f).get('peak_bytes_est')
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            batcher._preds[b].run([sample[:b]])
+            torch.cuda.synchronize()
+            rise = torch.cuda.max_memory_allocated() - base
+            print('artifact_serving bucket=%d peak_bytes_est=%s measured: '
+                  'parameters on the card %d + the peak rise of one batch '
+                  '%d = %d bytes (the estimate counts the parameters, the '
+                  'input and the largest set of live temporaries)'
+                  % (b, est, persist, rise, persist + rise))
+            check(isinstance(est, int) and est > 0,
+                  'bucket %d signature has no peak_bytes_est' % b)
         cpu = CompiledPredictor(
             os.path.join(adir, 'bucket_%05d' % ARTIFACT_CPU_ROWS),
             platform='cpu')
@@ -3295,8 +3385,10 @@ def phase_resnet_artifact_serving(dirname, n_bn):
     torch.cuda.empty_cache()
 
     edir = os.path.join(dirname, 'artifact_%d' % ARTIFACT_EXACT_BUCKET)
-    export_compiled(pred, [sample[:ARTIFACT_EXACT_BUCKET]], edir,
-                    batch_sizes=[ARTIFACT_EXACT_BUCKET])
+    with warnings.catch_warnings():
+        warnings.simplefilter('error', RuntimeWarning)
+        export_compiled(pred, [sample[:ARTIFACT_EXACT_BUCKET]], edir,
+                        batch_sizes=[ARTIFACT_EXACT_BUCKET])
     del pred
     n = ARTIFACT_EXACT_BUCKET
     reqs = [sample[i:i + 1] for i in range(n)][::-1]  # rows move
@@ -3428,6 +3520,379 @@ def phase_compiled_trainer():
     return counts
 
 
+# -- program passes, freeing, remat -----------------------------------------
+def phase_resnet_f32_bench_batch(main, startup, loss, acc):
+    """bench_resnet's f32 configuration (PTPU_BENCH_DTYPE=f32,
+    bench.py:431-445): ResNet-50 with the s2d stem and Momentum(0.1, 0.9)
+    trained in f32 at batch RESNET_F32_BENCH_BATCH, which fits on one card
+    only because the Executor frees each value after its last reader:
+    phase_resnet_training at that batch (TRAIN_WARMUP_STEPS, TRAIN_STEPS
+    timed and RESNET_F32_BENCH_MORE_STEPS untimed steps; loss finite and
+    falling; exactly 2 f32 bn_apply launches per batch_norm, 106, a
+    step). Returns the launches over the timed steps."""
+    t0 = time.perf_counter()
+    exe, scope, feed, counts = phase_resnet_training(
+        main, startup, loss, acc, batch=RESNET_F32_BENCH_BATCH,
+        more_steps=RESNET_F32_BENCH_MORE_STEPS)
+    del exe, scope, feed
+    torch.cuda.empty_cache()
+    _phase_seconds('resnet_training_f32_bench_batch', t0)
+    return counts
+
+
+def phase_memory_summary(r_main, r_loss, r_acc):
+    """The ResNet-50 training phases' peak allocated memory beside the
+    peaks before freeing (PEAK_GB_NOTHING_FREED) and the static estimate
+    of passes/dataflow.py at each batch (peak_memory: the resident
+    parameters, feeds and optimizer state plus the largest sum of
+    temporaries whose live intervals overlap, every var at its declared
+    dtype, so the bf16 rows carry the f32 program's estimate). The
+    estimate leaves out what an op allocates inside itself (a generic
+    grad's re-run forward and its autograd graph, cuDNN workspaces)."""
+    dfa = passes.analyze_program(r_main, feed_names=['data', 'label'],
+                                 fetch_names=[r_loss.name, r_acc.name])
+    for label, batch in (
+            ('resnet_training', RESNET_TRAIN_BATCH),
+            ('resnet_training_batch%d' % RESNET_F32_BENCH_BATCH,
+             RESNET_F32_BENCH_BATCH),
+            ('resnet_training_bf16', RESNET_AMP_BATCH)):
+        est = dfa.peak_memory(batch=batch)
+        before = PEAK_GB_NOTHING_FREED.get(label)
+        print('memory %s batch=%d peak_allocated_gb=%.2f '
+              'before_freeing_gb=%s static_estimate_gb=%.2f (resident %.2f '
+              '+ temporaries %.2f; peak at op %d %s)' % (
+                  label, batch, PEAKS[label] / 2 ** 30,
+                  'not measured' if before is None else '%.2f' % before,
+                  est.peak_bytes / 2 ** 30, est.resident_bytes / 2 ** 30,
+                  est.temps_peak_bytes / 2 ** 30, est.peak_op_index,
+                  est.peak_op_type))
+        if before is not None:
+            check(PEAKS[label] < before * 2 ** 30,
+                  '%s: the peak %.2f GB is not below the %.2f GB of a step '
+                  'that freed nothing' % (label, PEAKS[label] / 2 ** 30,
+                                          before))
+
+
+def _remat_gate(label, plain, remat, startup, names, feed, seed, amp,
+                steps=3):
+    """A remat arm against its no-remat arm on the card, from one initial
+    state (the startup program's, copied into each arm's scope on the
+    card) and one feed: `steps` steps of each, the first fetching
+    `names` (the loss, then gradients); each arm's step again from the
+    state moved by one ulp (_perturbed: f32, or bf16 with amp) in
+    NOISE_DRAWS draws. Each name of the first step is gated as _gate_rows
+    gates GPU against CPU: within max(1e-5 of its largest value, 4 times
+    the noise, the largest move over the draws of one arm plus the
+    other's); the later losses within the first loss's tolerance. An arm
+    draws its dropout masks at the steps and microbatches the other does
+    (a fresh Executor each), and the remat arm replays them in its
+    segments' grads. Prints whether each value is equal bit for bit."""
+    t0 = time.perf_counter()
+    sc = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=sc)
+    state = {v.name: sc.get(v.name) for v in plain.list_vars()
+             if v.persistable and sc.get(v.name) is not None}
+    del sc
+
+    def scope_of(st):
+        scope = fluid.Scope()
+        for n, t in st.items():
+            scope.set(n, t.clone())
+        return scope
+    first, losses, noise = {}, {}, {}
+    for arm, prog in (('plain', plain), ('remat', remat)):
+        scope = scope_of(state)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        outs = [exe.run(prog, feed=feed, scope=scope,
+                        fetch_list=names if i == 0 else names[:1])
+                for i in range(steps)]
+        first[arm] = outs[0]
+        losses[arm] = [float(o[0].reshape(-1)[0]) for o in outs]
+        del scope, exe
+        moves = []
+        for i in range(1, NOISE_DRAWS + 1):
+            scope = scope_of(_perturbed(state, seed + i, amp))
+            out = fluid.Executor(fluid.CUDAPlace(0)).run(
+                prog, feed=feed, fetch_list=names, scope=scope)
+            moves.append([float(np.abs(a - b).max())
+                          for a, b in zip(out, first[arm])])
+            del scope
+        noise[arm] = [max(m[j] for m in moves) for j in range(len(names))]
+        torch.cuda.empty_cache()
+    rows = []
+    for j, name in enumerate(names):
+        g, w = first['remat'][j], first['plain'][j]
+        err, top = float(np.abs(g - w).max()), float(np.abs(w).max())
+        nz = noise['plain'][j] + noise['remat'][j]
+        rows.append((name, g, w, err, top, nz, max(1e-5 * top, 4 * nz)))
+        print('%s %s equal_bit_for_bit=%s' % (label, name,
+                                              bool(np.array_equal(g, w))))
+    worst = _gate_rows(label, 'step=0', rows)
+    tol = rows[0][-1]
+    diffs = [abs(a - b) for a, b in zip(losses['remat'], losses['plain'])]
+    print('%s losses remat=%s no_remat=%s max_abs_diff=%r tolerance=%r '
+          'worst err/tol=%.3f (%s); %.1f s' % (
+              label, json.dumps(losses['remat']),
+              json.dumps(losses['plain']), max(diffs), tol, worst[0],
+              worst[1], time.perf_counter() - t0))
+    check(all(d <= tol for d in diffs), '%s: remat losses %s differ from '
+          'the no-remat ones %s' % (label, losses['remat'], losses['plain']))
+
+
+def phase_bert_remat_training(main, plain, startup, loss):
+    """BERT-base at S=512, batch TRAIN_BATCH, f32, dropout 0 with
+    checkpoints=True (a remat segment for the embeddings and each encoder
+    layer, n_layer + 1 in all): TRAIN_WARMUP_STEPS, then TRAIN_STEPS timed
+    steps on phase_bert_training's batch. K2 runs inside the segments: in
+    the forward each segment's attention runs the forward kernel under
+    no_grad (no LSE), and each segment's grad replays it under autograd
+    (FlashAttention: the forward with the LSE, then the backward pair), so
+    a step launches 2·n_layer flash_attn_fwd, n_layer of each backward
+    kernel and no bn_apply, all f32, as without remat. The loss is finite
+    and falls; the peak allocated memory must be below the no-remat
+    phase's. Then _remat_gate against the no-remat program. Returns the
+    launches over the timed steps."""
+    t0 = time.perf_counter()
+    label = 'bert_training_remat'
+    n_layer = BERT['n_layer']
+    ops = collections.Counter(op.type for op in main.global_block().ops)
+    inner = collections.Counter(op.type for b in main.blocks[1:]
+                                for op in b.ops)
+    check(ops['remat_segment'] == ops['remat_segment_grad'] == n_layer + 1
+          and ops['fused_multihead_attention'] == 0
+          and inner['fused_multihead_attention'] == n_layer,
+          '%s: %d remat segments, %d grads, %d / %d attentions outside / '
+          'inside' % (label, ops['remat_segment'], ops['remat_segment_grad'],
+                      ops['fused_multihead_attention'],
+                      inner['fused_multihead_attention']))
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 10)
+    feed = _train_feed(TRAIN_BATCH, gen)
+    exe.run(startup, scope=scope)
+    losses = []
+    for _ in range(TRAIN_WARMUP_STEPS):
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)
+        losses.append(float(out.reshape(-1)[0]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want = {'bn_apply': 0, 'flash_attn_fwd': 2 * n_layer,
+            'flash_attn_bwd_dkv': n_layer, 'flash_attn_bwd_dq': n_layer}
+    reset_launches()
+    times = []
+    for _ in range(TRAIN_STEPS):
+        before, before_dt = read_launches(), read_launches_by_dtype()
+        t1 = time.perf_counter()
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        after = read_launches()
+        step = {k: after[k] - before[k] for k in after}
+        check(step == want, '%s: a step launched %s, not %s'
+              % (label, step, want))
+        by_dt = _by_dtype_step(before_dt, read_launches_by_dtype())
+        check(all(by_dt[k]['float32'] == want[k] for k in want),
+              '%s: a step launched %s, not all f32' % (label, by_dt))
+        losses.append(float(out.reshape(-1)[0]))
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    PEAKS[label] = peak
+    check(all(math.isfinite(x) for x in losses), '%s: non-finite loss: %s'
+          % (label, losses))
+    check(losses[-1] < losses[0], '%s: the loss did not fall: %s'
+          % (label, losses))
+    p50 = float(np.percentile(times, 50))
+    print('%s batch=%d S=%d f32 checkpoints=True ops=%d segments=%d '
+          'losses=%s' % (label, TRAIN_BATCH, BERT['max_len'],
+                         sum(ops.values()), ops['remat_segment'],
+                         json.dumps([round(x, 5) for x in losses])))
+    print('%s launches over %d timed steps: %s (per step: %s; by dtype: %s)'
+          % (label, TRAIN_STEPS, json.dumps(counts), json.dumps(want),
+             json.dumps(read_launches_by_dtype())))
+    print('%s step p50_ms=%r p90_ms=%r tokens_per_s=%r peak_allocated_gb=%.2f'
+          ' no_remat_peak_allocated_gb=%.2f (host clock, %d steps, each '
+          'ending in a sync)' % (
+              label, p50 * 1e3, float(np.percentile(times, 90)) * 1e3,
+              TRAIN_BATCH * BERT['max_len'] / p50, peak / 2 ** 30,
+              PEAKS['bert_training'] / 2 ** 30, TRAIN_STEPS))
+    check(peak < PEAKS['bert_training'], '%s: the peak %.2f GB is not below '
+          'the no-remat %.2f GB' % (label, peak / 2 ** 30,
+                                    PEAKS['bert_training'] / 2 ** 30))
+    del scope, exe
+    torch.cuda.empty_cache()
+    _remat_gate(label + '_vs_no_remat', plain, main, startup,
+                [loss.name, 'word_emb@GRAD',
+                 _last_layer_norm_scale(plain) + '@GRAD'],
+                _train_feed(1, torch.Generator(device='cuda').manual_seed(
+                    SEED + 11)), SEED + 40, amp=False)
+    _phase_seconds(label, t0)
+    return counts
+
+
+def phase_bert_bench_remat(main, plain, startup, loss, feeds):
+    """bench_bert's remat arm (PTPU_BENCH_BERT_REMAT, bench.py:455-469,
+    512-521): phase_bert_bench_training's configuration with
+    checkpoints=True, through _bench_training (the op census: n_layer + 1
+    remat segments and their grads, the 37 dropout ops inside them; p50,
+    tokens/s, peak, launches: none of the port's kernels), its peak beside
+    the no-remat arm's; then _remat_gate against the no-remat program on
+    the bench's batch, in bf16. Returns the launches over the timed
+    steps."""
+    t0 = time.perf_counter()
+    n_layer = BENCH_BERT['n_layer']
+    inner = collections.Counter(op.type for b in main.blocks[1:]
+                                for op in b.ops)
+    check(inner['dropout'] == 1 + 3 * n_layer
+          and inner['matmul'] == 2 * n_layer,
+          'bench remat: segments hold %s' % dict(inner))
+    feed = _bench_feed(feeds, BENCH_BATCH)
+    counts, _ = _bench_training(
+        'bert_bench_training_remat', main, startup, loss, feed,
+        {'remat_segment': n_layer + 1, 'remat_segment_grad': n_layer + 1,
+         'dropout': 0, 'fused_multihead_attention': 0},
+        dict.fromkeys(('flash_attn_fwd', 'flash_attn_bwd_dkv',
+                       'flash_attn_bwd_dq'), 0),
+        TRAIN_WARMUP_STEPS, TRAIN_STEPS, BENCH_BATCH * BENCH_BERT['max_len'],
+        'batch=%d S=%d k=%d bf16 dropout=0.1 lr=1e-4 checkpoints=True' % (
+            BENCH_BATCH, BENCH_BERT['max_len'], BENCH_K))
+    print('bert_bench_training_remat peak_allocated_gb=%.2f '
+          'no_remat_peak_allocated_gb=%.2f' % (
+              PEAKS['bert_bench_training_remat'] / 2 ** 30,
+              PEAKS['bert_bench_training'] / 2 ** 30))
+    _remat_gate('bert_bench_training_remat_vs_no_remat', plain, main,
+                startup, [loss.name, 'word_emb@GRAD',
+                          _last_layer_norm_scale(plain) + '@GRAD'],
+                feed, SEED + 41, amp=True)
+    _phase_seconds('bert_bench_training_remat', t0)
+    return counts
+
+
+def phase_googlenet_artifact(dirname, pred):
+    """bench.py's googlenet_infer row through an artifact: the GoogLeNet
+    directory exported by export_compiled at batch GOOGLENET_SERVE_BATCH,
+    its program after the inference pipeline (horizontal_fuse merges each
+    inception's sibling 1x1 convolutions into one wider convolution and a
+    split), served by CompiledPredictor: GOOGLENET_LATENCY_REQUESTS
+    requests each ending in a sync (p50) beside the unoptimized
+    Predictor's (both fed the same host array), the logits against the
+    Predictor's within 1e-3 of the largest logit, no kernel of the port
+    launched. A RuntimeWarning (the
+    pipeline's fallback to the raw program) fails the phase."""
+    t0 = time.perf_counter()
+    adir = os.path.join(dirname, 'artifact')
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 34)
+    xs = torch.randn(GOOGLENET_SERVE_BATCH, 3, 224, 224, device='cuda',
+                     generator=gen).cpu().numpy()
+    with warnings.catch_warnings():
+        warnings.simplefilter('error', RuntimeWarning)
+        export_compiled(pred, [xs], adir)
+    reports = _artifact_passes(adir)
+    names = [r['pass'] for r in reports]
+    check(names == passes.pipeline_names(passes.INFERENCE_PIPELINE),
+          'googlenet export pipeline ran %s' % names)
+    hf = reports[names.index('horizontal_fuse')]['details']
+    fa_ = reports[names.index('fuse_activation')]['details']
+    with open(os.path.join(adir, '__model__')) as f:
+        ops = collections.Counter(op['type'] for op in
+                                  json.load(f)['blocks'][0]['ops'])
+    before = collections.Counter(op.type for op in
+                                 pred._program.global_block().ops)
+    check(hf['groups_fused'] > 0 and ops['split'] == hf['groups_fused'],
+          'googlenet horizontal_fuse: %s, artifact ops %s' % (hf, ops))
+    art = CompiledPredictor(adir)
+
+    def latency(run):
+        for _ in range(2):
+            run()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(GOOGLENET_LATENCY_REQUESTS):
+            t1 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        return float(np.percentile(times, 50)) * 1e3
+    reset_launches()
+    art_ms = latency(lambda: art.run([xs]))
+    counts = read_launches()
+    plain_ms = latency(lambda: pred.run([xs]))
+    got, = art.run([xs])
+    want, = pred.run([xs])
+    err, top = float(np.abs(got - want).max()), float(np.abs(want).max())
+    print('googlenet_artifact batch=%d f32 ops %d -> %d (conv2d %d -> %d, '
+          'split %d, fused activations %d) horizontal_fuse groups_fused=%d '
+          'convs_fused=%d skip_reasons=%s' % (
+              GOOGLENET_SERVE_BATCH, sum(before.values()), sum(ops.values()),
+              before['conv2d'], ops['conv2d'], ops['split'], fa_['fused'],
+              hf['groups_fused'], hf['convs_fused'],
+              json.dumps(hf['skip_reasons'])))
+    print('googlenet_artifact CompiledPredictor p50_ms=%r unoptimized '
+          'Predictor p50_ms=%r (host clock, %d requests each, each ending in'
+          ' a sync) logits max_abs_err=%r max_abs=%r rel=%r tolerance_rel=1e-3'
+          ' launches=%s' % (art_ms, plain_ms, GOOGLENET_LATENCY_REQUESTS, err,
+                            top, err / top, json.dumps(counts)))
+    check(got.shape == want.shape and np.isfinite(got).all()
+          and err <= 1e-3 * top, 'the optimized GoogLeNet artifact differs '
+          'from the Predictor: %r of %r' % (err, top))
+    check(not any(counts.values()), 'googlenet artifact launched %s'
+          % counts)
+    del art
+    _phase_seconds('googlenet_artifact', t0)
+    return counts
+
+
+def phase_verify_hook():
+    """The Executor's verify hook on the card: a program whose op reads a
+    var before the op that makes it warns once (RuntimeWarning) over two
+    runs, each failing in the interpreter; under PTPU_STRICT_VERIFY=1 the
+    run raises ProgramVerifyError before any op runs."""
+    main = fluid.Program()
+    with fluid.program_guard(main, fluid.Program()):
+        x = fluid.layers.data('x', shape=[4])
+        b = main.global_block()
+        for n in ('later', 'y'):
+            b.create_var(name=n, shape=[-1, 4], dtype='float32')
+        b.append_op(type='relu', inputs={'X': ['later']},
+                    outputs={'Out': ['y']}, infer_shape=False)
+        b.append_op(type='relu', inputs={'X': [x.name]},
+                    outputs={'Out': ['later']}, infer_shape=False)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    feed = {'x': torch.ones(2, 4, device='cuda')}
+    prev = os.environ.pop('PTPU_STRICT_VERIFY', None)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            failed = 0
+            for _ in range(2):
+                try:
+                    exe.run(main, feed=feed, fetch_list=['y'],
+                            scope=fluid.Scope())
+                except TraceError:
+                    failed += 1
+        warned = [str(w.message) for w in caught
+                  if issubclass(w.category, RuntimeWarning)]
+        os.environ['PTPU_STRICT_VERIFY'] = '1'
+        try:
+            exe.run(main, feed=feed, fetch_list=['y'], scope=fluid.Scope())
+            raised = None
+        except fluid.ProgramVerifyError as e:
+            raised = str(e).splitlines()[1].strip()
+    finally:
+        os.environ.pop('PTPU_STRICT_VERIFY', None)
+        if prev is not None:
+            os.environ['PTPU_STRICT_VERIFY'] = prev
+    print('verify_hook: %d warning(s) over 2 runs (%d failed in the '
+          'interpreter): %s; strict: %s' % (len(warned), failed,
+                                            warned[:1], raised))
+    check(len(warned) == 1 and 'use-before-def' in warned[0]
+          and failed == 2, 'verify hook warned %s' % warned)
+    check(raised is not None and 'use-before-def' in raised,
+          'PTPU_STRICT_VERIFY=1 did not raise ProgramVerifyError')
+
+
+
 def _se_bn_shapes():
     """The (C, H, W) of SE-ResNeXt-50's 53 batch_norm inputs at 224x224,
     with counts, from its program."""
@@ -3469,6 +3934,7 @@ def main():
         print('build %s %.1fs\n%s' % (name, secs, log.strip()))
     print('build all kernels %.1fs' % (time.perf_counter() - t0))
 
+    phase_verify_hook()
     max_abs = phase_kernel_vs_plain()
     bn_bwd_abs, bn_bwd_worst = phase_kernel_bwd_vs_plain()
     k2_abs = phase_flash_vs_plain()
@@ -3507,6 +3973,12 @@ def main():
     del train_scope, train_feed  # the trained parameters and Adam state
     phase_training_gpu_vs_cpu(train_main, train_startup, train_loss)
     torch.cuda.empty_cache()
+    # the same program with checkpoints=True: K2 inside the remat segments
+    rm_main, rm_startup, rm_loss = build_bert_training(checkpoints=True)
+    remat_counts = phase_bert_remat_training(rm_main, train_main, rm_startup,
+                                             rm_loss)
+    del rm_main, rm_startup
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     r_main, r_startup, r_loss, r_acc = build_resnet_training()
     print('model resnet50 training 224x224 classes=%d s2d_stem f32 ops=%d '
@@ -3525,6 +3997,9 @@ def main():
     torch.cuda.empty_cache()
     phase_resnet_backward_gpu_vs_cpu(r_main, r_startup)
     torch.cuda.empty_cache()
+    # bench_resnet's f32 batch, which fits once dead values are freed
+    resnet_b256_counts = phase_resnet_f32_bench_batch(r_main, r_startup,
+                                                      r_loss, r_acc)
 
     # bf16 mixed precision: the same two programs marked by enable_bf16
     t0 = time.perf_counter()
@@ -3555,6 +4030,7 @@ def main():
     torch.cuda.empty_cache()
     phase_resnet_backward_gpu_vs_cpu(ra_main, ra_startup, amp=True)
     torch.cuda.empty_cache()
+    phase_memory_summary(r_main, r_loss, r_acc)
     # the same bf16 program trained from an export_train_step artifact
     trainer_counts = phase_compiled_trainer()
 
@@ -3569,6 +4045,13 @@ def main():
                             time.perf_counter() - t0))
     bench_counts = phase_bert_bench_training(bb_main, bb_startup, bb_loss,
                                              bb_feeds)
+    torch.cuda.empty_cache()
+    bbr_main, bbr_startup, bbr_loss, bbr_feeds = build_bert_bench_training(
+        checkpoints=True)
+    bench_remat_counts = phase_bert_bench_remat(bbr_main, bb_main,
+                                                bbr_startup, bbr_loss,
+                                                bbr_feeds)
+    del bbr_main, bbr_startup
     torch.cuda.empty_cache()
     phase_bench_gpu_vs_cpu(amp=False)
     phase_bench_gpu_vs_cpu(amp=True)
@@ -3626,6 +4109,7 @@ def main():
         print('model googlenet inference 224x224 classes=1000 f32 ops=%d '
               'build_init_save_s=%.1f' % (n_ops, time.perf_counter() - t0))
         gnet_pred, gnet_counts = phase_googlenet_serving(d)
+        gnet_art_counts = phase_googlenet_artifact(d, gnet_pred)
         phase_run_steps_exactness(gnet_pred)
     del gnet_pred
     torch.cuda.empty_cache()
@@ -3649,7 +4133,12 @@ def main():
              'decode_serving': decode_counts,
              'googlenet_serving': gnet_counts,
              'resnet50_artifact_serving': artifact_counts,
-             'resnet50_compiled_trainer_bf16': trainer_counts}
+             'resnet50_compiled_trainer_bf16': trainer_counts,
+             'resnet50_training_f32_batch%d' % RESNET_F32_BENCH_BATCH:
+                 resnet_b256_counts,
+             'bert_training_remat': remat_counts,
+             'bert_bench_training_remat': bench_remat_counts,
+             'googlenet_artifact_serving': gnet_art_counts}
     paths.update(zoo_counts)
 
     def by_path(name):

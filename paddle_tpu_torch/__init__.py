@@ -14,7 +14,9 @@ and nothing of paddle_tpu, which stays in the repository as the reference.
 
 bf16 mixed-precision training: `fluid.contrib.mixed_precision.enable_bf16(
 main)` (or `decorate(optimizer)` before `minimize`), then Executor.run as
-usual.
+usual. Program passes and the dataflow analysis: `fluid.passes`; the
+Executor lints each program (PTPU_STRICT_VERIFY=1 raises) and frees each
+value after its last reader.
 """
 from . import ops as _ops  # registers all op lowerings  # noqa: F401
 
@@ -28,5 +30,9 @@ from .executor import Executor  # noqa: F401
 from . import core, initializer, inference, io, layers, unique_name  # noqa
 from . import backward, clip, contrib, optimizer, regularizer  # noqa: F401
 from . import weights  # noqa: F401
+from . import passes  # noqa: F401
+from .passes import ProgramVerifyError  # noqa: F401
+from .transpiler import (memory_optimize, release_memory,  # noqa: F401
+                         InferenceTranspiler)
 from .param_attr import ParamAttr  # noqa: F401
 from .initializer import Constant, Uniform, Normal, Xavier, MSRA  # noqa

@@ -91,16 +91,22 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
                     callbacks=None, checkpoints=None):
     """Append grad ops for `loss`; returns [(param, grad_var), ...].
 
-    `checkpoints` (activation rematerialization) is not ported yet: any
-    value but None raises."""
-    if checkpoints is not None:
-        raise NotImplementedError(
-            "append_backward: checkpoints (activation rematerialization, "
-            "paddle_tpu/passes/recompute.py) are not ported yet")
+    checkpoints: activation-rematerialization boundaries (the reference
+    RecomputeOptimizer hook, paddle_tpu/backward.py:73-92). 'auto' picks
+    √N segments from live intervals; a list of Variables/names closes a
+    segment at each def site. The forward is rewritten IN PLACE around
+    remat_segment sub-blocks (passes/recompute.py) before grad ops are
+    emitted, so each segment's grad re-runs the segment under autograd
+    instead of keeping its interior live. None (default) leaves the
+    program untouched."""
     block = loss.block
     program = block.program
     if block.idx != 0:
         raise ValueError("append_backward supports block 0 only")
+
+    if checkpoints is not None:
+        from .passes.recompute import apply_recompute_for_backward
+        apply_recompute_for_backward(program, loss, checkpoints)
 
     no_grad = set(no_grad_set or ())
     for v in program.list_vars():

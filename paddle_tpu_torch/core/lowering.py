@@ -15,6 +15,24 @@ the differentiated inputs under autograd and takes torch.autograd.grad
 with the output cotangents. Where JAX's XLA folds the recomputed forward
 into the original one, here it runs again: a grad op costs its forward
 once more.
+
+Pass-fused activations: a producer op carrying `fuse_act` (set by
+passes/fuse_act.py) applies the activation's own registered lowering to
+its `fuse_act_slot` output, as paddle_tpu/core/lowering.py:168-200 does,
+so a fused program and the unfused one are bit-identical.
+
+Freeing dead values: `run_block` takes a plan (`free_plan`), one tuple of
+names for each op of the list it runs, and drops those names from the
+environment right after that op. A name read after it was dropped fails
+with the TraceError below, never silently; a grad op's cotangent is read
+through `Interpreter.cotangent`, which tells a gradient no op wrote (a
+zero cotangent) from one that was dropped (the TraceError).
+
+Sub-blocks: `OpCtx.run_block` runs a sub-block on an environment of its
+own (the reference's ctx.run_block, paddle_tpu/ops/control_ops.py:
+125-165); `remat_segment` (ops/control_ops.py) runs its segment that
+way, so the segment's interior values never reach the outer
+environment.
 """
 from __future__ import annotations
 
@@ -83,6 +101,67 @@ class OpCtx(object):
         """Build-time Variable metadata (shape with -1s, dtype)."""
         return self.block._find_var_recursive(name)
 
+    def run_block(self, block_idx, env, keep=()):
+        """Run sub-block `block_idx` on `env` (a dict the caller owns and
+        reads back), freeing each value after its last reader except the
+        names in `keep`. Writes land in `env` only: the interpreter's own
+        environment and its record of written names are untouched."""
+        interp = self.interp
+        sub = interp.program.block(block_idx)
+        saved = interp.env, interp.written
+        interp.env, interp.written = env, set()
+        try:
+            interp.run_block(sub, free=free_plan(
+                interp.program, sub, sub.ops, set(keep), tuple(keep)))
+        finally:
+            interp.env, interp.written = saved
+        return env
+
+
+class _FusedActOp(object):
+    """Shadow op handed to an activation lowering when it runs fused into
+    its producer (fuse_act attr): the activation's original attrs, and
+    the producer's uid as its own (paddle_tpu/core/lowering.py:86-98)."""
+
+    __slots__ = ('type', 'attrs', 'inputs', 'outputs')
+
+    def __init__(self, act_type, act_attrs, producer):
+        self.type = act_type
+        self.attrs = dict(act_attrs)
+        self.attrs.setdefault('_op_uid', producer.attrs.get('_op_uid', 0))
+        self.inputs = {}
+        self.outputs = {}
+
+
+_PLAN_CACHE = {}
+
+
+def free_plan(program, block, ops, keep, tag):
+    """The freeing plan of one run of `ops` (in order, of `block`): for
+    each op, the names whose last read or write among `ops` is at that op,
+    except those in `keep`. Reads and writes are passes/base.py's
+    op_reads / op_writes, a sub-block's folded into its owning op: the
+    def-use chains passes/dataflow.py builds its live intervals from.
+    Cached per (program uid, build epoch, block, op count, tag), where
+    `tag` names what decides `ops` and `keep`; a plan is a tuple of
+    tuples, so threads share it."""
+    key = (program._uid, program._build_epoch, block.idx, len(block.ops),
+           tag)
+    plan = _PLAN_CACHE.get(key)
+    if plan is None:
+        from ..passes.base import op_reads, op_writes
+        last = {}
+        for p, op in enumerate(ops):
+            for n in op_reads(op, program) | op_writes(op, program):
+                last[n] = p
+        lists = [[] for _ in ops]
+        for n, p in last.items():
+            if n not in keep:
+                lists[p].append(n)
+        plan = tuple(tuple(sorted(x)) for x in lists)
+        _PLAN_CACHE[key] = plan
+    return plan
+
 
 class Interpreter(object):
     """Walks a block in order, keeping env: var name -> tensor. `step` is
@@ -104,10 +183,32 @@ class Interpreter(object):
             "Op %s reads variable %r which has no value. Feed it, initialize "
             "it via the startup program, or check op ordering." % (op, name))
 
-    def run_block(self, block, ops=None):
-        """Run `ops` (default: every op of the block) in order."""
-        for op in block.ops if ops is None else ops:
+    def cotangent(self, name, op):
+        """The value of gradient var `name` for a grad op, or None where no
+        op of this run wrote it (a zero cotangent). A name that was written
+        and is gone was dropped by the freeing plan before this reader:
+        that fails with read's TraceError, never as a zero gradient."""
+        if not name or (name not in self.env and name not in self.written):
+            return None
+        return self.read(name, op)
+
+    def run_block(self, block, ops=None, free=None):
+        """Run `ops` (default: every op of the block) in order. `free`, when
+        given, holds one tuple of names for each op run: they leave the
+        environment right after it."""
+        ops = block.ops if ops is None else ops
+        if free is None:
+            for op in ops:
+                self.run_op(op, block)
+            return self.env
+        if len(free) != len(ops):
+            raise TraceError("freeing plan covers %d ops, the run %d"
+                             % (len(free), len(ops)))
+        env = self.env
+        for op, dead in zip(ops, free):
             self.run_op(op, block)
+            for n in dead:
+                env.pop(n, None)
         return self.env
 
     def run_op(self, op, block):
@@ -126,6 +227,8 @@ class Interpreter(object):
         ins = {slot: [self.read(n, op) if n else None for n in names]
                for slot, names in op.inputs.items()}
         outs = d.lower(OpCtx(self, op, block), ins) or {}
+        if op.attrs.get('fuse_act'):
+            outs = self._apply_fused_act(op, block, outs)
         for slot, names in op.outputs.items():
             vals = outs.get(slot)
             if vals is None:
@@ -134,6 +237,29 @@ class Interpreter(object):
                 if n and v is not None:
                     self.env[n] = v
                     self.written.add(n)
+
+    def _apply_fused_act(self, op, block, outs):
+        """Apply a pass-fused activation (passes/fuse_act.py) to the
+        producer's `fuse_act_slot` output: the activation's own registered
+        lowering on the slot's value, so fused and unfused programs are
+        bit-identical."""
+        act = op.attrs['fuse_act']
+        slot = op.attrs.get('fuse_act_slot', 'Out')
+        d = registry.get(act)
+        if d is None:
+            raise TraceError(
+                "op %s carries fuse_act=%r but no lowering is registered "
+                "for that activation" % (op, act))
+        vals = outs.get(slot)
+        if not vals or vals[0] is None:
+            raise TraceError(
+                "op %s carries fuse_act=%r but produced no value in slot "
+                "%r to activate" % (op, act, slot))
+        shadow = _FusedActOp(act, op.attrs.get('fuse_act_attrs', {}), op)
+        acted = d.lower(OpCtx(self, shadow, block), {'X': [vals[0]]})['Out'][0]
+        outs = dict(outs)
+        outs[slot] = [acted] + list(vals[1:])
+        return outs
 
     # Generic autograd-derived gradient lowering. The grad op's attrs (see
     # backward.py): '_fwd_inputs' / '_fwd_outputs' {slot: [names]} of the
@@ -164,11 +290,11 @@ class Interpreter(object):
             primals, cots = [], []
             for slot, names in fwd_outputs.items():
                 for n, p in zip(names, outs.get(slot) or ()):
-                    gname = out_grad_map.get(n, '') if n else ''
-                    if (p is None or not gname or gname not in self.env
-                            or not p.requires_grad):
+                    g = self.cotangent(out_grad_map.get(n, '') if n else '',
+                                       op)
+                    if p is None or g is None or not p.requires_grad:
                         continue  # a zero cotangent adds nothing
-                    g = self.env[gname].to(p.dtype)
+                    g = g.to(p.dtype)
                     if g.shape != p.shape:
                         g = (g.reshape(p.shape) if g.numel() == p.numel()
                              else g.expand(p.shape))

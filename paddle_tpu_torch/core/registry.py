@@ -60,6 +60,13 @@ def get(type):
     return _REGISTRY.get(type)
 
 
+def is_registered(type):
+    """An op type the interpreter can run: registered, or a `<type>_grad`
+    whose forward is (the generic grad)."""
+    return type in _REGISTRY or (
+        type.endswith('_grad') and type[:-5] in _REGISTRY)
+
+
 # ---------------------------------------------------------------------------
 # Shape inference: run the lowering on meta tensors, substituting _PROBE for
 # -1 dims and mapping probe-derived output dims back to -1 (the reference's

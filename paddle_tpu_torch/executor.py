@@ -29,6 +29,21 @@ and draw no random numbers: the step counter's increment is not atomic.
 group of K stacked or listed feeds. Where the JAX executor scans the
 traced step K times in one dispatch, this one calls `run` K times, so the
 steps share `run`'s counter and are `run`'s steps bit for bit.
+
+Before a run the program is linted (`_verify_before_run`,
+paddle_tpu/executor.py:131-152): a warn-only `level='fast'` verify, one
+RuntimeWarning per (program, build epoch, feed set, fetch set), and
+PTPU_STRICT_VERIFY=1 raises ProgramVerifyError instead.
+
+Freeing dead values: where the JAX package's jitted step gets its memory
+back from XLA's buffer assignment, this interpreter drops each value
+from the environment right after its last reader or writer
+(core/lowering.py `free_plan`, from the def-use chains of
+passes/dataflow.py, one plan per program uid, build epoch, op list and
+fetch set). Persistables, fetch targets and, under gradient merge, the
+carried values stay; a name a later op reads through a sub-block counts
+as read by that op. There is no switch: a plan that dropped a name too
+early fails the run with the interpreter's "has no value" TraceError.
 """
 from __future__ import annotations
 
@@ -39,8 +54,34 @@ from .backward import OP_ROLE_BACKWARD, OP_ROLE_OPTIMIZE
 from .framework import (CUDAPlace, Variable, default_main_program,
                         to_torch_dtype)
 from .core import amp
-from .core.lowering import Interpreter, TraceError
+from .core.lowering import Interpreter, TraceError, free_plan
 from .core.scope import global_scope
+
+
+_verify_cache = {}   # uid -> (build_epoch, {(feeds, fetches): errors})
+
+
+def _verify_before_run(program, feed_names, fetch_names):
+    """Fast static lint before a run (passes/verifier.py): warn-only by
+    default — one RuntimeWarning per (program epoch, feed, fetch)
+    signature — while PTPU_STRICT_VERIFY=1 raises ProgramVerifyError
+    instead of letting the interpreter fail in the middle of the run."""
+    from .passes import verifier as _verifier
+    uid, epoch = program._uid, program._build_epoch
+    sig = (frozenset(feed_names), tuple(fetch_names))
+    cached = _verify_cache.get(uid)
+    if cached is None or cached[0] != epoch:   # epoch turned: old sigs die
+        cached = (epoch, {})
+        _verify_cache[uid] = cached
+    errs = cached[1].get(sig)
+    if errs is None:
+        diags = _verifier.verify_program(program, feed_names=feed_names,
+                                         fetch_names=fetch_names,
+                                         level='fast')
+        errs = [d for d in diags if d.level == 'error']
+        cached[1][sig] = errs
+    if errs:
+        _verifier.maybe_raise_or_warn(errs, warned_key=(uid, epoch) + sig)
 
 
 def _fetch_name(f):
@@ -97,6 +138,7 @@ class Executor(object):
         feeds = {name: self._feed_tensor(value,
                                          block._find_var_recursive(name))
                  for name, value in feed.items()}
+        _verify_before_run(program, set(feeds), fetch_names)
         step = self._step_counters.get(program._uid, 0)
         self._step_counters[program._uid] = step + 1
 
@@ -108,7 +150,9 @@ class Executor(object):
             else:
                 state.update(feeds)
                 interp = Interpreter(program, self.device, state, step)
-                interp.run_block(block)
+                interp.run_block(block, free=free_plan(
+                    program, block, block.ops, persist | set(fetch_names),
+                    ('run', tuple(fetch_names))))
         env = interp.env
         for name in persist & interp.written:
             scope.set(name, env[name])
@@ -247,6 +291,15 @@ class Executor(object):
         outer_reads = {n for i in outer_idx
                        for n in ops[i].input_arg_names() if n}
         block = program.global_block()
+        cone_ops = [ops[j] for j in cone_idx]
+        outer_ops = [ops[j] for j in outer_idx]
+        cone_free = free_plan(program, block, cone_ops,
+                              persist | set(carried) | set(pers_names)
+                              | set(fetch_names),
+                              ('cone', tuple(fetch_names)))
+        outer_free = free_plan(program, block, outer_ops,
+                               persist | set(fetch_names),
+                               ('outer', tuple(fetch_names)))
         acc, pers, written = None, {}, set()
         for i in range(k):
             mb = {n: t.reshape((k, t.shape[0] // k) + tuple(t.shape[1:]))[i]
@@ -255,7 +308,7 @@ class Executor(object):
             env.update(pers)
             env.update(mb)
             interp = Interpreter(program, self.device, env, step, micro=i)
-            interp.run_block(block, [ops[j] for j in cone_idx])
+            interp.run_block(block, cone_ops, cone_free)
             vals = {n: interp.env[n] for n in carried if n in interp.env}
             if acc is None:
                 _check_ga_carried(vals, fetch_names, outer_reads)
@@ -269,7 +322,7 @@ class Executor(object):
         env.update(pers)
         del acc
         outer = Interpreter(program, self.device, env, step)
-        outer.run_block(block, [ops[j] for j in outer_idx])
+        outer.run_block(block, outer_ops, outer_free)
         outer.written |= written
         missing = [n for n in fetch_names if n not in outer.env]
         if missing:

@@ -245,6 +245,7 @@ class Block(object):
     def _insert(self, index, type, inputs, outputs, attrs, infer_shape):
         op = Operator(self, type, inputs, outputs, attrs)
         self.ops.insert(index, op)
+        self.program._build_epoch += 1
         if infer_shape:
             from .core import registry
             registry.infer_shape(op, self)
@@ -271,7 +272,12 @@ class Program(object):
 
     `_uid` is unique in the process, and a clone gets a new one: the
     Executor keys its per-program step counter by it (the step seeds the
-    ops' random draws, core/lowering.py)."""
+    ops' random draws, core/lowering.py). `_build_epoch` turns at every
+    op appended or prepended and after each pass pipeline
+    (passes/base.py), as paddle_tpu/framework.py:280-308 turns it: the
+    Executor's verify and freeing-plan caches key on (_uid, _build_epoch)
+    and never replay a plan of an older op list. A clone keeps the
+    epoch."""
 
     _uid_counter = [0]
 
@@ -282,6 +288,7 @@ class Program(object):
         self._op_uid_counter = 0
         Program._uid_counter[0] += 1
         self._uid = Program._uid_counter[0]
+        self._build_epoch = 0
 
     def global_block(self):
         return self.blocks[0]
@@ -295,6 +302,18 @@ class Program(object):
     @property
     def num_blocks(self):
         return len(self.blocks)
+
+    def _create_block(self, parent_idx=None):
+        """Append a sub-block (parent: the current block, or parent_idx)
+        and make it current; _rollback returns to its parent."""
+        parent = self._current_block_idx if parent_idx is None else parent_idx
+        b = Block(self, len(self.blocks), parent)
+        self.blocks.append(b)
+        self._current_block_idx = b.idx
+        return b
+
+    def _rollback(self):
+        self._current_block_idx = self.current_block().parent_idx
 
     def list_vars(self):
         for b in self.blocks:
@@ -324,6 +343,7 @@ class Program(object):
         p._op_uid_counter = self._op_uid_counter
         Program._uid_counter[0] += 1
         p._uid = Program._uid_counter[0]
+        p._build_epoch = self._build_epoch
         for b in self.blocks:
             p.blocks.append(Block(p, b.idx, b.parent_idx))
         for b, nb in zip(self.blocks, p.blocks):

@@ -28,7 +28,8 @@ BatchingPredictor):
   train_program.json      the train program as JSON
   train_state0.npz        every persistable the program reads or writes
 
-`export_decode` (read by inference/decoding.py DecodingPredictor):
+`export_decode` (read by inference/decoding.py DecodingPredictor; each
+program after the inference pipeline, as `export_compiled`'s):
 
   decode_signature.json   kind, layout, slots, cache length, buckets,
                           eos and vocab, the cache state and every
@@ -44,9 +45,17 @@ BatchingPredictor):
 No AOT sidecar (`precompile=`) and no reorder program: the port
 interprets the programs, and a beam reorder is an index copy over the
 slot axis of each cache tensor (DecodingPredictor._dispatch_reorder).
-The export optimisation pipeline (_optimize_for_export) and the static
-peak-bytes estimate wait for the passes (ROADMAP.md queue 1 item 4): the
-port exports a predictor's program as it was loaded.
+
+`export_compiled` writes the predictor's program after the passes'
+inference pipeline (_optimize_for_export: verify, constant_fold,
+dead_op_elimination rooted at the fetches, horizontal_fuse,
+fuse_activation), and each bucket's signature carries `peak_bytes_est`,
+the static peak of passes/dataflow.py at that bucket's batch
+(paddle_tpu/inference/export.py:731-787, 878-883); the top signature
+records what each pass did ('passes'). `export_decode` runs its programs
+through the same pipeline. As in the reference, a pipeline that fails
+leaves the raw program with a RuntimeWarning, and a strict-verify error
+(PTPU_STRICT_VERIFY=1) propagates.
 """
 from __future__ import annotations
 
@@ -67,10 +76,16 @@ from . import decoding as _decoding
 from . import serve as _serve
 
 
-def _write_program(entry, out_dir):
-    """One program's JSON (with its feed and fetch names) under out_dir;
-    returns the feed signature entries (name, shape, dtype)."""
-    d = _io.program_to_dict(entry['program'])
+def _write_program(entry, out_dir, state_names=()):
+    """One program's JSON (with its feed and fetch names) under out_dir,
+    after the inference pipeline, whose liveness roots include the cache
+    state (its in-place writes are outputs though nothing fetches them;
+    paddle_tpu/inference/export.py:626-642); returns the feed signature
+    entries (name, shape, dtype)."""
+    program, _ = _optimize_for_export(
+        entry['program'], list(entry['fetches']) + list(state_names),
+        list(entry['feeds']))
+    d = _io.program_to_dict(program)
     d['feed_names'] = list(entry['feeds'])
     d['fetch_names'] = list(entry['fetches'])
     os.makedirs(out_dir, exist_ok=True)
@@ -120,7 +135,8 @@ def export_decode(spec, out_dir, scope=None):
         raise ValueError("export_decode needs at least one prompt bucket")
     os.makedirs(out_dir, exist_ok=True)
     step_feeds = _write_program(step, os.path.join(out_dir,
-                                                   _decoding._STEP_DIR))
+                                                   _decoding._STEP_DIR),
+                                state_names)
     prefill_sig = {}
     programs = [step['program']]
     for L in buckets:
@@ -131,7 +147,8 @@ def export_decode(spec, out_dir, scope=None):
                 "'slot'], got %r" % (p['feeds'],))
         prefill_sig[str(L)] = {
             'feeds': _write_program(
-                p, os.path.join(out_dir, _decoding._PREFILL_DIR % L)),
+                p, os.path.join(out_dir, _decoding._PREFILL_DIR % L),
+                state_names),
             'fetches': list(p['fetches'])}
         programs.append(p['program'])
 
@@ -204,10 +221,53 @@ def _fetch_shapes(predictor, program, sample):
     return [list(env[v.name].shape) for v in predictor._fetch_vars]
 
 
-def _export_single(predictor, program, sample, out_dir, root='.'):
+def _optimize_for_export(program, fetch_names, feed_names):
+    """Run the inference pipeline (passes/) on `program` before it is
+    written, rooted at `fetch_names`: constant chains fold, dead branches
+    drop, sibling convs widen and activations fuse into their producers.
+    Falls back to the raw program with a RuntimeWarning if the pipeline
+    fails (export must never fail on an optimizer bug); strict-verify
+    errors (PTPU_STRICT_VERIFY=1) propagate. Returns (program, reports),
+    the reports empty after a fallback."""
+    from .. import passes
+    try:
+        return passes.apply_inference_pipeline(
+            program, fetch_names=list(fetch_names),
+            feed_names=list(feed_names))
+    except passes.ProgramVerifyError:
+        raise
+    except Exception as e:
+        import warnings
+        warnings.warn(
+            "export optimization pipeline failed (%s: %s); exporting the "
+            "unoptimized program" % (type(e).__name__, e), RuntimeWarning)
+        return program, []
+
+
+def _peak_bytes_est(program, feed_names, fetch_names, feed_sig):
+    """Static peak-memory estimate of one export bucket, from the
+    dataflow analyzer at the bucket's batch (the largest leading dim
+    across the feeds). None when estimation declines — the signature must
+    never fail an export over an analysis bug."""
+    try:
+        from ..passes import dataflow as _dataflow
+        batch = 1
+        for e in feed_sig:
+            shp = e.get('shape') or ()
+            if shp:
+                batch = max(batch, int(shp[0]))
+        dfa = _dataflow.analyze_program(program, feed_names=feed_names,
+                                        fetch_names=fetch_names)
+        return int(dfa.peak_memory(batch=batch).peak_bytes)
+    except Exception:
+        return None
+
+
+def _export_single(predictor, program, sample, out_dir, root='.',
+                   extra=None):
     """One fixed-shape signature under out_dir (the program and parameters
-    are at `root`, relative to out_dir); `sample` is {feed name: numpy
-    array}."""
+    are at `root`, relative to out_dir), with the keys of `extra` added;
+    `sample` is {feed name: numpy array}."""
     feed_sig = [{'name': n, 'shape': list(sample[n].shape),
                  'dtype': sample[n].dtype.name}
                 for n in predictor._feed_names]
@@ -218,21 +278,31 @@ def _export_single(predictor, program, sample, out_dir, root='.'):
     # 'bf16' is the reference's name of the default (unquantized) tier
     sig = {'version': 3, 'format': _serve._FORMAT, 'feeds': feed_sig,
            'fetches': fetch_sig, 'tier': 'bf16'}
+    est = _peak_bytes_est(program, list(predictor._feed_names),
+                          [v.name for v in predictor._fetch_vars], feed_sig)
+    if est is not None:
+        sig['peak_bytes_est'] = est
     if root != '.':
         sig['root'] = root
+    sig.update(extra or {})
     os.makedirs(out_dir, exist_ok=True)
     with _io._atomic_file(os.path.join(out_dir, _serve._SIGNATURE)) as f:
         f.write(json.dumps(sig, indent=1).encode())
     return sig
 
 
-def _export_tier(predictor, program, sample, out_dir, sizes):
+def _export_tier(predictor, program, sample, out_dir, sizes, reports=()):
     """The artifact tree: one signature when `sizes` is None, else one per
     bucket under bucket_<n>/ and a top signature mirroring the largest
-    bucket, with the bucket list."""
+    bucket, with the bucket list. The top signature records the
+    pipeline's `reports` (PassReport.as_dict of each pass, in order;
+    empty where the pipeline fell back to the raw program) under
+    'passes'."""
     _write_model(predictor, program, out_dir)
+    passes_run = [r.as_dict() for r in reports]
     if sizes is None:
-        return _export_single(predictor, program, sample, out_dir)
+        return _export_single(predictor, program, sample, out_dir,
+                              extra={'passes': passes_run})
     flat = [n for n, a in sample.items() if a.ndim < 1]
     if flat:
         raise ValueError("feeds %r have no batch dimension to bucket on"
@@ -252,6 +322,7 @@ def _export_tier(predictor, program, sample, out_dir, sizes):
                              root='..')
     sig.pop('root')
     sig['buckets'] = sizes
+    sig['passes'] = passes_run
     with _io._atomic_file(os.path.join(out_dir, _serve._SIGNATURE)) as f:
         f.write(json.dumps(sig, indent=1).encode())
     return sig
@@ -260,8 +331,11 @@ def _export_tier(predictor, program, sample, out_dir, sizes):
 def export_compiled(predictor, sample_inputs, out_dir, batch_sizes=None,
                     quantize=None, calibration=None,
                     quantize_mode='abs_max', calibration_q=99.9):
-    """Export `predictor`'s program (a Predictor's, as loaded) as a
-    serving artifact for CompiledPredictor and BatchingPredictor.
+    """Export `predictor`'s program (a Predictor's), after the passes'
+    inference pipeline (_optimize_for_export), as a serving artifact for
+    CompiledPredictor and BatchingPredictor; each signature records the
+    bucket's static `peak_bytes_est`, and the top signature the
+    pipeline's reports under 'passes'.
 
     sample_inputs: list (feed order) or dict of arrays fixing shapes and
     dtypes. Dense feeds only: a LoD feed raises NotImplementedError
@@ -306,7 +380,10 @@ def export_compiled(predictor, sample_inputs, out_dir, batch_sizes=None,
         if not sizes or sizes[0] < 1:
             raise ValueError("batch_sizes must be positive ints, got %r"
                              % (batch_sizes,))
-    _export_tier(predictor, program, sample, out_dir, sizes)
+    program, reports = _optimize_for_export(
+        program, [v.name for v in predictor._fetch_vars if v is not None],
+        feed_names)
+    _export_tier(predictor, program, sample, out_dir, sizes, reports)
     return out_dir
 
 

@@ -24,8 +24,9 @@ from .transformer import encoder_layer
 
 
 def _mlm_logits(tok, seg, vocab, S, d_model, d_ff, n_head, n_layer,
-                type_vocab, dropout=0.0):
-    """Embeddings, encoder and MLM head: [B*S, vocab] logits."""
+                type_vocab, dropout=0.0, layer_outs=None):
+    """Embeddings, encoder and MLM head: [B*S, vocab] logits. Each encoder
+    layer's output is appended to `layer_outs` when it is a list."""
     def emb(ids, size, name):
         e = fluid.layers.embedding(
             ids, size=size,
@@ -50,6 +51,8 @@ def _mlm_logits(tok, seg, vocab, S, d_model, d_ff, n_head, n_layer,
 
     for _ in range(n_layer):
         x = encoder_layer(x, n_head, d_model, d_ff, S, dropout)
+        if layer_outs is not None:
+            layer_outs.append(x)
 
     # MLM head: transform + vocab projection
     h = fluid.layers.fc(x, size=d_model, num_flatten_dims=2, act='relu')
@@ -79,15 +82,18 @@ def build_bert_pretrain(vocab=30522, max_len=128, d_model=768, d_ff=3072,
 
     The masked-LM loss is the masked mean of softmax_with_cross_entropy
     over the positions whose mlm_weights are non-zero; Adam(lr) minimizes
-    it. Any checkpoints value but None raises (remat is not ported
-    yet)."""
+    it. checkpoints: activation rematerialization (models/bert.py:22-25,
+    72-79). True wraps each encoder layer's output as a recompute
+    boundary, a list names the boundaries, 'auto' lets the pass pick √N
+    segments, None trains without recompute."""
     S = max_len
     tok = fluid.layers.data(name='tok_ids', shape=[S], dtype='int64')
     seg = fluid.layers.data(name='seg_ids', shape=[S], dtype='int64')
     mlm_lbl = fluid.layers.data(name='mlm_labels', shape=[S], dtype='int64')
     mlm_w = fluid.layers.data(name='mlm_weights', shape=[S], dtype='float32')
+    layer_outs = []
     logits2d = _mlm_logits(tok, seg, vocab, S, d_model, d_ff, n_head,
-                           n_layer, type_vocab, dropout)
+                           n_layer, type_vocab, dropout, layer_outs)
     lbl2d = fluid.layers.reshape(mlm_lbl, shape=[-1, 1])
     loss = fluid.layers.softmax_with_cross_entropy(logits=logits2d,
                                                    label=lbl2d)
@@ -95,8 +101,9 @@ def build_bert_pretrain(vocab=30522, max_len=128, d_model=768, d_ff=3072,
     # masked mean: only the masked positions contribute
     avg_loss = fluid.layers.reduce_sum(loss * w) / (
         fluid.layers.reduce_sum(w) + 1e-6)
-    fluid.optimizer.Adam(learning_rate=lr).minimize(
-        avg_loss, checkpoints=checkpoints or None)
+    cps = layer_outs if checkpoints is True else (checkpoints or None)
+    fluid.optimizer.Adam(learning_rate=lr).minimize(avg_loss,
+                                                    checkpoints=cps)
     feeds = [('tok_ids', (S,), 'int64'), ('seg_ids', (S,), 'int64'),
              ('mlm_labels', (S,), 'int64'), ('mlm_weights', (S,), 'float32')]
     return feeds, avg_loss

@@ -123,13 +123,12 @@ def build_transformer_train(src_vocab=32000, trg_vocab=32000, max_len=256,
     feeds = [(name, per-sample shape, dtype)]; sequences arrive padded to
     max_len. The learning rate defaults to the reference schedule,
     2.0·noam_decay(d_model, 4000), and the optimizer is Adam(beta1 0.9,
-    beta2 0.997, epsilon 1e-9). `checkpoints` (remat) is not ported yet:
-    any value but None raises.
+    beta2 0.997, epsilon 1e-9). checkpoints: activation
+    rematerialization (models/transformer.py:127-130, 177-182). True wraps
+    each encoder/decoder layer's output as a recompute boundary, a list
+    names the boundaries, 'auto' lets the pass pick √N segments, None
+    trains without recompute.
     """
-    if checkpoints is not None:
-        raise NotImplementedError(
-            "build_transformer_train: checkpoints (activation "
-            "rematerialization) are not ported yet")
     S = max_len
     src = fluid.layers.data(name='src_ids', shape=[S], dtype='int64')
     trg = fluid.layers.data(name='trg_ids', shape=[S], dtype='int64')
@@ -146,9 +145,11 @@ def build_transformer_train(src_vocab=32000, trg_vocab=32000, max_len=256,
     if dropout:
         enc = fluid.layers.dropout(enc, dropout_prob=dropout,
                                    dropout_implementation='upscale_in_train')
+    layer_outs = []
     for _ in range(n_layer):
         enc = encoder_layer(enc, n_head, d_model, d_ff, S, dropout,
                             attn_dropout=attn_dropout)
+        layer_outs.append(enc)
 
     dec = _embed(trg, trg_vocab, d_model, S, 'trg_emb')
     if dropout:
@@ -158,6 +159,7 @@ def build_transformer_train(src_vocab=32000, trg_vocab=32000, max_len=256,
         dec = decoder_layer(dec, enc, n_head, d_model, d_ff, S, S,
                             causal_mask, dropout,
                             attn_dropout=attn_dropout)
+        layer_outs.append(dec)
 
     logits = fluid.layers.fc(dec, size=trg_vocab, num_flatten_dims=2,
                              bias_attr=False)
@@ -172,7 +174,8 @@ def build_transformer_train(src_vocab=32000, trg_vocab=32000, max_len=256,
         lr = fluid.layers.noam_decay(d_model, 4000) * 2.0
     opt = fluid.optimizer.Adam(learning_rate=lr, beta1=0.9, beta2=0.997,
                                epsilon=1e-9)
-    opt.minimize(avg_loss)
+    cps = layer_outs if checkpoints is True else (checkpoints or None)
+    opt.minimize(avg_loss, checkpoints=cps)
 
     # analytic training FLOPs per target token (fwd 2*MACs, train = 3x):
     # enc layer 4d^2+2*d*dff, dec layer 8d^2+2*d*dff, attention scores

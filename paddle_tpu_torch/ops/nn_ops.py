@@ -195,11 +195,12 @@ def _lookup_table_grad(ctx, ins):
     gname = a['_in_grad_map'].get(w_name, '')
     if not gname:
         return {}
-    env = ctx.interp.env
-    w = env[w_name]
+    interp, op = ctx.interp, ctx.op
+    w = interp.read(w_name, op)
     n = w.shape[0]
-    flat = env[a['_fwd_inputs']['Ids'][0]].reshape(-1).long()
-    g_out = env.get(a['_out_grad_map'].get(a['_fwd_outputs']['Out'][0], ''))
+    flat = interp.read(a['_fwd_inputs']['Ids'][0], op).reshape(-1).long()
+    g_out = interp.cotangent(
+        a['_out_grad_map'].get(a['_fwd_outputs']['Out'][0], ''), op)
     dense = torch.zeros_like(w)
     if g_out is None:
         return {'IN@GRAD': [dense]}

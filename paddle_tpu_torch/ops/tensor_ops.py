@@ -1,12 +1,12 @@
 """Tensor op lowerings: the startup program's init ops (assign_value
-among them), range, dropout, the reshape2/transpose2 views, concat, slice,
-gather, pad, cum_sum, top_k and add_position_encoding (ref:
+among them), range, dropout, the reshape2/transpose2 views, concat,
+split, slice, gather, pad, cum_sum, top_k and add_position_encoding (ref:
 operators/fill_constant_op.cc, assign_value_op.cc, uniform_random_op.cc,
 gaussian_random_op.cc, range_op.cc, dropout_op.cc, reshape_op.cc,
-transpose_op.cc, concat_op.cc, slice_op.cc, gather_op.cc, pad_op.cc,
-cum_op.h, top_k_op.cc, add_position_encoding_op.h;
-paddle_tpu/ops/tensor_ops.py:28,73,95,116,46,174,282,298,359,379,445,470,
-517,539,617).
+transpose_op.cc, concat_op.cc, split_op.cc, slice_op.cc, gather_op.cc,
+pad_op.cc, cum_op.h, top_k_op.cc, add_position_encoding_op.h;
+paddle_tpu/ops/tensor_ops.py:28,73,95,116,46,174,282,298,365,359,379,445,
+470,517,539,617).
 
 Random ops draw from the torch.Generator that ctx.rng() seeds for the op.
 torch's streams differ from JAX's threefry streams, so the two packages
@@ -136,18 +136,19 @@ def _dropout_grad(ctx, ins):
     gname = a['_in_grad_map'].get(x_name, '')
     if not gname:
         return {}
-    env = ctx.interp.env
-    out = env[a['_fwd_outputs']['Out'][0]]
-    g = env.get(a['_out_grad_map'].get(a['_fwd_outputs']['Out'][0], ''))
+    interp, op = ctx.interp, ctx.op
+    out_name = a['_fwd_outputs']['Out'][0]
+    out = interp.read(out_name, op)
+    g = interp.cotangent(a['_out_grad_map'].get(out_name, ''), op)
     if g is None:
-        return {'IN@GRAD': [torch.zeros_like(env[x_name])]}
+        return {'IN@GRAD': [torch.zeros_like(interp.read(x_name, op))]}
     g = g.to(out.dtype).reshape(out.shape)
     if ctx.is_test:
         upscale = ctx.attr('dropout_implementation',
                            'downgrade_in_infer') == 'upscale_in_train'
         return {'IN@GRAD': [g if upscale else g * weak_scalar(
             1.0 - ctx.attr('dropout_prob', 0.5), g)]}
-    mask = env[a['_fwd_outputs']['Mask'][0]]
+    mask = interp.read(a['_fwd_outputs']['Mask'][0], op)
     return {'IN@GRAD': [torch.where(
         mask != 0, g * weak_scalar(_dropout_scale(ctx), g),
         torch.zeros_like(g))]}
@@ -235,6 +236,27 @@ def _concat(ctx, ins):
     cast to its entry's dtype."""
     xs = [x for x in ins['X'] if x is not None]
     return {'Out': [torch.cat(xs, dim=ctx.attr('axis', 0))]}
+
+
+@register('split')
+def _split(ctx, ins):
+    """X cut along `axis` into `num` equal parts, or into parts of the
+    sizes `sections` (paddle_tpu/ops/tensor_ops.py:365): views of X.
+    horizontal_fuse (passes/horizontal_fuse.py) emits it after a widened
+    conv2d to give each branch its own channels back."""
+    x = X(ins)
+    axis = ctx.attr('axis', 0)
+    num = ctx.attr('num', 0)
+    if num:
+        if x.shape[axis] % num:
+            raise ValueError("split: dim %d of size %d does not divide into "
+                             "%d parts" % (axis, x.shape[axis], num))
+        return {'Out': list(torch.split(x, x.shape[axis] // num, dim=axis))}
+    sections = [int(s) for s in ctx.attr('sections', [])]
+    if sum(sections) != x.shape[axis]:
+        raise ValueError("split: sections %s do not sum to dim %d of size "
+                         "%d" % (sections, axis, x.shape[axis]))
+    return {'Out': list(torch.split(x, sections, dim=axis))}
 
 
 @register('slice')

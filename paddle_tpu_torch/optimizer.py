@@ -10,8 +10,8 @@ of layers/learning_rate_scheduler.py returns), a `scale` op for a
 parameter whose ParamAttr asks for another learning rate, and
 per-parameter accumulators `<param>_<acc>_<n>` (Momentum's velocity;
 Adam's moment1, moment2, beta1_pow_acc, beta2_pow_acc), all persistable
-and initialized by the startup program. Remat checkpoints are not ported
-yet: asking for them raises.
+and initialized by the startup program. `checkpoints` (activation
+rematerialization) goes to append_backward, as in the reference.
 """
 from __future__ import annotations
 
@@ -107,21 +107,20 @@ class Optimizer(object):
                 if pg[1] is not None and pg[0].trainable]
 
     def backward(self, loss, startup_program=None, parameter_list=None,
-                 no_grad_set=None, callbacks=None):
-        return append_backward(loss, parameter_list, no_grad_set, callbacks)
+                 no_grad_set=None, callbacks=None, checkpoints=None):
+        return append_backward(loss, parameter_list, no_grad_set,
+                               callbacks, checkpoints=checkpoints)
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None, checkpoints=None):
         """Append the backward, the clip and regularization ops and the
         update ops, in the reference's order (paddle_tpu/optimizer.py:
-        128-140); returns (optimize_ops, params_grads). `checkpoints`
-        (remat) is not ported yet: any value but None raises."""
-        if checkpoints is not None:
-            raise NotImplementedError(
-                "minimize: checkpoints (activation rematerialization) are "
-                "not ported yet")
+        128-140); returns (optimize_ops, params_grads). checkpoints:
+        activation-rematerialization boundaries ('auto' or a list of
+        Variables/names), see append_backward — the reference
+        RecomputeOptimizer folded into minimize."""
         params_grads = self.backward(loss, startup_program, parameter_list,
-                                     no_grad_set)
+                                     no_grad_set, checkpoints=checkpoints)
         params_grads = append_gradient_clip_ops(params_grads)
         params_grads = append_regularization_ops(params_grads,
                                                  self.regularization)

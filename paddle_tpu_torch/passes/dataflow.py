@@ -1,0 +1,642 @@
+"""Dataflow analysis engine over Program/Block (the port's copy of
+paddle_tpu/passes/dataflow.py).
+
+The reference ships real static analyses over ProgramDesc — the
+memory-optimization transpiler computes per-var live ranges for buffer
+reuse (memory_optimization_transpiler.py:491 ControlFlowGraph) and the
+inference analysis pass walks def-use chains. This module is that layer:
+one reusable analysis over a Program that every consumer shares instead
+of re-walking blocks ad hoc.
+
+What it computes (all static, no device):
+
+  * def-use chains and SSA-style last-writer resolution, sub-block
+    aware: control-flow bodies (remat segments among them) fold into
+    their owning op through the shared ``op_reads``/``op_writes``
+    closure walk (passes/base.py), and ``last_writer_at`` resolves a
+    read site through the block-parent chain the interpreter's env
+    scoping follows.
+  * per-var live intervals over the block-0 linear order — the intervals
+    the Executor frees each value by (executor.py: after op i it drops
+    the names whose last read or write is at i).
+  * alias / in-place hazard analysis: write-after-read rebinds,
+    dead double-writes, caller-visible aliased inputs (a name that is
+    both fed and persistable state).
+  * a bytes-from-shape static peak-memory estimator per program and per
+    export batch bucket (the ``peak_bytes_est`` of export_compiled's
+    signatures).
+  * a donation-safety certifier. The port's Executor donates no buffer
+    (it runs op by op on tensors the Scope keeps), so ``certify_donation``
+    and ``donation_plan`` are ported as analyses with the reference's
+    contract and are not called on the run path.
+
+Consumers: the Executor's freeing plan, transpiler.memory_optimize
+(liveness report), inference/export (per-bucket peak-bytes in
+signature.json), passes/horizontal_fuse.py and passes/recompute.py.
+
+    from paddle_tpu_torch.passes import dataflow
+    dfa = dataflow.analyze_program(prog, feed_names=['x'],
+                                   fetch_names=[loss.name])
+    dfa.live_intervals()['fc_0.tmp_0']     # (first def, last use)
+    dfa.peak_memory(batch=32).peak_bytes   # static estimate
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..framework import convert_dtype
+from .base import (PassReport as _PassReport, op_reads, op_writes,
+                   sub_block_indices)
+
+
+# ---------------------------------------------------------------------------
+# bytes-from-shape
+# ---------------------------------------------------------------------------
+def dtype_bytes(dtype):
+    """Per-element bytes of a declared var dtype (bfloat16-aware); 0 when
+    the dtype is absent/unknown (raw/reader vars)."""
+    try:
+        s = convert_dtype(dtype)
+        if s is None:
+            return 0
+        if s == 'bfloat16':
+            return 2
+        return int(np.dtype(s).itemsize)
+    except Exception:
+        return 0
+
+
+def var_bytes(var, batch=1):
+    """(bytes, dynamic) static size of one var: prod(shape) * dtype size,
+    with every -1/None dim substituted by `batch`. dynamic=True when a
+    substitution happened (the estimate scales with the bucket). Vars
+    with no declared shape (readers, raw) estimate 0 bytes."""
+    shape = getattr(var, 'shape', None)
+    if shape is None:
+        return 0, False
+    n = 1
+    dynamic = False
+    for d in shape:
+        if d in (-1, None):
+            n *= max(int(batch), 1)
+            dynamic = True
+        else:
+            n *= max(int(d), 0)
+    return n * dtype_bytes(getattr(var, 'dtype', None)), dynamic
+
+
+# ---------------------------------------------------------------------------
+# findings
+# ---------------------------------------------------------------------------
+class Hazard(object):
+    """One alias/in-place finding. Levels mirror verifier.Diagnostic plus
+    'info' for dependence facts that are not defects by themselves (a
+    write-after-read rebind is legal in the rebinding IR — it only
+    constrains in-place buffer reuse)."""
+
+    __slots__ = ('level', 'code', 'message', 'var', 'op_index')
+
+    def __init__(self, level, code, message, var=None, op_index=-1):
+        self.level = level        # 'error' | 'warn' | 'info'
+        self.code = code
+        self.message = message
+        self.var = var
+        self.op_index = op_index  # block-0 linear index; -1: program-level
+
+    def as_dict(self):
+        return {'level': self.level, 'code': self.code,
+                'message': self.message, 'var': self.var,
+                'op_index': self.op_index}
+
+    def __repr__(self):
+        return "[%s] %s: %s" % (self.level, self.code, self.message)
+
+
+class MemoryEstimate(object):
+    """Static peak-memory estimate of one program at one batch bucket.
+
+    peak_bytes = resident (params + feeds, alive for the whole dispatch)
+    + the worst-case sum of temporaries whose live intervals overlap one
+    program point. A pure shape/dtype computation: the Executor frees by
+    the same intervals, but the temporaries inside an op (a generic
+    grad's re-run forward and its autograd graph, the allocator's
+    rounding) are not counted, and views share storage, so it is an
+    estimate of activations and an exact count on resident state."""
+
+    __slots__ = ('peak_bytes', 'peak_op_index', 'peak_op_type',
+                 'resident_bytes', 'params_bytes', 'feeds_bytes',
+                 'temps_peak_bytes', 'temps_total_bytes', 'n_temps',
+                 'unknown_shape_vars', 'dynamic_vars', 'batch', 'top',
+                 'remat_aware', 'remat_segments', 'remat_interior_bytes')
+
+    def as_dict(self):
+        return {k: getattr(self, k) for k in self.__slots__}
+
+    def __repr__(self):
+        return ("MemoryEstimate(peak=%s @ op %d %s, resident=%s, "
+                "temps_peak=%s, batch=%s)"
+                % (_fmt_bytes(self.peak_bytes), self.peak_op_index,
+                   self.peak_op_type, _fmt_bytes(self.resident_bytes),
+                   _fmt_bytes(self.temps_peak_bytes), self.batch))
+
+
+def _fmt_bytes(n):
+    for unit in ('B', 'KiB', 'MiB', 'GiB'):
+        if abs(n) < 1024 or unit == 'GiB':
+            return ('%d%s' % (n, unit)) if unit == 'B' \
+                else ('%.2f%s' % (n, unit))
+        n /= 1024.0
+    return str(n)
+
+
+# ---------------------------------------------------------------------------
+# the engine
+# ---------------------------------------------------------------------------
+class DataflowAnalysis(object):
+    """Def-use chains, live intervals, hazards, and memory estimation for
+    one Program snapshot. Build once per (program, feed, fetch) boundary
+    and query freely — nothing here mutates the program, and every index
+    refers to the block-0 linear op order (sub-block work folds into the
+    owning control op, exactly how the executor runs it)."""
+
+    def __init__(self, program, feed_names=None, fetch_names=None):
+        self.program = program
+        self.feed_names = list(feed_names if feed_names is not None
+                               else getattr(program, '_feed_names', ())
+                               or ())
+        fetches = list(fetch_names if fetch_names is not None
+                       else getattr(program, '_fetch_names', ()) or ())
+        for op in program.global_block().ops:
+            if op.type == 'fetch':
+                fetches.extend(n for n in op.input_arg_names() if n)
+            if op.type == 'feed':
+                self.feed_names.extend(n for n in op.output_arg_names()
+                                       if n)
+        self.fetch_names = fetches
+        self.ops = list(program.global_block().ops)
+
+        # name -> Variable, block-0 first (outer declarations win, the
+        # interpreter's recursive-find order)
+        self.vars = {}
+        for b in program.blocks:
+            for n, v in b.vars.items():
+                self.vars.setdefault(n, v)
+
+        self.persistables = {v.name for v in program.list_vars()
+                             if v.persistable}
+        self.inputs = set(self.feed_names) | self.persistables
+        for v in program.list_vars():
+            if getattr(v, 'is_data', False) \
+                    or getattr(v, 'type', 'lod_tensor') != 'lod_tensor':
+                self.inputs.add(v.name)
+
+        # block-0 linear def/use chains (closure-folded)
+        self.defs = {}   # name -> sorted [op index]
+        self.uses = {}   # name -> sorted [op index]
+        for i, op in enumerate(self.ops):
+            for n in op_reads(op, program):
+                self.uses.setdefault(n, []).append(i)
+            for n in op_writes(op, program):
+                self.defs.setdefault(n, []).append(i)
+
+        # per-block DIRECT def sites + sub-block ownership (last-writer
+        # resolution walks these, not the folded view)
+        self.block_defs = {}   # (block_idx, name) -> [op index in block]
+        self.owner = {}        # sub-block idx -> (owner block idx, op idx)
+        for b in program.blocks:
+            for i, op in enumerate(b.ops):
+                for n in op.output_arg_names():
+                    if n:
+                        self.block_defs.setdefault((b.idx, n),
+                                                   []).append(i)
+                for sub in sub_block_indices(op):
+                    if 0 < sub < len(program.blocks):
+                        self.owner.setdefault(sub, (b.idx, i))
+
+        self.written = set(self.defs)
+        self._intervals = None
+        self._remat = None
+
+    # -- def-use ---------------------------------------------------------
+    def def_use(self, name):
+        """(def op indices, use op indices) of `name` in block-0 linear
+        order. Empty lists when the program never touches it."""
+        return (list(self.defs.get(name, ())),
+                list(self.uses.get(name, ())))
+
+    def last_writer(self, name, before=None):
+        """Block-0 index of the last op writing `name` strictly before
+        op index `before` (None: before program end); -1 when the name
+        is a program input with no earlier write, None when undefined."""
+        lim = len(self.ops) if before is None else int(before)
+        for i in reversed(self.defs.get(name, ())):
+            if i < lim:
+                return i
+        return -1 if name in self.inputs else None
+
+    def last_writer_at(self, block_idx, op_idx, name):
+        """SSA-style reaching definition for a READ of `name` by the op
+        at (block_idx, op_idx), resolved through the sub-block scope
+        chain the interpreter's env follows: search this block's earlier ops,
+        then hop to the owning control op's position in the parent block
+        and continue. Returns (block idx, op idx), -1 for a program
+        input binding, or None when nothing defines it (use-before-def
+        territory — the verifier's error)."""
+        b, lim = int(block_idx), int(op_idx)
+        while True:
+            for i in reversed(self.block_defs.get((b, name), ())):
+                if i < lim:
+                    return (b, i)
+            if b == 0:
+                return -1 if name in self.inputs else None
+            if b not in self.owner:
+                return None  # orphan block: no scope chain to walk
+            b, lim = self.owner[b]
+            # a while body may read its own later write via the loop
+            # carry; resolving to the owning op itself models that
+            owner_op = self.program.block(b).ops[lim]
+            if name in op_writes(owner_op, self.program):
+                return (b, lim)
+
+    # -- liveness --------------------------------------------------------
+    def live_intervals(self):
+        """{name: (start, end)} over block-0 op indices: start = first
+        def (-1 for program inputs), end = last use, or len(ops) when the
+        value must outlive the dispatch (fetch targets, persistables —
+        the state the scope commit reads). Names the program never
+        touches are absent."""
+        if self._intervals is not None:
+            return self._intervals
+        n_ops = len(self.ops)
+        live_out = set(self.fetch_names) | self.persistables
+        out = {}
+        for name in set(self.defs) | set(self.uses):
+            ds, us = self.defs.get(name), self.uses.get(name)
+            start = ds[0] if ds else -1
+            if name in self.inputs:
+                start = -1
+            end = us[-1] if us else (ds[-1] if ds else -1)
+            if name in live_out:
+                end = n_ops
+            out[name] = (start, max(start, end))
+        self._intervals = out
+        return out
+
+    # -- hazards ---------------------------------------------------------
+    def hazards(self, feed_names=None, state_names=None):
+        """Alias/in-place findings. error: caller-visible aliased input
+        (fed name that is also persistable state — the donation killer);
+        warn: dead double-write (a binding no op ever reads before the
+        next rebind); info: write-after-read rebinds (legal, but they
+        pin the order an in-place reuse of that buffer must respect)."""
+        feeds = set(self.feed_names if feed_names is None else feed_names)
+        state = set(self.persistables if state_names is None
+                    else state_names)
+        out = []
+        for name in sorted(feeds & state):
+            out.append(Hazard(
+                'error', 'aliased-input',
+                "%r is both a feed and persistable state: the caller and "
+                "the scope see one buffer, so neither donation nor "
+                "in-place update is provably safe" % name, var=name))
+        for name, ds in sorted(self.defs.items()):
+            if len(ds) < 2:
+                continue
+            us = self.uses.get(name, ())
+            for prev, cur in zip(ds, ds[1:]):
+                if cur == prev:
+                    continue  # one op writing two slots to one name
+                if any(prev < u <= cur for u in us):
+                    # the earlier binding was read: a write-after-read
+                    # rebind (in-place reuse of the buffer would need
+                    # a copy or ordering)
+                    out.append(Hazard(
+                        'info', 'war',
+                        "op %d rebinds %r after op %d read the previous "
+                        "binding" % (cur, name,
+                                     max(u for u in us
+                                         if prev < u <= cur)),
+                        var=name, op_index=cur))
+                elif self.ops[prev].type == 'remat_segment' \
+                        and self.ops[cur].type == 'remat_segment_grad':
+                    # a recompute interior: the grad replay re-derives
+                    # the forward segment's value by design — the first
+                    # write is exactly the one remat chose NOT to keep
+                    continue
+                else:
+                    out.append(Hazard(
+                        'warn', 'double-write',
+                        "op %d (%s) writes %r but op %d overwrites it "
+                        "before any op reads it — the first write is "
+                        "dead" % (prev, self.ops[prev].type, name, cur),
+                        var=name, op_index=prev))
+        return out
+
+    # -- memory ----------------------------------------------------------
+    def remat_interiors(self):
+        """(n_segments, {interior name}) of the program's recompute
+        segments (passes/recompute.py): names a `remat_segment` sub-block
+        writes but does NOT expose through its `Out` boundary. The folded
+        def/use view charges each of them from the forward op to its grad
+        replay — exactly the span rematerialization exists to NOT pay —
+        so `peak_memory(remat_aware=True)` converts them to point
+        charges at each def/use site instead."""
+        if self._remat is not None:
+            return self._remat
+        n_seg, interiors = 0, set()
+        for op in self.ops:
+            if op.type != 'remat_segment':
+                continue
+            n_seg += 1
+            sub = int(op.attrs.get('sub_block', -1))
+            if not 0 < sub < len(self.program.blocks):
+                continue
+            outs = set(op.outputs.get('Out', ()))
+            for sop in self.program.block(sub).ops:
+                for n in op_writes(sop, self.program):
+                    if n and n not in outs:
+                        interiors.add(n)
+        self._remat = (n_seg, interiors)
+        return self._remat
+
+    def peak_memory(self, batch=1, top=8, remat_aware=False):
+        """Static peak-bytes estimate at one batch bucket (every -1 dim
+        substitutes `batch`). Resident = persistables + feed/data vars
+        (alive across the whole dispatch); temporaries charge over their
+        live interval; peak is the worst program point.
+
+        remat_aware=True models activation recompute: a var interior to a
+        `remat_segment` is materialized only WHILE its segment (forward
+        or grad replay) runs, so it charges a point interval at each of
+        its def/use op indices instead of the fwd..grad span. Without
+        segments the two modes agree."""
+        batch = max(int(batch), 1)
+        est = MemoryEstimate()
+        est.batch = batch
+        est.unknown_shape_vars = 0
+        est.dynamic_vars = 0
+        n_ops = len(self.ops)
+        sizes = {}
+        for name in set(self.defs) | set(self.uses) | self.inputs:
+            v = self.vars.get(name)
+            if v is None:
+                continue
+            b, dyn = var_bytes(v, batch)
+            sizes[name] = b
+            if getattr(v, 'shape', None) is None:
+                est.unknown_shape_vars += 1
+            if dyn:
+                est.dynamic_vars += 1
+
+        est.params_bytes = sum(sizes.get(n, 0) for n in self.persistables)
+        feedlike = {n for n in sizes
+                    if n not in self.persistables and n in self.inputs}
+        est.feeds_bytes = sum(sizes[n] for n in feedlike)
+        est.resident_bytes = est.params_bytes + est.feeds_bytes
+
+        n_seg, interiors = self.remat_interiors()
+        est.remat_aware = bool(remat_aware)
+        est.remat_segments = n_seg
+        est.remat_interior_bytes = sum(sizes.get(n, 0) for n in interiors)
+
+        # temporaries: defined by some op, not resident
+        delta = [0] * (n_ops + 2)
+        temps = []
+        for name, (start, end) in self.live_intervals().items():
+            if name in self.persistables or name in feedlike:
+                continue
+            b = sizes.get(name, 0)
+            if not b:
+                continue
+            temps.append((name, b, start, end))
+            if remat_aware and name in interiors:
+                # alive only while a segment executes: point charges at
+                # each touching op, not the fwd..grad span
+                for i in sorted(set(self.defs.get(name, ()))
+                                | set(self.uses.get(name, ()))):
+                    delta[max(i, 0)] += b
+                    delta[min(i, n_ops) + 1] -= b
+                continue
+            delta[max(start, 0)] += b
+            delta[min(end, n_ops) + 1] -= b
+        est.n_temps = len(temps)
+        est.temps_total_bytes = sum(b for _, b, _, _ in temps)
+
+        peak, peak_i, cur = 0, -1, 0
+        for i in range(n_ops + 1):
+            cur += delta[i]
+            if cur > peak:
+                peak, peak_i = cur, i
+        est.temps_peak_bytes = peak
+        est.peak_bytes = est.resident_bytes + peak
+        est.peak_op_index = min(peak_i, n_ops - 1) if n_ops else -1
+        est.peak_op_type = (self.ops[est.peak_op_index].type
+                            if 0 <= est.peak_op_index < n_ops else None)
+        alive = [(n, b) for n, b, s, e in temps if s <= peak_i <= e]
+        alive.sort(key=lambda kv: (-kv[1], kv[0]))
+        est.top = [{'name': n, 'bytes': b} for n, b in alive[:top]]
+        return est
+
+    def peak_memory_per_bucket(self, batch_sizes, top=0):
+        """{batch: MemoryEstimate} across export buckets: how the static
+        peak scales with the served batch."""
+        return {int(b): self.peak_memory(batch=b, top=top)
+                for b in batch_sizes}
+
+    # -- reuse -----------------------------------------------------------
+    def reuse_report(self, batch=1, max_pairs=16):
+        """Liveness-based buffer-reuse opportunity (the reference
+        memory_optimize rewrite, reported instead of rewritten — the
+        Executor frees by the intervals and torch's caching allocator
+        reuses the blocks): temporaries whose intervals are disjoint
+        can share one buffer, so a perfect reuse allocator needs only
+        the interval-overlap peak, not the naive sum."""
+        est = self.peak_memory(batch=batch, top=0)
+        pairs = []
+        by_size = {}
+        for name, (s, e) in sorted(self.live_intervals().items()):
+            if name in self.persistables or name in self.inputs:
+                continue
+            b, _ = var_bytes(self.vars[name], batch) \
+                if name in self.vars else (0, False)
+            if b:
+                by_size.setdefault(b, []).append((s, e, name))
+        for b, ivs in sorted(by_size.items(), reverse=True):
+            ivs.sort()
+            for (s1, e1, n1), (s2, e2, n2) in zip(ivs, ivs[1:]):
+                if e1 < s2:  # disjoint: n2 could reuse n1's buffer
+                    pairs.append({'reuse': n2, 'of': n1, 'bytes': b})
+                    if len(pairs) >= max_pairs:
+                        break
+            if len(pairs) >= max_pairs:
+                break
+        return {
+            'temps_total_bytes': est.temps_total_bytes,
+            'temps_peak_bytes': est.temps_peak_bytes,
+            'reusable_bytes': max(
+                est.temps_total_bytes - est.temps_peak_bytes, 0),
+            'n_temps': est.n_temps,
+            'pairs': pairs,
+        }
+
+
+def analyze_program(program, feed_names=None, fetch_names=None):
+    """Build a DataflowAnalysis (the module's main entry)."""
+    return DataflowAnalysis(program, feed_names=feed_names,
+                            fetch_names=fetch_names)
+
+
+class MemoryOptimizeReport(_PassReport):
+    """What transpiler.memory_optimize now returns: the dead-op sweep's
+    PassReport (isinstance-compatible — consumers keep working) PLUS the
+    real liveness story the reference's memory_optimization_transpiler
+    printed: per-var live ranges, reuse opportunities, and the static
+    peak before/after the sweep."""
+
+    __slots__ = ('live_ranges', 'peak_bytes_before', 'peak_bytes_after',
+                 'reuse', 'batch')
+
+    def __init__(self, dce_report, live_ranges, peak_before, peak_after,
+                 reuse, batch):
+        super().__init__(dce_report.name)
+        for k in ('ops_before', 'ops_after', 'ops_added', 'ops_removed',
+                  'vars_added', 'vars_removed'):
+            setattr(self, k, getattr(dce_report, k))
+        self.details = dict(dce_report.details)
+        self.diagnostics = list(dce_report.diagnostics)
+        self.live_ranges = dict(live_ranges)   # name -> (start, end)
+        self.peak_bytes_before = int(peak_before)
+        self.peak_bytes_after = int(peak_after)
+        self.reuse = dict(reuse)               # dataflow.reuse_report
+        self.batch = int(batch)
+        self.details['peak_bytes_before'] = self.peak_bytes_before
+        self.details['peak_bytes_after'] = self.peak_bytes_after
+        self.details['reusable_bytes'] = self.reuse.get('reusable_bytes',
+                                                        0)
+
+    def as_dict(self):
+        return {'pass': self.name,
+                'ops': {'before': self.ops_before, 'after': self.ops_after,
+                        'added': self.ops_added,
+                        'removed': self.ops_removed},
+                'vars': {'added': self.vars_added,
+                         'removed': self.vars_removed},
+                'details': dict(self.details),
+                'diagnostics': [d.as_dict() for d in self.diagnostics],
+                'memory': {'batch': self.batch,
+                           'peak_bytes_before': self.peak_bytes_before,
+                           'peak_bytes_after': self.peak_bytes_after,
+                           'live_ranges': {n: list(iv) for n, iv
+                                           in self.live_ranges.items()},
+                           'reuse': dict(self.reuse)}}
+
+    def __repr__(self):
+        return ("MemoryOptimizeReport(ops %d->%d (-%d), peak %s -> %s, "
+                "reusable %s, %d live ranges)"
+                % (self.ops_before, self.ops_after, self.ops_removed,
+                   _fmt_bytes(self.peak_bytes_before),
+                   _fmt_bytes(self.peak_bytes_after),
+                   _fmt_bytes(self.reuse.get('reusable_bytes', 0)),
+                   len(self.live_ranges)))
+
+
+# ---------------------------------------------------------------------------
+# donation-safety certifier
+# ---------------------------------------------------------------------------
+class DonationCertificate(object):
+    """Static proof (or refusal) that an executor's state dict may be
+    donated to a step (paddle_tpu/passes/dataflow.py:549): the run
+    boundary must prove the executor is the only holder of the state
+    buffers, which it replaces at scope commit:
+
+      * no donated name is also fed (a fed buffer is caller-visible);
+      * no donated name is fetched (the returned array would alias a
+        buffer the next dispatch donates);
+      * every donated name is persistable (scope-owned);
+      * no error-level alias hazard touches a donated name;
+      * never for mesh programs.
+
+    `safe` is all-or-nothing, as the reference donates the whole state
+    pytree. The port's Executor donates nothing: this is an analysis
+    only.
+    """
+
+    __slots__ = ('safe', 'donate', 'reasons', 'bytes', 'state_names')
+
+    def __init__(self, safe, donate, reasons, nbytes, state_names):
+        self.safe = bool(safe)
+        self.donate = tuple(donate)
+        self.reasons = list(reasons)
+        self.bytes = int(nbytes)
+        self.state_names = tuple(state_names)
+
+    def as_dict(self):
+        return {'safe': self.safe, 'donate': list(self.donate),
+                'bytes': self.bytes, 'reasons': list(self.reasons),
+                'state_names': list(self.state_names)}
+
+    def __repr__(self):
+        if self.safe:
+            return ("DonationCertificate(safe, %d vars, %s)"
+                    % (len(self.donate), _fmt_bytes(self.bytes)))
+        return ("DonationCertificate(REJECTED: %s)"
+                % '; '.join(self.reasons[:3]))
+
+
+def certify_donation(program, state_names, feed_names=(), fetch_names=(),
+                     mesh=False, analysis=None):
+    """Certify that donating `state_names` (an executor's state dict) to
+    a step is safe, with the reference's rules and messages. Returns a
+    DonationCertificate; `analysis` reuses an existing DataflowAnalysis
+    for the same boundary."""
+    state = [str(n) for n in state_names]
+    feeds = set(feed_names or ())
+    fetches = set(fetch_names or ())
+    reasons = []
+    if mesh:
+        reasons.append(
+            'mesh-program: donation is refused on mesh programs (the '
+            'reference measured NaN from reloaded aliasing on composed '
+            'mesh programs)')
+    dfa = analysis
+    if dfa is None:
+        dfa = DataflowAnalysis(program, feed_names=sorted(feeds),
+                               fetch_names=sorted(fetches))
+    sset = set(state)
+    for name in sorted(sset & feeds):
+        reasons.append(
+            'caller-visible aliased input: %r is both fed and donated '
+            'state' % name)
+    for name in sorted(sset & fetches):
+        reasons.append(
+            'fetch %r would hand the caller an alias of a donated state '
+            'buffer' % name)
+    for name in sorted(sset - dfa.persistables):
+        reasons.append(
+            'state %r is not persistable — not scope-owned, so the '
+            'executor cannot prove it replaces the only reference' % name)
+    for hz in dfa.hazards(feed_names=feeds, state_names=sset):
+        if hz.level == 'error' and (hz.var in sset or hz.var is None):
+            msg = '%s: %s' % (hz.code, hz.message)
+            if msg not in reasons and not any(
+                    hz.var and hz.var in r for r in reasons):
+                reasons.append(msg)
+    nbytes = 0
+    for name in state:
+        v = dfa.vars.get(name)
+        if v is not None:
+            nbytes += var_bytes(v, 1)[0]
+    safe = not reasons
+    return DonationCertificate(safe, state if safe else (), reasons,
+                               nbytes, state)
+
+
+def donation_plan(program, feed_names=None, fetch_names=None,
+                  analysis=None):
+    """Certify the program's own run boundary (state = persistables the
+    program writes) and return the certificate."""
+    dfa = analysis or DataflowAnalysis(program, feed_names=feed_names,
+                                       fetch_names=fetch_names)
+    state = sorted(dfa.persistables & dfa.written)
+    return certify_donation(program, state, feed_names=dfa.feed_names,
+                            fetch_names=dfa.fetch_names, analysis=dfa)

@@ -1,0 +1,304 @@
+"""horizontal_fuse: merge sibling same-input convs into one wider conv
+(the port's copy of paddle_tpu/passes/horizontal_fuse.py).
+
+GoogLeNet's inception block launches several small convolutions off the
+SAME tensor (the 1x1 branch-entry convs of `_inception` share input,
+kernel geometry, and stride — only the output-channel count differs).
+Each one is a separate small convolution launch; the rewrite lands on
+the Program IR directly:
+
+    conv(x, W1) -> t1   |                           concat(W1..Wn, axis=0)
+    conv(x, W2) -> t2   |   becomes    ->  wide conv(x, Wcat) -> tcat
+    conv(x, Wn) -> tn   |                  split(tcat, axis=1) -> t1..tn
+
+The split writes the ORIGINAL output names, so every downstream reader
+— the per-branch bias/activation epilogues, fetch targets, and training
+grad ops — is untouched. Grad ops in particular stay correct without
+rewriting: `<type>_grad` is self-contained (backward.py carries
+`_fwd_inputs`/`_fwd_outputs` + forward attrs and re-runs the forward
+lowering under autograd), so it only needs the forward input/output
+NAMES to still hold the same values at its position — which the split
+guarantees. That is what makes this pass safe in the TRAINING pipeline,
+not just inference.
+
+Safety guards are reaching-definition proofs from the dataflow engine
+(dataflow.py), in the same single-reader spirit as `fuse_activation`'s
+consumer count and `quantize_program`'s (name, def site) cache keys:
+
+  * group key includes the (input name, def site) pair — two convs
+    reading a REBOUND name across a redefinition never merge;
+  * a member's output must be defined exactly once and never read
+    before the member's own position, so hoisting its definition to the
+    group head cannot change any reader's view;
+  * filters must be persistable and never written in-program, so the
+    filter concat is legal at the group head.
+
+Every conv2d candidate the pass declines is reported with a
+machine-checkable reason code (REASON_* below, the `quantize_program`
+report contract); `report.details['fused_groups']` names every fusion.
+
+Pipeline order: this pass runs BEFORE fuse_activation — see the note on
+OPTIMIZATION_PIPELINE in passes/__init__.py.
+"""
+from __future__ import annotations
+
+import os
+
+from .base import Pass, register_pass, PassManager
+from . import dataflow as _dataflow
+
+# machine-checkable reasons a conv2d candidate was not fused
+REASON_GROUPED = 'grouped_conv'
+REASON_SUB_BLOCK = 'sub_block_op'
+REASON_OP_SHAPE = 'unexpected_op_shape'
+REASON_W_NOT_PERSISTABLE = 'filter_not_persistable'
+REASON_W_WRITTEN = 'filter_written_in_program'
+REASON_W_SHAPE_UNKNOWN = 'filter_shape_unknown'
+REASON_NON_FLOAT = 'non_float_dtype'
+REASON_LOD_INPUT = 'lod_input'
+REASON_OUTPUT_REBOUND = 'output_rebound'
+REASON_NO_SIBLING = 'no_sibling'
+REASON_USER_SKIP = 'user_skip'
+
+REASON_CODES = (REASON_GROUPED, REASON_SUB_BLOCK, REASON_OP_SHAPE,
+                REASON_W_NOT_PERSISTABLE, REASON_W_WRITTEN,
+                REASON_W_SHAPE_UNKNOWN, REASON_NON_FLOAT,
+                REASON_LOD_INPUT, REASON_OUTPUT_REBOUND,
+                REASON_NO_SIBLING, REASON_USER_SKIP)
+
+# the attrs that define conv semantics and must agree across a group;
+# anything else (use_cudnn, namescopes) rides along from the first member
+_GROUP_ATTRS = ('strides', 'paddings', 'dilations', 'groups',
+                'fuse_act', 'fuse_act_slot', 'fuse_act_attrs')
+
+
+def _is_float_var(v):
+    from ..framework import is_float_dtype
+    try:
+        return v is not None and is_float_dtype(v.dtype)
+    except Exception:
+        return False
+
+
+def _env_disabled():
+    return os.environ.get('PTPU_HFUSE', '') == '0'
+
+
+@register_pass
+class HorizontalFusePass(Pass):
+    """Fuse sibling same-input conv2d ops into one wider conv + split.
+
+    Constructor args:
+      skip_vars   input/filter/output names to leave unfused (reported
+                  as 'user_skip') — same escape hatch quantize_program
+                  gives a serving owner.
+      min_group   smallest sibling set worth widening (default 2).
+
+    PTPU_HFUSE=0 disables the rewrite (report carries disabled=True),
+    as in the reference.
+    """
+
+    name = 'horizontal_fuse'
+
+    def __init__(self, skip_vars=(), min_group=2):
+        self.skip_vars = set(skip_vars or ())
+        self.min_group = int(min_group)
+
+    # -- per-op eligibility -------------------------------------------------
+    def _skip_reason(self, op, block, dfa, idx):
+        """None when the conv can join a sibling group, else the reason
+        code it stays unfused."""
+        in_names = op.inputs.get('Input') or ()
+        w_names = op.inputs.get('Filter') or ()
+        out_names = op.outputs.get('Output') or ()
+        if len(in_names) != 1 or len(w_names) != 1 or len(out_names) != 1:
+            return REASON_OP_SHAPE
+        if int(op.attrs.get('groups', 1) or 1) != 1:
+            return REASON_GROUPED
+        x_name, w_name, y_name = in_names[0], w_names[0], out_names[0]
+        if self.skip_vars & {x_name, w_name, y_name}:
+            return REASON_USER_SKIP
+        vx = block._find_var_recursive(x_name)
+        vw = block._find_var_recursive(w_name)
+        vy = block._find_var_recursive(y_name)
+        if not (_is_float_var(vx) and _is_float_var(vw)
+                and _is_float_var(vy)):
+            return REASON_NON_FLOAT
+        if int(getattr(vx, 'lod_level', 0) or 0):
+            return REASON_LOD_INPUT
+        if not getattr(vw, 'persistable', False):
+            return REASON_W_NOT_PERSISTABLE
+        w_shape = list(getattr(vw, 'shape', None) or ())
+        if len(w_shape) != 4 or any(d is None or int(d) <= 0
+                                    for d in w_shape):
+            return REASON_W_SHAPE_UNKNOWN
+        # def-use: hoisting this op's output definition to the group
+        # head is only invisible when the name is defined exactly here
+        # and nothing reads it earlier
+        y_defs, y_uses = dfa.def_use(y_name)
+        if y_defs != [idx] or any(u < idx for u in y_uses):
+            return REASON_OUTPUT_REBOUND
+        return None
+
+    @staticmethod
+    def _group_key(op, block, dfa, idx):
+        """Two convs with equal keys compute the same function family off
+        the same input BINDING (not just the same name): the reaching-def
+        site disambiguates rebound names, exactly like quantize_program's
+        (x_name, def_site) activation cache."""
+        x_name = op.inputs['Input'][0]
+        vw = block._find_var_recursive(op.inputs['Filter'][0])
+        vy = block._find_var_recursive(op.outputs['Output'][0])
+        w_shape = tuple(int(d) for d in vw.shape)
+        attrs = tuple((k, repr(op.attrs.get(k))) for k in _GROUP_ATTRS)
+        return (x_name, dfa.last_writer(x_name, before=idx),
+                w_shape[1:], str(vw.dtype), str(vy.dtype), attrs)
+
+    @staticmethod
+    def _filter_stable_runs(members, dfa):
+        """Split a sibling group (idx-sorted) into maximal runs whose
+        filters all reach the run head unchanged: for every member, the
+        reaching definition of its filter at its own position must equal
+        the one at the run head, or the concat hoisted there would read
+        a different value. Optimizer writes sit AFTER the forward cone,
+        so in practice a whole inception group is one run; a program
+        that re-writes a filter mid-forward splits here. Yields
+        (run, broke) where `broke` marks runs cut by such a write."""
+        members = sorted(members, key=lambda m: m[0])
+        run, broke = [], False
+        for idx, op in members:
+            if run:
+                head_idx = run[0][0]
+                w = op.inputs['Filter'][0]
+                if dfa.last_writer(w, before=idx) != \
+                        dfa.last_writer(w, before=head_idx):
+                    yield run, True
+                    run, broke = [], True
+            run.append((idx, op))
+        if run:
+            yield run, broke
+
+    def _widen(self, block, dfa, key, members, head_ops, drop,
+               fused_groups):
+        """Splice concat(filters) -> wide conv -> split(original names)
+        at the first member's position; mark the members for removal."""
+        from ..framework import Operator
+        first_idx, first = members[0][0], members[0][1]
+        w_names = [op.inputs['Filter'][0] for _, op in members]
+        y_names = [op.outputs['Output'][0] for _, op in members]
+        sections = [int(block._find_var_recursive(w).shape[0])
+                    for w in w_names]
+        vw0 = block._find_var_recursive(w_names[0])
+        vy0 = block._find_var_recursive(y_names[0])
+        base = first.outputs['Output'][0]
+        wcat = block.create_var(
+            name='%s.hfuse_w' % base,
+            shape=[sum(sections)] + [int(d) for d in vw0.shape[1:]],
+            dtype=vw0.dtype, stop_gradient=True)
+        y_shape = list(getattr(vy0, 'shape', None) or ()) or None
+        if y_shape and len(y_shape) == 4:
+            y_shape = [y_shape[0], sum(sections)] + y_shape[2:]
+        ycat = block.create_var(
+            name='%s.hfuse_out' % base, shape=y_shape,
+            dtype=vy0.dtype, stop_gradient=True)
+        attrs = {k: v for k, v in first.attrs.items()
+                 if not k.startswith('_')}
+        head_ops[first_idx] = [
+            Operator(block, 'concat', {'X': list(w_names)},
+                     {'Out': [wcat.name]}, {'axis': 0}),
+            Operator(block, 'conv2d', {'Input': [key[0]],
+                                       'Filter': [wcat.name]},
+                     {'Output': [ycat.name]}, attrs),
+            Operator(block, 'split', {'X': [ycat.name]},
+                     {'Out': list(y_names)},
+                     {'axis': 1, 'sections': list(sections)}),
+        ]
+        drop.update(id(op) for _, op in members)
+        fused_groups.append({
+            'input': key[0], 'op_indices': [i for i, _ in members],
+            'filters': w_names, 'outputs': y_names,
+            'out_channels': sections})
+
+    # -- the rewrite --------------------------------------------------------
+    def run_on_program(self, program, ctx, report):
+        if _env_disabled():
+            report.details.update({'disabled': True, 'fused_groups': [],
+                                   'skipped': [], 'skip_reasons': {}})
+            return
+
+        block = program.global_block()
+        dfa = _dataflow.analyze_program(
+            program, feed_names=ctx.feed_names, fetch_names=ctx.fetch_names)
+
+        skipped = []            # every conv2d left alone, with its reason
+        groups = {}             # group key -> [(idx, op), ...]
+        for idx, op in enumerate(block.ops):
+            if op.type != 'conv2d':
+                continue
+            reason = self._skip_reason(op, block, dfa, idx)
+            if reason is not None:
+                skipped.append({'op_index': idx, 'block': 0,
+                                'type': op.type, 'reason': reason})
+                continue
+            groups.setdefault(
+                self._group_key(op, block, dfa, idx), []).append((idx, op))
+
+        fused_groups = []
+        head_ops = {}           # first-member idx -> [concat, conv, split]
+        drop = set()            # op ids replaced by a widened group
+        n_fused = 0
+        for key, members in groups.items():
+            for sub, broke in self._filter_stable_runs(members, dfa):
+                if len(sub) >= self.min_group:
+                    self._widen(block, dfa, key, sub, head_ops, drop,
+                                fused_groups)
+                    n_fused += len(sub)
+                    continue
+                # a filter written mid-span breaks the hoist (the concat
+                # at the run head would read a different value than the
+                # member did); everything else is just a lone conv
+                reason = REASON_W_WRITTEN if broke else REASON_NO_SIBLING
+                for idx, op in sub:
+                    skipped.append({'op_index': idx, 'block': 0,
+                                    'type': op.type, 'reason': reason})
+        if head_ops:
+            new_ops = []
+            for idx, op in enumerate(block.ops):
+                if idx in head_ops:
+                    new_ops.extend(head_ops[idx])
+                if id(op) not in drop:
+                    new_ops.append(op)
+            block.ops = new_ops
+
+        # sub-block convs stay put: the rewrite is block-0-linear
+        # (control-flow bodies re-enter per iteration — linear def-use
+        # cannot prove the hoist safe there), same as quantize_program
+        for b in program.blocks[1:]:
+            for idx, op in enumerate(b.ops):
+                if op.type == 'conv2d':
+                    skipped.append({'op_index': idx, 'block': b.idx,
+                                    'type': op.type,
+                                    'reason': REASON_SUB_BLOCK})
+
+        reasons = {}
+        for e in skipped:
+            reasons[e['reason']] = reasons.get(e['reason'], 0) + 1
+        report.details.update({
+            'groups_fused': len(fused_groups),
+            'convs_fused': n_fused,
+            'fused_groups': fused_groups,
+            'skipped': skipped,
+            'skip_reasons': reasons,
+        })
+
+
+def horizontal_fuse_program(program, fetch_names=None, feed_names=None,
+                            skip_vars=(), inplace=False):
+    """One-call form: apply HorizontalFusePass alone and return
+    (program, PassReport). details['skipped'] names every conv left
+    unfused with a machine-checkable reason code (REASON_CODES)."""
+    p = HorizontalFusePass(skip_vars=skip_vars)
+    prog, reports = PassManager([p]).apply(
+        program, fetch_names=fetch_names, feed_names=feed_names,
+        inplace=inplace)
+    return prog, reports[0]

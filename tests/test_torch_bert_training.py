@@ -213,8 +213,10 @@ def test_unported_options_raise():
     """dropout > 0 builds, with the reference's op list: a dropout op after
     the embeddings' layer norm, on every attention's weights and on every
     residual branch (1 + 3·n_layer), and the attention on the composed
-    branch (two matmuls a layer, no fused op). checkpoints (remat) still
-    raises."""
+    branch (two matmuls a layer, no fused op). checkpoints=True (remat,
+    once unported) builds a remat segment for the embeddings and one for
+    each layer (tests/test_torch_recompute.py holds it against the
+    reference)."""
     with ptt.program_guard(ptt.Program(), ptt.Program()), \
             ptt.unique_name.guard():
         ptt_bert.build_bert_pretrain(**dict(CFG, dropout=0.1))
@@ -232,8 +234,11 @@ def test_unported_options_raise():
     assert 'fused_multihead_attention' not in port_ops
     with ptt.program_guard(ptt.Program(), ptt.Program()), \
             ptt.unique_name.guard():
-        with pytest.raises(NotImplementedError, match='checkpoints'):
-            ptt_bert.build_bert_pretrain(checkpoints=True, **CFG)
+        ptt_bert.build_bert_pretrain(checkpoints=True, **CFG)
+        ops = [op.type for op in
+               ptt.default_main_program().global_block().ops]
+    assert ops.count('remat_segment') == ops.count(
+        'remat_segment_grad') == n_layer + 1
 
 
 if __name__ == '__main__':
