@@ -15,7 +15,7 @@ It builds the port's CUDA kernels from paddle_tpu_torch/csrc/ (bn_apply,
 flash_attn_fwd and flash_attn_bwd, one nvcc each, in parallel) and holds
 each against its plain PyTorch version on the card (bn_apply and its
 backward, which is plain torch, at batch 16 and 128, and in bf16 at 256).
-Then it drives eighteen paths, with random weights from a seed, TF32 off
+Then it drives twenty-five paths, with random weights from a seed, TF32 off
 and bf16 GEMMs reducing in f32:
 
 - ResNet-50 (depth 50, 224x224, 1000 classes) served through
@@ -67,6 +67,23 @@ and bf16 GEMMs reducing in f32:
   (equal to their solo runs); no kernel launches on this path. The same
   artifact served on the CPU holds the card's prefill and teacher-forced
   step logits (1e-3 of the largest) and greedy transcripts.
+- the same model and weights in the block-paged layout with a verify
+  program (build_decode_spec(block_size=16, draft_k=4): the default pool
+  of 1025 blocks, chunk sizes 64/128/256), as bench_decode_serving's block
+  arm drives it: the 64 prompts one at a time (transcripts held against
+  the slot layout's under the margin rule), then evict_all_prefixes(),
+  reset_counters() and Poisson arrivals at 8 times that rate (equal to the
+  sequential arm), 3 beam-3 requests against the slot layout's with
+  blocks copied on write, and a full-occupancy step timed and profiled;
+  shared-prefix traffic (32 requests of a 192-token system prompt and a
+  turn of 8-64 tokens, 4 of 300-480 tokens) served with the prefix cache
+  warm and after evict_all_prefixes() (equal transcripts, the prefix
+  reused, fewer chunk slices warm); speculative decoding in both layouts
+  (draft='ngram' on the 64 prompts one at a time, and a DraftModelDrafter
+  over a second predictor of the same artifact on 8), greedy transcripts
+  held against plain decode's; and the block artifact on the CPU against
+  the card, chunk slices, steps and a verify dispatch teacher-forced (1e-3
+  of the largest logit). No kernel launches on these paths.
 - the image-classification rows of bench.py (BENCHES, bench.py:1771-1790)
   as it runs them: build_train_net -> enable_bf16 -> Executor.run, 2
   warm-up and 10 timed steps on one fixed batch, for SmallNet at 32x32
@@ -145,8 +162,8 @@ from paddle_tpu_torch import kernels, passes
 from paddle_tpu_torch.contrib import gradient_merge, mixed_precision
 from paddle_tpu_torch.inference import (BatchingPredictor, CompiledPredictor,
                                         CompiledTrainer, DecodingPredictor,
-                                        export_compiled, export_decode,
-                                        export_train_step)
+                                        DraftModelDrafter, export_compiled,
+                                        export_decode, export_train_step)
 from paddle_tpu_torch.models import (alexnet, googlenet, se_resnext, smallnet,
                                      vgg)
 from paddle_tpu_torch.models.bert import bert_mlm_logits, build_bert_pretrain
@@ -294,6 +311,20 @@ DECODE_GATE_PROMPTS = 4    # greedy transcripts compared GPU vs CPU
 DECODE_GATE_NEW = 16
 DECODE_TF_STEPS = 16       # teacher-forced steps compared GPU vs CPU
 DECODE_PROFILE_STEPS = 20  # full-occupancy steps timed and profiled
+# the same model in the block layout (bench.py:817-823, the block arm of
+# bench_decode_serving): block_size 16, the default pool of 32 * 32 + 1 =
+# 1025 blocks (12 x 1025 x 16 x 512 x 4 B = 403.0 MB), chunk sizes the
+# prompt buckets, and a verify program of draft_k 4 (speculative decoding)
+DECODE_BLOCK_SIZE = 16
+DECODE_DRAFT_K = 4
+DECODE_PREFIX_LEN = 192        # the shared system prompt: 12 blocks
+DECODE_PREFIX_REQUESTS = 32    # each the prefix and a suffix of 8-64 tokens
+DECODE_LONG_PROMPTS = 4        # 300-480 tokens, past the largest chunk
+DECODE_SUFFIX_LENS = (8, 65)   # randint ranges of the suffixes
+DECODE_LONG_LENS = (300, 481)  # and of the long prompts
+DECODE_SPEC_REQUESTS = 16      # n-gram speculative requests a layout
+DECODE_SELF_DRAFT_PROMPTS = 8
+DECODE_MARGIN_TOL = 1e-3       # the serving gate's tolerance (margin rule)
 # the image-classification rows of bench.py (BENCHES, bench.py:1771-1790) as
 # _bench_image_train (:395-429) and bench_smallnet (:1079-1110) run them:
 # build_train_net -> enable_bf16 -> Executor.run(startup) -> Executor.run
@@ -2373,7 +2404,8 @@ def phase_decode_serving(dirname, sig):
     hypotheses and scores must equal their solo runs. No kernel of the
     port launches on this path. Then DECODE_PROFILE_STEPS steps at full
     occupancy, timed on the host clock and profiled. Returns (the
-    predictor, the sequential transcripts, the prompts, the launches)."""
+    predictor, the sequential transcripts, the prompts, the launches, the
+    sequential arm's seconds a request)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2384,9 +2416,12 @@ def phase_decode_serving(dirname, sig):
     print('decode-base load_warmup_s=%.1f' % (time.perf_counter() - t0))
     prompts = _decode_prompts()
     reset_launches()
-    t0 = time.perf_counter()
-    seq = [pred.generate(p, max_new_tokens=DECODE_MAX_NEW) for p in prompts]
-    seq_s = time.perf_counter() - t0
+    seq, seq_req_s = [], []
+    for p in prompts:
+        t0 = time.perf_counter()
+        seq.append(pred.generate(p, max_new_tokens=DECODE_MAX_NEW))
+        seq_req_s.append(time.perf_counter() - t0)
+    seq_s = sum(seq_req_s)
     seq_snap = pred.stats.snapshot()
     pred.stats.reset()
     rate = DECODE_RATE_X * len(prompts) / seq_s
@@ -2484,12 +2519,7 @@ def phase_decode_serving(dirname, sig):
               busy, (weights + cache + logits) / HBM_BYTES_PER_S * 1e3,
               weights, cache, logits, HBM_BYTES_PER_S,
               torch.cuda.max_memory_allocated() / 2 ** 30))
-    return pred, seq, prompts, counts
-
-
-def _top2_gap(row):
-    top = np.sort(np.asarray(row, np.float64))[::-1][:2]
-    return float(top[0] - top[1])
+    return pred, seq, prompts, counts, seq_req_s
 
 
 def phase_decode_gpu_vs_cpu(dirname, pred, seq, prompts):
@@ -2560,11 +2590,11 @@ def phase_decode_gpu_vs_cpu(dirname, pred, seq, prompts):
         first0, adv0 = cpu._first_token, cpu._advance_greedy
 
         def first(req, logits):
-            rec[id(req.stream)].append(_top2_gap(logits))
+            rec[id(req.stream)].append(_top_gaps(logits, 1))
             return first0(req, logits)
 
         def adv(req, logits, now):
-            rec[id(req.stream)].append(_top2_gap(logits[req.slots[0]]))
+            rec[id(req.stream)].append(_top_gaps(logits[req.slots[0]], 1))
             return adv0(req, logits, now)
         cpu._first_token, cpu._advance_greedy = first, adv
         cpu._reset_state()
@@ -2597,6 +2627,646 @@ def phase_decode_gpu_vs_cpu(dirname, pred, seq, prompts):
                   time.perf_counter() - t0))
     finally:
         cpu.close()
+
+
+# -- block-paged and speculative decode serving ------------------------------
+def build_decode_variant(dirname, params, **kw):
+    """build_decode_spec(**DECODE, **kw) on the card -> startup -> the
+    weights of `params` ({name: tensor}, the slot artifact's, so every
+    layout serves one model) -> export_decode(dirname), each program after
+    the inference pipeline (a fallback fails). Returns the signature."""
+    with fluid.unique_name.guard():
+        spec = build_decode_spec(**dict(DECODE, **kw))
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(spec['startup'], scope=scope)
+    for name, t in params.items():
+        check(tuple(scope.get(name).shape) == tuple(t.shape),
+              'parameter %s: %s in the variant, %s in the slot artifact'
+              % (name, tuple(scope.get(name).shape), tuple(t.shape)))
+        scope.set(name, t.clone())
+    with warnings.catch_warnings():
+        warnings.simplefilter('error', RuntimeWarning)
+        export_decode(spec, dirname, scope=scope)
+    del scope
+    torch.cuda.empty_cache()
+    with open(os.path.join(dirname, 'decode_signature.json')) as f:
+        sig = json.load(f)
+    check(set(sig['params']) == set(params),
+          'the variant reads parameters %s' % sorted(
+              set(sig['params']) ^ set(params)))
+    return sig
+
+
+def _log_softmax(row):
+    x = np.asarray(row, np.float64)
+    x = x - x.max()
+    return x - np.log(np.exp(x).sum())
+
+
+def _top_gaps(values, k):
+    """The smallest gap between the k+1 largest of `values` (a partition,
+    not a sort of the whole row: this runs for every token served)."""
+    flat = np.asarray(values).ravel()
+    top = np.sort(np.partition(flat, flat.size - k - 1)[-k - 1:]
+                  .astype(np.float64))
+    return float(np.min(top[1:] - top[:-1]))
+
+
+class _Margins(object):
+    """Wraps a DecodingPredictor's emit hooks to record, for every token
+    each request emits (first, plain step, speculative verify row, beam
+    step), (the top-two logit gap, or the smallest gap between the W+1
+    best beam candidates, and the largest |logit|), under
+    id(request.stream). `seconds` is the host time the recording took
+    (inside the serving loop it measures)."""
+
+    def __init__(self, pred):
+        self.rec = collections.defaultdict(list)
+        self.seconds = 0.0
+        first0, adv0 = pred._first_token, pred._advance_greedy
+        spec0, score0 = pred._advance_spec, pred._score_beam
+
+        def first(req, logits):
+            self._add(req, _log_softmax(logits) if req.beam else logits,
+                      logits, req.beam or 1)
+            return first0(req, logits)
+
+        def adv(req, logits, now):
+            self._add(req, logits[req.slots[0]], logits[req.slots[0]], 1)
+            return adv0(req, logits, now)
+
+        def spec(req, draft, rows, now):
+            emitted = spec0(req, draft, rows, now)
+            for i in range(len(emitted)):
+                self._add(req, rows[i], rows[i], 1)
+            return emitted
+
+        def score(req, logits):
+            cand = np.full((req.beam, pred._vocab), -np.inf)
+            for i in range(req.beam):
+                if req.finished[i]:
+                    cand[i, pred._eos] = req.scores[i]
+                else:
+                    cand[i] = req.scores[i] + _log_softmax(
+                        logits[req.slots[i]])
+            self._add(req, cand, logits[req.slots], req.beam)
+            return score0(req, logits)
+        pred._first_token, pred._advance_greedy = first, adv
+        pred._advance_spec, pred._score_beam = spec, score
+
+    def _add(self, req, values, logits, k):
+        t0 = time.perf_counter()
+        self.rec[id(req.stream)].append(
+            (_top_gaps(values, k), float(np.abs(logits).max())))
+        self.seconds += time.perf_counter() - t0
+
+
+def _margin_rule(label, got, want, rec, streams):
+    """Greedy transcripts `got` (served through `streams`, their tokens'
+    margins in `rec`) against `want`, the margin rule of
+    tests/test_torch_decode_cross.py at the serving gate's tolerance: where
+    two transcripts differ, the gap at their first differing token must be
+    at most 2 * DECODE_MARGIN_TOL of its largest |logit| (a near tie that
+    two f32 GEMM shapes may break apart); a larger one fails the run.
+    Returns the number of such divergences."""
+    n = 0
+    for i, (g, w, s) in enumerate(zip(got, want, streams)):
+        if g == w:
+            continue
+        k = next(j for j in range(len(g) + 1)
+                 if j == len(g) or j == len(w) or g[j] != w[j])
+        gaps = rec[id(s)]
+        check(k < len(gaps) and gaps[k][0] <= 2 * DECODE_MARGIN_TOL
+              * gaps[k][1], '%s: request %d differs at token %d with a gap '
+              'of %s (bound 2 * %g of its largest |logit|): %s vs %s'
+              % (label, i, k, gaps[k] if k < len(gaps) else None,
+                 DECODE_MARGIN_TOL, g, w))
+        print('%s: request %d differs from the reference at token %d, a '
+              'near tie (gap %r, largest |logit| %r)'
+              % (label, i, k, gaps[k][0], gaps[k][1]))
+        n += 1
+    return n
+
+
+def _beam_rule(label, got, want, rec, streams):
+    """Beam results against `want`: equal hypotheses, scores within the
+    error a score can carry (4 * DECODE_MARGIN_TOL of the largest |logit|
+    a step, summed); or, where the hypotheses differ, a candidate gap at
+    the first differing step at most twice that error. Returns the number
+    of such divergences and the largest score difference."""
+    n, worst = 0, 0.0
+    for i, ((gi, gs), (wi, ws), s) in enumerate(zip(got, want, streams)):
+        err = np.cumsum([4 * DECODE_MARGIN_TOL * sc for _, sc in rec[id(s)]])
+        if gi.shape == wi.shape and np.array_equal(gi, wi):
+            d = float(np.abs(gs - ws).max())
+            check(d <= err[-1], '%s: beam %d scores differ by %r (bound %r)'
+                  % (label, i, d, err[-1]))
+            worst = max(worst, d)
+            continue
+        cols = min(gi.shape[1], wi.shape[1])
+        t = next((j for j in range(cols)
+                  if not np.array_equal(gi[:, j], wi[:, j])), cols)
+        gap = rec[id(s)][t][0] if t < len(err) else np.inf
+        bound = 2 * err[min(t, len(err) - 1)]
+        check(gap <= bound, '%s: beam %d differs at step %d with a '
+              'candidate gap of %r (bound %r)' % (label, i, t, gap, bound))
+        print('%s: beam %d differs at step %d, a near tie (gap %r)'
+              % (label, i, t, gap))
+        n += 1
+    return n, worst
+
+
+def _served(pred, prompts, max_new, concurrent=False, req_s=None):
+    """Greedy transcripts of `prompts`, one request at a time or all
+    submitted together; returns (transcripts, streams, wall seconds). One
+    at a time, each request's seconds are appended to the list `req_s`
+    where one is given."""
+    t0 = time.perf_counter()
+    if concurrent:
+        streams = [pred.submit(p, max_new_tokens=max_new) for p in prompts]
+        out = [s.result(600) for s in streams]
+    else:
+        streams, out = [], []
+        for p in prompts:
+            t1 = time.perf_counter()
+            streams.append(pred.submit(p, max_new_tokens=max_new))
+            out.append(streams[-1].result(600))
+            if req_s is not None:
+                req_s.append(time.perf_counter() - t1)
+    return out, streams, time.perf_counter() - t0
+
+
+def _arm_line(label, snap, n_tok, wall):
+    keys = ['steps', 'prefills', 'occupancy', 'ttft_p50_ms', 'ttft_p99_ms',
+            'itl_p50_ms', 'itl_p99_ms']
+    keys += [k for k in ('blocks_peak', 'prefix_hit_rate',
+                         'prefix_tokens_reused', 'cow_blocks', 'chunk_slices',
+                         'verify_steps', 'drafted', 'accepted', 'acc_rate',
+                         'draft_errors', 'tokens_per_dispatch') if k in snap]
+    print('%s: tokens=%d wall_s=%r tokens_per_s=%r %s' % (
+        label, n_tok, wall, n_tok / wall,
+        ' '.join('%s=%r' % (k, snap[k]) for k in keys)))
+
+
+def phase_decode_block_serving(dirname, sig, slot_pred, seq, prompts):
+    """decode-base in the block layout (block_size 16, the default pool of
+    1025 blocks, chunk sizes 64/128/256) through DecodingPredictor, as
+    bench_decode_serving's block arm drives it: the 64 prompts one at a
+    time, then evict_all_prefixes() and reset_counters(), then as Poisson
+    arrivals at DECODE_RATE_X times the measured sequential rate (its
+    transcripts equal the sequential arm's); the sequential transcripts
+    held against the slot layout's under the margin rule; then
+    DECODE_BEAM beam-3 requests beside greedy traffic against the slot
+    layout's beams, with blocks copied on write; then DECODE_PROFILE_STEPS
+    steps at full occupancy timed and profiled. No kernel of the port
+    launches. Returns (the predictor, the sequential transcripts, the
+    sequential arm's seconds a request, the launches)."""
+    t0 = time.perf_counter()
+    pred = DecodingPredictor(dirname)
+    check(pred.place == fluid.CUDAPlace(0) and pred.layout == 'block',
+          'block predictor on %r, layout %s' % (pred.place, pred.layout))
+    pred.warmup()
+    blk = sig['block']
+    print('decode-base block load_warmup_s=%.1f block_size=%d num_blocks=%d '
+          'max_blocks_per_slot=%d chunks=%s pool_bytes=%d' % (
+              time.perf_counter() - t0, blk['block_size'],
+              blk['num_blocks'], blk['max_blocks_per_slot'],
+              sig['chunk_buckets'], sig['cache_bytes']))
+    margins = _Margins(pred)
+    reset_launches()
+    seq_req_s = []
+    got, streams, seq_s = _served(pred, prompts, DECODE_MAX_NEW,
+                                  req_s=seq_req_s)
+    seq_snap = pred.stats.snapshot()
+    n_tok = sum(len(t) for t in got)
+    _arm_line('decode-base block sequential arm (margin recording %r s of '
+              'it)' % margins.seconds, seq_snap, n_tok, seq_s)
+    diverged = _margin_rule('decode-base block vs slot', got, seq,
+                            margins.rec, streams)
+    pred.block_manager.evict_all_prefixes()
+    pred.block_manager.reset_counters()
+    pred.stats.reset()
+    rate = DECODE_RATE_X * len(prompts) / seq_s
+    arrivals = np.cumsum(np.random.RandomState(1).exponential(
+        1.0 / rate, len(prompts)))
+    con_streams = []
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        delay = t0 + arrivals[i] - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        con_streams.append(pred.submit(p, max_new_tokens=DECODE_MAX_NEW))
+    con = [s.result(600) for s in con_streams]
+    wall = time.perf_counter() - t0
+    snap = pred.stats.snapshot()
+    check(con == got, 'block continuous transcripts differ from the '
+          'sequential ones for requests %s'
+          % [i for i, (a, b) in enumerate(zip(con, got)) if a != b])
+    _arm_line('decode-base block continuous arm (Poisson, %g x the '
+              'sequential rate = %.2f req/s, vs_sequential=%r)'
+              % (DECODE_RATE_X, rate, seq_s / wall), snap, n_tok, wall)
+    print('decode-base block: sequential transcripts against the slot '
+          'layout\'s: %d of %d equal, %d near-tie divergences (expected 0)'
+          % (sum(a == b for a, b in zip(got, seq)), len(seq), diverged))
+
+    beam_prompts = prompts[:DECODE_BEAM]
+    slot_beams = [slot_pred.generate(p, max_new_tokens=DECODE_MAX_NEW,
+                                     beam=DECODE_BEAM) for p in beam_prompts]
+    greedy_idx = list(range(DECODE_BEAM, DECODE_BEAM + 8))
+    pred.stats.reset()
+    beams, greedy = [], []
+    for i, p in enumerate(beam_prompts):
+        beams.append(pred.submit(p, max_new_tokens=DECODE_MAX_NEW,
+                                 beam=DECODE_BEAM))
+        greedy += [pred.submit(prompts[j], max_new_tokens=DECODE_MAX_NEW)
+                   for j in greedy_idx[i::DECODE_BEAM]]
+    block_beams = [s.result(600) for s in beams]
+    mixed = pred.stats.snapshot()
+    order = [j for i in range(DECODE_BEAM) for j in greedy_idx[i::DECODE_BEAM]]
+    check([s.result(600) for s in greedy] == [got[j] for j in order],
+          'block greedy transcripts beside beam requests differ')
+    beam_div, beam_err = _beam_rule('decode-base block beam vs slot',
+                                    block_beams, slot_beams, margins.rec,
+                                    beams)
+    check(mixed['cow_blocks'] > 0, 'no block copied on write: %s' % mixed)
+    counts = read_launches()
+    check(not any(counts.values()), 'the block path launched %s' % counts)
+    print('decode-base block beam: %d beam-%d requests beside %d greedy '
+          'ones against the slot layout\'s: hypotheses equal in %d, '
+          'near-tie divergences %d (expected 0), largest score difference '
+          '%r; cow_blocks=%d blockcopies=%d reorders=%d blocks_peak=%d; '
+          'launches over the block path %s' % (
+              DECODE_BEAM, DECODE_BEAM, len(greedy),
+              DECODE_BEAM - beam_div, beam_div, beam_err,
+              mixed['cow_blocks'], mixed['blockcopies'], mixed['reorders'],
+              mixed['blocks_peak'], json.dumps(counts)))
+
+    S, T = DECODE['max_slots'], DECODE['max_cache_len']
+    maxb = blk['max_blocks_per_slot']
+    rng = np.random.RandomState(2)
+    tokens = rng.randint(2, DECODE['vocab'], (S, 1)).astype(np.int64)
+    pos = rng.randint(T // 8, T * 5 // 8, (S, 1)).astype(np.int32)
+    tables = np.arange(1, 1 + S * maxb, dtype=np.int32).reshape(S, maxb)
+    times = []
+    for _ in range(DECODE_PROFILE_STEPS):
+        t0 = time.perf_counter()
+        pred._dispatch_step(tokens, pos, tables)   # the synced logits
+        times.append(time.perf_counter() - t0)
+    per_kernel = _profile(lambda: pred._dispatch_step(tokens, pos, tables),
+                          'decode-base block step, 32 active slots',
+                          'steps', calls=DECODE_PROFILE_STEPS)
+    # the timed steps wrote into every slot's blocks: a fresh pool
+    pred._reset_state()
+    weights, cache, logits = _decode_step_bytes(sig)
+    busy = (sum(per_kernel.values()) / DECODE_PROFILE_STEPS
+            if per_kernel else None)
+    view = 2 * DECODE['n_layer'] * S * maxb * blk['block_size'] \
+        * DECODE['d_model'] * 4
+    print('decode-base block step at %d active slots: host-clock p50_ms=%r '
+          'p90_ms=%r; device_busy_ms_per_step=%r; byte bound %r ms (%d '
+          'weight + %d pool + %d logits bytes at %g B/s); the views gathered '
+          'through the tables %d bytes a step (%d gathers)' % (
+              S, float(np.percentile(times, 50)) * 1e3,
+              float(np.percentile(times, 90)) * 1e3, busy,
+              (weights + cache + logits) / HBM_BYTES_PER_S * 1e3,
+              weights, cache, logits, HBM_BYTES_PER_S, view,
+              2 * DECODE['n_layer']))
+    return pred, got, seq_req_s, counts
+
+
+def _prefix_prompts():
+    """Shared-prefix traffic, from RandomState(3): one DECODE_PREFIX_LEN-
+    token system prompt that every request starts with, then
+    DECODE_PREFIX_REQUESTS turns of 8-64 tokens and DECODE_LONG_PROMPTS
+    long turns, to 300-480 tokens in all (past the largest chunk).
+    Returns (the prefix, the prompts)."""
+    rng = np.random.RandomState(3)
+    v = DECODE['vocab']
+    prefix = rng.randint(2, v, DECODE_PREFIX_LEN)
+    tails = [int(rng.randint(*DECODE_SUFFIX_LENS))
+             for _ in range(DECODE_PREFIX_REQUESTS)]
+    tails += [int(rng.randint(*DECODE_LONG_LENS)) - DECODE_PREFIX_LEN
+              for _ in range(DECODE_LONG_PROMPTS)]
+    return prefix, [np.concatenate([prefix, rng.randint(2, v, n)])
+                    for n in tails]
+
+
+def phase_decode_prefix_sharing(pred):
+    """The block predictor under shared-prefix traffic (the system prompt
+    chat users send before their own turn): the prompts of
+    _prefix_prompts submitted together, once with the prefix cache warm
+    (one request of the system prompt served first) and once after
+    evict_all_prefixes(). Transcripts equal (under the margin rule: a
+    warm request computes its tail in a smaller chunk than a cold one),
+    prefix_tokens_reused > 0 and larger warm, and fewer chunk rows
+    computed warm. The evicted run is not cold: the long prompts wait for
+    a slot, and by then the turns ahead of them have published the
+    prefix, so they reuse it in both runs. Chunk slices count one a
+    request and slice whatever its size, so they need not drop warm (a
+    turn's one 256-row slice becomes one 64-row slice): they are printed
+    and held only to no more than the evicted run's. Returns the
+    launches."""
+    prefix, prompts = _prefix_prompts()
+    reset_launches()
+    runs = {}
+    chunk0 = pred._dispatch_chunk
+    rows = [0]
+
+    def chunk(size, *args):
+        rows[0] += size
+        return chunk0(size, *args)
+    pred._dispatch_chunk = chunk
+    try:
+        for name in ('warm', 'evicted'):
+            pred.block_manager.evict_all_prefixes()
+            if name == 'warm':
+                pred.generate(np.concatenate([prefix, [7]]),
+                              max_new_tokens=1)
+            pred.stats.reset()
+            rows[0] = 0
+            margins = _Margins(pred)
+            out, streams, wall = _served(pred, prompts, DECODE_MAX_NEW,
+                                         concurrent=True)
+            runs[name] = (out, streams, wall, pred.stats.snapshot(),
+                          margins, rows[0])
+            _arm_line('decode-base prefix sharing (%s prefix cache, %d '
+                      'requests, %d chunk rows)' % (name, len(prompts),
+                                                    rows[0]),
+                      runs[name][3], sum(len(t) for t in out), wall)
+    finally:
+        pred._dispatch_chunk = chunk0
+    counts = read_launches()
+    warm, cold = runs['warm'], runs['evicted']
+    check(warm[3]['prefix_tokens_reused'] > cold[3]['prefix_tokens_reused']
+          and warm[3]['prefix_tokens_reused'] > 0,
+          'prefix tokens reused warm %d, evicted %d'
+          % (warm[3]['prefix_tokens_reused'],
+             cold[3]['prefix_tokens_reused']))
+    check(warm[5] < cold[5]
+          and warm[3]['chunk_slices'] <= cold[3]['chunk_slices'],
+          'warm run took %d chunk rows (%d slices), evicted %d (%d slices)'
+          % (warm[5], warm[3]['chunk_slices'], cold[5],
+             cold[3]['chunk_slices']))
+    diverged = _margin_rule('decode-base prefix warm vs evicted', warm[0],
+                            cold[0], warm[4].rec, warm[1])
+    check(not any(counts.values()), 'the prefix path launched %s' % counts)
+    print('decode-base prefix sharing: %d prompts of a %d-token prefix and '
+          'a turn of 8-64 tokens, then %d of 300-480 tokens in all; warm '
+          'ttft_p50_ms=%r chunk_slices=%d chunk_rows=%d '
+          'prefix_tokens_reused=%d hit_rate=%r; evicted ttft_p50_ms=%r '
+          'chunk_slices=%d chunk_rows=%d prefix_tokens_reused=%d; '
+          'transcripts equal %d of %d, near-tie divergences %d (expected 0);'
+          ' launches %s' % (
+              DECODE_PREFIX_REQUESTS, DECODE_PREFIX_LEN, DECODE_LONG_PROMPTS,
+              warm[3]['ttft_p50_ms'], warm[3]['chunk_slices'], warm[5],
+              warm[3]['prefix_tokens_reused'], warm[3]['prefix_hit_rate'],
+              cold[3]['ttft_p50_ms'], cold[3]['chunk_slices'], cold[5],
+              cold[3]['prefix_tokens_reused'],
+              sum(a == b for a, b in zip(warm[0], cold[0])), len(prompts),
+              diverged, json.dumps(counts)))
+    return counts
+
+
+def _spec_gate(label, snap):
+    """A speculative arm really drafted and verified: verify dispatches
+    ran, drafts were proposed and some accepted (acc_rate reads 1.0 when
+    nothing was drafted), and the drafter never raised (a raise rides the
+    plain step, so the transcripts alone would not show it)."""
+    check(snap['verify_steps'] > 0
+          and 0 < snap['accepted'] <= snap['drafted']
+          and snap['draft_errors'] == 0,
+          '%s did not draft and verify: %s' % (label, snap))
+
+
+def phase_decode_spec(layouts, prompts):
+    """Speculative decoding of decode-base (build_decode_spec(draft_k=4))
+    in both layouts: draft='ngram' on the first DECODE_SPEC_REQUESTS
+    prompts one at a time (bench_decode_serving's 64 cut to keep the
+    script's time), then a DraftModelDrafter over a second
+    DecodingPredictor of the same artifact (a self-draft: acceptance near
+    1) on DECODE_SELF_DRAFT_PROMPTS prompts short enough that the
+    drafter's context fits the slot layout's largest bucket (past it the
+    slot drafter refuses the context: a draft error). Greedy transcripts
+    equal plain decode's (under the margin rule: a verify row's logits
+    come from [S, K+1]-row GEMMs, a step's from [S, 1]-row ones). Each
+    arm's tokens a second stand beside plain decode's on the same
+    prompts, from the plain sequential arm's seconds a request.
+    `layouts`: {name: (artifact dir, plain transcripts, plain seconds a
+    request)}. Returns the launches."""
+    reset_launches()
+    short = [i for i, p in enumerate(prompts)
+             if len(p) + DECODE_MAX_NEW <= max(DECODE['prompt_buckets'])]
+    short = short[:DECODE_SELF_DRAFT_PROMPTS]
+    check(len(short) == DECODE_SELF_DRAFT_PROMPTS, 'too few short prompts')
+    first = list(range(DECODE_SPEC_REQUESTS))
+
+    def plain_tps(plain, req_s, idx):
+        return (sum(len(plain[i]) for i in idx)
+                / sum(req_s[i] for i in idx))
+    for name, (dirname, plain, plain_req_s) in layouts.items():
+        pred = DecodingPredictor(dirname, draft='ngram')
+        try:
+            pred.warmup()
+            margins = _Margins(pred)
+            got, streams, wall = _served(
+                pred, [prompts[i] for i in first], DECODE_MAX_NEW)
+            snap = pred.stats.snapshot()
+        finally:
+            pred.close()
+        n_tok = sum(len(t) for t in got)
+        base = plain_tps(plain, plain_req_s, first)
+        _arm_line('decode-base spec %s ngram (sequential; plain %r tokens/s '
+                  'on the same %d prompts, speed-up %r; margin recording %r '
+                  's)' % (name, base, len(first), n_tok / wall / base,
+                          margins.seconds), snap, n_tok, wall)
+        div = _margin_rule('decode-base spec %s ngram vs plain' % name, got,
+                           plain, margins.rec, streams)
+        _spec_gate('decode-base spec %s ngram' % name, snap)
+        draft = DecodingPredictor(dirname)
+        pred = DecodingPredictor(dirname,
+                                 draft=DraftModelDrafter(draft))
+        try:
+            draft.warmup()
+            pred.warmup()
+            margins = _Margins(pred)
+            sd, sd_streams, sd_wall = _served(
+                pred, [prompts[i] for i in short], DECODE_MAX_NEW)
+            sd_snap = pred.stats.snapshot()
+        finally:
+            pred.close()
+            draft.close()
+        sd_tok = sum(len(t) for t in sd)
+        sd_base = plain_tps(plain, plain_req_s, short)
+        _arm_line('decode-base spec %s self-draft (DraftModelDrafter, '
+                  'sequential, %d prompts; plain %r tokens/s on the same '
+                  'prompts, speed-up %r)' % (name, len(short), sd_base,
+                                             sd_tok / sd_wall / sd_base),
+                  sd_snap, sd_tok, sd_wall)
+        sd_div = _margin_rule('decode-base spec %s self-draft vs plain'
+                              % name, sd, [plain[i] for i in short],
+                              margins.rec, sd_streams)
+        _spec_gate('decode-base spec %s self-draft' % name, sd_snap)
+        check(sd_snap['acc_rate'] >= 0.9, 'self-draft acceptance %r'
+              % sd_snap['acc_rate'])
+        print('decode-base spec %s: ngram transcripts equal plain in %d of '
+              '%d, self-draft in %d of %d; near-tie divergences %d and %d '
+              '(expected 0); draft errors %d and %d' % (
+                  name, sum(a == b for a, b in zip(got, plain)), len(got),
+                  sum(a == plain[i] for a, i in zip(sd, short)), len(sd),
+                  div, sd_div, snap['draft_errors'],
+                  sd_snap['draft_errors']))
+    counts = read_launches()
+    check(not any(counts.values()), 'the spec path launched %s' % counts)
+    print('decode-base spec: launches over the speculative path %s'
+          % json.dumps(counts))
+    return counts
+
+
+def phase_decode_block_gpu_vs_cpu(dirname, prompts):
+    """The block artifact (with its verify program) served on the CPU
+    against the card, teacher-forced from the same state: the chunk slices
+    of DECODE_GATE_PROMPTS prompts and one of 300+ tokens (two slices)
+    into slots 0..4, DECODE_TF_STEPS steps of those slots, a verify
+    dispatch (each slot's pending token and DECODE_DRAFT_K random draft
+    tokens, the other slots pad) and a step after it; each dispatch's
+    logits within 1e-3 of its largest |logit| (the serving gate), the
+    card's argmax fed to both sides."""
+    t0 = time.perf_counter()
+    gpu = DecodingPredictor(dirname)
+    cpu = DecodingPredictor(dirname, place=fluid.CPUPlace())
+    try:
+        errs = {}
+
+        def both(kind, fn, *args):
+            g = getattr(gpu, fn)(*args)
+            c = getattr(cpu, fn)(*args)
+            err, scale = float(np.abs(g - c).max()), float(np.abs(c).max())
+            check(np.isfinite(g).all() and err <= 1e-3 * scale,
+                  'decode block %s GPU and CPU logits differ: %r of %r'
+                  % (fn, err, scale))
+            errs.setdefault(kind, []).append(err / scale)
+            return g
+
+        S = DECODE['max_slots']
+        maxb = -(-DECODE['max_cache_len'] // DECODE_BLOCK_SIZE)
+        tables = np.arange(1, 1 + S * maxb, dtype=np.int32).reshape(S, maxb)
+        chunks = sorted(DECODE['prompt_buckets'])
+        gate = list(prompts[:DECODE_GATE_PROMPTS])
+        gate.append(np.random.RandomState(4).randint(
+            2, DECODE['vocab'], DECODE_LONG_LENS[0]))
+        last = []
+        for s, p in enumerate(gate):
+            start = 0
+            while start < len(p):
+                rem = len(p) - start
+                size = min(c for c in chunks if min(rem, chunks[-1]) <= c)
+                take = min(size, rem)
+                ids = np.zeros((1, size), np.int64)
+                ids[0, :take] = p[start:start + take]
+                logits = both('chunk', '_dispatch_chunk', size, ids, start,
+                              take, tables[s:s + 1])
+                start += take
+            last.append(int(np.argmax(logits)))
+        n = len(gate)
+        tokens = np.zeros((S, 1), np.int64)
+        pos = np.zeros((S, 1), np.int32)
+        pos[:n, 0] = [len(p) for p in gate]
+        for _ in range(DECODE_TF_STEPS):
+            tokens[:n, 0] = last
+            logits = both('step', '_dispatch_step', tokens, pos, tables)
+            last = [int(t) for t in np.argmax(logits[:n], axis=1)]
+            pos[:n, 0] += 1
+        R = DECODE_DRAFT_K + 1
+        vt = np.zeros((S, R), np.int64)
+        vp = np.full((S, R), maxb * DECODE_BLOCK_SIZE, np.int32)
+        vt[:n, 0] = last
+        vt[:n, 1:] = np.random.RandomState(5).randint(2, DECODE['vocab'],
+                                                      (n, R - 1))
+        vp[:n] = pos[:n] + np.arange(R, dtype=np.int32)
+        logits = both('verify', '_dispatch_verify', vt, vp, tables)
+        tokens[:n, 0] = last
+        both('step', '_dispatch_step', tokens, pos, tables)
+        print('decode-base block gpu_vs_cpu: %d chunk slices, %d steps, %d '
+              'verify dispatch ([%d, %d] rows), max_rel_err chunk=%r step=%r'
+              ' verify=%r tolerance_rel=1e-3; %.1fs' % (
+                  len(errs['chunk']), len(errs['step']),
+                  len(errs['verify']), S, R, max(errs['chunk']),
+                  max(errs['step']), max(errs['verify']),
+                  time.perf_counter() - t0))
+    finally:
+        cpu.close()
+        gpu.close()
+
+
+def decode_paths():
+    """Continuous decode serving at Transformer-base widths (decode-base):
+    the slot layout (build_decode_artifact, phase_decode_serving,
+    phase_decode_gpu_vs_cpu), then the same weights in the block layout
+    and with a verify program (block-paged serving, shared prefixes,
+    speculative decoding, the block GPU-vs-CPU gate). Returns each path's
+    launches."""
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        dsig, d_step_ops, d_prefill_ops, d_params = build_decode_artifact(d)
+        check(not {'fused_multihead_attention', 'batch_norm'} & set(
+            d_step_ops), 'decode step ops %s' % dict(d_step_ops))
+        print('model decode-base (build_decode_spec) vocab=%d d_model=%d '
+              'heads=%d layers=%d d_ff=%d slots=%d cache_len=%d buckets=%s '
+              'f32 cache_bytes=%d parameter_elements=%d step_ops=%d %s '
+              'prefill_ops=%s build_init_export_s=%.1f' % (
+                  DECODE['vocab'], DECODE['d_model'], DECODE['n_head'],
+                  DECODE['n_layer'], DECODE['d_ff'], DECODE['max_slots'],
+                  DECODE['max_cache_len'], list(DECODE['prompt_buckets']),
+                  dsig['cache_bytes'], d_params, sum(d_step_ops.values()),
+                  json.dumps(dict(d_step_ops)), json.dumps(d_prefill_ops),
+                  time.perf_counter() - t0))
+        decode_pred, decode_seq, decode_prompts, decode_counts, \
+            decode_req_s = phase_decode_serving(d, dsig)
+        phase_decode_gpu_vs_cpu(d, decode_pred, decode_seq, decode_prompts)
+        _phase_seconds('decode_slot', t0)
+
+        # the same weights in the block layout and with a verify program:
+        # block-paged serving, shared prefixes, speculative decoding
+        t0 = time.perf_counter()
+        params = {n: decode_pred._scope.get(n) for n in dsig['params']}
+        with tempfile.TemporaryDirectory() as bd, \
+                tempfile.TemporaryDirectory() as sd:
+            bsig = build_decode_variant(bd, params,
+                                        block_size=DECODE_BLOCK_SIZE,
+                                        draft_k=DECODE_DRAFT_K)
+            build_decode_variant(sd, params, draft_k=DECODE_DRAFT_K)
+            del params
+            print('model decode-base block (build_decode_spec(block_size=%d,'
+                  ' draft_k=%d)) num_blocks=%d pool_bytes=%d chunks=%s, and '
+                  'the slot layout with draft_k=%d; build_init_export_s=%.1f'
+                  % (DECODE_BLOCK_SIZE, DECODE_DRAFT_K,
+                     bsig['block']['num_blocks'], bsig['cache_bytes'],
+                     bsig['chunk_buckets'], DECODE_DRAFT_K,
+                     time.perf_counter() - t0))
+            block_pred, block_seq, block_req_s, block_counts = \
+                phase_decode_block_serving(bd, bsig, decode_pred, decode_seq,
+                                           decode_prompts)
+            _phase_seconds('decode_block_serving', t0)
+            t0 = time.perf_counter()
+            prefix_counts = phase_decode_prefix_sharing(block_pred)
+            block_pred.close()
+            del block_pred
+            _phase_seconds('decode_prefix_sharing', t0)
+            t0 = time.perf_counter()
+            spec_counts = phase_decode_spec(
+                {'slot': (sd, decode_seq, decode_req_s),
+                 'block': (bd, block_seq, block_req_s)}, decode_prompts)
+            _phase_seconds('decode_spec', t0)
+            t0 = time.perf_counter()
+            phase_decode_block_gpu_vs_cpu(bd, decode_prompts)
+            _phase_seconds('decode_block_gpu_vs_cpu', t0)
+        decode_pred.close()
+        del decode_pred
+    torch.cuda.empty_cache()
+    return {'decode_serving': decode_counts,
+            'decode_block_serving': block_counts,
+            'decode_prefix_sharing': prefix_counts,
+            'decode_spec': spec_counts}
 
 
 def _phase_seconds(label, t0):
@@ -4069,27 +4739,7 @@ def main():
     torch.cuda.empty_cache()
 
     # continuous decode serving at Transformer-base widths (decode-base)
-    with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        dsig, d_step_ops, d_prefill_ops, d_params = build_decode_artifact(d)
-        check(not {'fused_multihead_attention', 'batch_norm'} & set(
-            d_step_ops), 'decode step ops %s' % dict(d_step_ops))
-        print('model decode-base (build_decode_spec) vocab=%d d_model=%d '
-              'heads=%d layers=%d d_ff=%d slots=%d cache_len=%d buckets=%s '
-              'f32 cache_bytes=%d parameter_elements=%d step_ops=%d %s '
-              'prefill_ops=%s build_init_export_s=%.1f' % (
-                  DECODE['vocab'], DECODE['d_model'], DECODE['n_head'],
-                  DECODE['n_layer'], DECODE['d_ff'], DECODE['max_slots'],
-                  DECODE['max_cache_len'], list(DECODE['prompt_buckets']),
-                  dsig['cache_bytes'], d_params, sum(d_step_ops.values()),
-                  json.dumps(dict(d_step_ops)), json.dumps(d_prefill_ops),
-                  time.perf_counter() - t0))
-        decode_pred, decode_seq, decode_prompts, decode_counts = \
-            phase_decode_serving(d, dsig)
-        phase_decode_gpu_vs_cpu(d, decode_pred, decode_seq, decode_prompts)
-        decode_pred.close()
-    del decode_pred
-    torch.cuda.empty_cache()
+    decode_counts = decode_paths()
 
     # the image-classification zoo at bench.py's settings: SmallNet,
     # AlexNet, VGG-19, GoogLeNet and SE-ResNeXt-50 trained in bf16, the
@@ -4130,7 +4780,6 @@ def main():
              'bert_bench_training': bench_counts,
              'transformer_bench_training': trans_counts,
              'transformer_bench_training_dropout0': trans0_counts,
-             'decode_serving': decode_counts,
              'googlenet_serving': gnet_counts,
              'resnet50_artifact_serving': artifact_counts,
              'resnet50_compiled_trainer_bf16': trainer_counts,
@@ -4139,6 +4788,7 @@ def main():
              'bert_training_remat': remat_counts,
              'bert_bench_training_remat': bench_remat_counts,
              'googlenet_artifact_serving': gnet_art_counts}
+    paths.update(decode_counts)
     paths.update(zoo_counts)
 
     def by_path(name):

@@ -31,20 +31,30 @@ BatchingPredictor):
 `export_decode` (read by inference/decoding.py DecodingPredictor; each
 program after the inference pipeline, as `export_compiled`'s):
 
-  decode_signature.json   kind, layout, slots, cache length, buckets,
-                          eos and vocab, the cache state and every
-                          program's feeds and fetches (the reference's
-                          keys where they mean the same thing)
+  decode_signature.json   kind, layout, slots, cache length, eos and
+                          vocab, the cache state and every program's feeds
+                          and fetches (the reference's keys where they
+                          mean the same thing): 'prompt_buckets' and
+                          'prefill' in the slot layout; 'block',
+                          'chunk_buckets' and 'chunk' in the block layout;
+                          'verify' with a verify program
   decode_step/__model__   the decode-step program, as JSON
                           (io.program_to_dict, with feed and fetch names)
-  prefill_<L>/__model__   one prefill program per prompt bucket L
+  prefill_<L>/__model__   slot layout: one prefill program per prompt
+                          bucket L
+  prefill_chunk_<C>/__model__   block layout: one chunked-prefill program
+                          per chunk size C
+  decode_verify/__model__ the speculative verify program, where the spec
+                          has one (build_decode_spec(draft_k=K))
   params/                 every parameter once (io.save_vars: one file
                           per var and a manifest), the cache vars left
                           out: the server makes them zero
 
-No AOT sidecar (`precompile=`) and no reorder program: the port
-interprets the programs, and a beam reorder is an index copy over the
-slot axis of each cache tensor (DecodingPredictor._dispatch_reorder).
+No AOT sidecar (`precompile=`), no reorder and no block-copy program: the
+port interprets the programs, a beam reorder is an index copy over the
+slot axis of each cache tensor (DecodingPredictor._dispatch_reorder), and
+a copy on write one over the pool's block axis
+(DecodingPredictor._dispatch_blockcopy).
 
 `export_compiled` writes the predictor's program after the passes'
 inference pipeline (_optimize_for_export: verify, constant_fold,
@@ -97,26 +107,38 @@ def _write_program(entry, out_dir, state_names=()):
              'dtype': samples[n].dtype.name} for n in entry['feeds']]
 
 
+def _check_feeds(what, entry, want):
+    if sorted(entry['feeds']) != sorted(want):
+        raise ValueError("%s feeds must be %r, got %r"
+                         % (what, sorted(want), entry['feeds']))
+
+
 def export_decode(spec, out_dir, scope=None):
     """Write the decode-serving artifact of `spec` (the dict
     models.transformer.build_decode_spec returns) to out_dir, the
     parameters taken from `scope` (default: the global scope), where the
     spec's startup program must have run. Feeds are checked as the
     reference checks them: the step takes 'tokens' [S, 1] int64 and 'pos'
-    [S, 1] int32 and fetches the logits [S, vocab]; each prefill takes
-    'prompt_ids' [1, L] int64, 'prompt_len' and 'slot' [1, 1] int32 and
-    fetches the last real position's logits [1, vocab]. The slot layout
-    with an f32 cache only: another layout or cache dtype raises
-    NotImplementedError. Returns out_dir."""
+    [S, 1] int32 (and 'block_tables' [S, max_blocks] int32 in the block
+    layout) and fetches the logits [S, vocab]; a verify program takes the
+    step's feed names at [S, K+1]. In the slot layout each prefill takes
+    'prompt_ids' [1, L] int64, 'prompt_len' and 'slot' [1, 1] int32; in
+    the block layout each chunk program 'chunk_ids' [1, C] int64, 'start'
+    and 'chunk_len' [1, 1] int32 and 'block_table' [1, max_blocks] int32;
+    both fetch the last real position's logits [1, vocab]. An f32 cache
+    only: the int8 tier raises NotImplementedError (ROADMAP queue 1 item
+    6). Returns out_dir."""
     scope = scope if scope is not None else global_scope()
     layout = spec.get('layout', 'slot')
     kv_dtype = spec.get('kv_cache_dtype', 'float32')
-    if layout != 'slot' or kv_dtype != 'float32' or 'verify' in spec:
+    if kv_dtype != 'float32':
         raise NotImplementedError(
-            'export_decode: the port exports the slot layout with an f32 '
-            'cache and no verify program; got layout %r, kv_cache_dtype '
-            '%r%s' % (layout, kv_dtype,
-                      ', a verify program' if 'verify' in spec else ''))
+            'export_decode: the port exports an f32 cache; the %s tier is '
+            'not ported yet (ROADMAP queue 1 item 6)' % kv_dtype)
+    if layout not in ('slot', 'block'):
+        raise ValueError("layout must be 'slot' or 'block', got %r"
+                         % (layout,))
+    block = layout == 'block'
     state_names = list(spec['cache_vars'])
     state = []
     for n in state_names:
@@ -127,34 +149,74 @@ def export_decode(spec, out_dir, scope=None):
                 "startup program before export_decode" % n)
         state.append(val)
     step = spec['step']
-    if sorted(step['feeds']) != ['pos', 'tokens']:
-        raise ValueError("decode-step feeds must be ['pos', 'tokens'], "
-                         "got %r" % (step['feeds'],))
-    buckets = sorted(int(b) for b in spec['prefill'])
-    if not buckets:
-        raise ValueError("export_decode needs at least one prompt bucket")
+    step_want = ['tokens', 'pos'] + (['block_tables'] if block else [])
+    _check_feeds('decode-step', step, step_want)
+    programs = {'step': step}
+    if 'verify' in spec:
+        _check_feeds('decode-verify', spec['verify'], step_want)
+        programs['verify'] = spec['verify']
+    if block:
+        sizes = sorted(int(c) for c in spec['chunk'])
+        if not sizes:
+            raise ValueError("block-layout export needs at least one "
+                             "chunk size")
+        for C in sizes:
+            _check_feeds('chunk', spec['chunk'][C],
+                         ['chunk_ids', 'start', 'chunk_len', 'block_table'])
+    else:
+        sizes = sorted(int(b) for b in spec['prefill'])
+        if not sizes:
+            raise ValueError("export_decode needs at least one prompt "
+                             "bucket")
+        for L in sizes:
+            _check_feeds('prefill', spec['prefill'][L],
+                         ['prompt_ids', 'prompt_len', 'slot'])
     os.makedirs(out_dir, exist_ok=True)
-    step_feeds = _write_program(step, os.path.join(out_dir,
-                                                   _decoding._STEP_DIR),
-                                state_names)
-    prefill_sig = {}
-    programs = [step['program']]
-    for L in buckets:
-        p = spec['prefill'][L]
-        if sorted(p['feeds']) != ['prompt_ids', 'prompt_len', 'slot']:
-            raise ValueError(
-                "prefill feeds must be ['prompt_ids', 'prompt_len', "
-                "'slot'], got %r" % (p['feeds'],))
-        prefill_sig[str(L)] = {
-            'feeds': _write_program(
-                p, os.path.join(out_dir, _decoding._PREFILL_DIR % L),
-                state_names),
-            'fetches': list(p['fetches'])}
-        programs.append(p['program'])
+    sig = {'version': 1, 'format': _decoding._FORMAT, 'kind': 'decode',
+           'layout': layout,
+           'max_slots': int(spec['max_slots']),
+           'max_cache_len': int(spec['max_cache_len']),
+           'eos_id': int(spec['eos_id']), 'vocab': int(spec['vocab']),
+           'kv_cache_dtype': kv_dtype,
+           'cache_bytes': int(sum(t.numel() * t.element_size()
+                                  for t in state)),
+           'state': [{'name': n, 'shape': list(t.shape),
+                      'dtype': convert_dtype(t.dtype)}
+                     for n, t in zip(state_names, state)]}
+    sig['step'] = {
+        'feeds': _write_program(step, os.path.join(
+            out_dir, _decoding._STEP_DIR), state_names),
+        'fetches': list(step['fetches'])}
+    if 'verify' in programs:
+        v = programs['verify']
+        sig['verify'] = {
+            'feeds': _write_program(v, os.path.join(
+                out_dir, _decoding._VERIFY_DIR), state_names),
+            'fetches': list(v['fetches']),
+            'draft_k': int(spec['draft_k'])}
+    entries = {}
+    for n in sizes:
+        e = spec['chunk' if block else 'prefill'][n]
+        d = (_decoding._CHUNK_DIR if block else _decoding._PREFILL_DIR) % n
+        entries[str(n)] = {
+            'feeds': _write_program(e, os.path.join(out_dir, d),
+                                    state_names),
+            'fetches': list(e['fetches'])}
+        programs[d] = e
+    if block:
+        sig['block'] = {'block_size': int(spec['block_size']),
+                        'num_blocks': int(spec['num_blocks']),
+                        'max_blocks_per_slot':
+                            int(spec['max_blocks_per_slot'])}
+        sig['chunk_buckets'] = sizes
+        sig['chunk'] = entries
+    else:
+        sig['prompt_buckets'] = sizes
+        sig['prefill'] = entries
 
     params = {}
-    for prog in programs:
-        for v in prog.list_vars():
+    for e in programs.values():
+        for v in e['program'].list_vars():
             if v.persistable and v.name not in state_names:
                 params.setdefault(v.name, v)
     missing = sorted(n for n in params if scope.get(n) is None)
@@ -165,22 +227,7 @@ def export_decode(spec, out_dir, scope=None):
     with scope_guard(scope):
         _io.save_vars(None, os.path.join(out_dir, _decoding._PARAMS_DIR),
                       vars=[params[n] for n in sorted(params)])
-
-    sig = {'version': 1, 'format': _decoding._FORMAT, 'kind': 'decode',
-           'layout': 'slot',
-           'max_slots': int(spec['max_slots']),
-           'max_cache_len': int(spec['max_cache_len']),
-           'eos_id': int(spec['eos_id']), 'vocab': int(spec['vocab']),
-           'kv_cache_dtype': kv_dtype,
-           'cache_bytes': int(sum(t.numel() * t.element_size()
-                                  for t in state)),
-           'state': [{'name': n, 'shape': list(t.shape),
-                      'dtype': convert_dtype(t.dtype)}
-                     for n, t in zip(state_names, state)],
-           'params': sorted(params),
-           'step': {'feeds': step_feeds, 'fetches': list(step['fetches'])},
-           'prompt_buckets': buckets,
-           'prefill': prefill_sig}
+    sig['params'] = sorted(params)
     with _io._atomic_file(os.path.join(out_dir,
                                        _decoding._DECODE_SIGNATURE)) as f:
         f.write(json.dumps(sig, indent=1).encode())

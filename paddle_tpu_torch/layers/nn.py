@@ -1,6 +1,7 @@
 """Neural-network layer functions (ref: python/paddle/fluid/layers/nn.py;
-paddle_tpu/layers/nn.py:25,52,71,182,234,275,356,370,388,510,691,736,776-793,
-842,849,857,867,900,937,983,1008,1049,1057,1161,1573-1615,1955).
+paddle_tpu/layers/nn.py:25,52,71,182,234,275,356,370,388,510,578,691,736,
+776-793,842,849,857,867,900,937,983,1008,1049,1057,1161,1573-1615,
+1685-1750,1827-1920,1955).
 
 The port's copies of the layers the serving and training slices need. Each appends the
 same ops with the same attrs and names as its paddle_tpu counterpart, so a
@@ -22,8 +23,12 @@ __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
            'fused_multihead_attention', 'matmul',
            'softmax_with_cross_entropy', 'reduce_sum', 'mean', 'softmax',
            'topk', 'pad', 'cast', 'concat', 'square_error_cost',
-           'add_position_encoding', 'scale', 'slice', 'gather', 'kv_cache_write',
-           'kv_cache_prefill_write', 'kv_cache_attention']
+           'add_position_encoding', 'scale', 'slice', 'gather', 'clip',
+           'kv_cache_write', 'kv_cache_prefill_write', 'kv_cache_attention',
+           'kv_block_write', 'kv_block_attention', 'kv_block_chunk_write',
+           'kv_block_chunk_attention', 'kv_cache_verify_write',
+           'kv_cache_verify_attention', 'kv_block_verify_write',
+           'kv_block_verify_attention']
 
 
 def _single(v, n):
@@ -423,28 +428,28 @@ def gather(input, index):
     return out
 
 
+def clip(x, min, max, name=None):
+    """x clamped to [min, max] (ref nn.py clip; paddle_tpu/layers/nn.py:578)."""
+    helper = LayerHelper('clip', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type='clip', inputs={'X': x}, outputs={'Out': out},
+                     attrs={'min': min, 'max': max})
+    return out
+
 def kv_cache_write(cache, kv, pos):
     """Write one decode step's K or V rows [max_slots, d] into the
     persistable slot-paged `cache` [max_slots, max_cache_len, d] at each
     slot's `pos` (int32 [max_slots] or [max_slots, 1]). The output is
     `cache` itself (the ParamOut==Param discipline): the op updates it in
     place and returns it (paddle_tpu/layers/nn.py:1573)."""
-    helper = LayerHelper('kv_cache_write')
-    helper.append_op(type='kv_cache_write',
-                     inputs={'Cache': cache, 'KV': kv, 'Pos': pos},
-                     outputs={'Out': cache}, attrs={})
-    return cache
+    return _write_op('kv_cache_write', cache, {'KV': kv, 'Pos': pos})
 
 
 def kv_cache_prefill_write(cache, kv, slot):
     """Write a whole prompt's K or V rows [1, bucket_len, d] into ONE slot
     of the paged `cache` (int32 `slot`, shape [1] or [1, 1]), in place like
     kv_cache_write (paddle_tpu/layers/nn.py:1588)."""
-    helper = LayerHelper('kv_cache_prefill_write')
-    helper.append_op(type='kv_cache_prefill_write',
-                     inputs={'Cache': cache, 'KV': kv, 'Slot': slot},
-                     outputs={'Out': cache}, attrs={})
-    return cache
+    return _write_op('kv_cache_prefill_write', cache, {'KV': kv, 'Slot': slot})
 
 
 def kv_cache_attention(query, k_cache, v_cache, pos, n_head, scale=None):
@@ -452,13 +457,102 @@ def kv_cache_attention(query, k_cache, v_cache, pos, n_head, scale=None):
     [max_slots, d] attends rows j <= pos of its own slot, heads split
     inside the op; returns the merged context [max_slots, d]
     (paddle_tpu/layers/nn.py:1599)."""
-    helper = LayerHelper('kv_cache_attention')
+    return _attention_op('kv_cache_attention', query,
+                         {'KCache': k_cache, 'VCache': v_cache, 'Pos': pos},
+                         n_head, scale)
+
+def _attention_op(type, query, inputs, n_head, scale):
+    """Append one of the cache attention ops; returns its output."""
+    helper = LayerHelper(type)
     out = helper.create_variable_for_type_inference(query.dtype)
-    helper.append_op(type='kv_cache_attention',
-                     inputs={'Q': query, 'KCache': k_cache,
-                             'VCache': v_cache, 'Pos': pos},
+    helper.append_op(type=type, inputs=dict(inputs, Q=query),
                      outputs={'Out': out},
                      attrs={'n_head': int(n_head),
                             'scale': float(scale or 0.0)})
     out.stop_gradient = True
     return out
+
+
+def _write_op(type, cache, inputs):
+    """Append one of the in-place cache writes; returns `cache`, the
+    post-write binding."""
+    helper = LayerHelper(type)
+    helper.append_op(type=type, inputs=dict(inputs, Cache=cache),
+                     outputs={'Out': cache}, attrs={})
+    return cache
+
+
+def kv_block_write(cache, kv, pos, block_table):
+    """Write one decode step's K or V rows [max_slots, d] into the block
+    pool `cache` [num_blocks, block_size, d] through each slot's row of
+    `block_table` [max_slots, max_blocks] int32 at `pos`; in place,
+    returns `cache` (paddle_tpu/layers/nn.py:1685)."""
+    return _write_op('kv_block_write', cache,
+                     {'KV': kv, 'Pos': pos, 'BlockTable': block_table})
+
+
+def kv_block_attention(query, k_cache, v_cache, pos, block_table,
+                       n_head, scale=None):
+    """One query row a slot [max_slots, d] attends its own slot's logical
+    block view rows j <= pos, gathered through `block_table`
+    (paddle_tpu/layers/nn.py:1700)."""
+    return _attention_op('kv_block_attention', query,
+                         {'KCache': k_cache, 'VCache': v_cache, 'Pos': pos,
+                          'BlockTable': block_table}, n_head, scale)
+
+
+def kv_block_chunk_write(cache, kv, start, block_table):
+    """Chunked-prefill write: one chunk's K or V rows [1, chunk, d] at
+    positions start..start+chunk-1 of one slot scatter into the pool
+    through its `block_table` row [1, max_blocks]; in place
+    (paddle_tpu/layers/nn.py:1721)."""
+    return _write_op('kv_block_chunk_write', cache,
+                     {'KV': kv, 'Start': start, 'BlockTable': block_table})
+
+
+def kv_block_chunk_attention(query, k_cache, v_cache, start, block_table,
+                             n_head, scale=None):
+    """Chunked-prefill attention: chunk row i ([1, chunk, d] `query`)
+    attends the slot's block view rows j <= start + i
+    (paddle_tpu/layers/nn.py:1734)."""
+    return _attention_op('kv_block_chunk_attention', query,
+                         {'KCache': k_cache, 'VCache': v_cache,
+                          'Start': start, 'BlockTable': block_table},
+                         n_head, scale)
+
+
+def kv_cache_verify_write(cache, kv, pos):
+    """Write R = draft_k + 1 speculative K or V rows a slot ([max_slots,
+    R, d]) into the slot-paged `cache` at `pos` [max_slots, R] int32; pad
+    rows carry pos = max_cache_len and write nothing. In place
+    (paddle_tpu/layers/nn.py:1827)."""
+    return _write_op('kv_cache_verify_write', cache, {'KV': kv, 'Pos': pos})
+
+
+def kv_cache_verify_attention(query, k_cache, v_cache, pos, n_head,
+                              scale=None):
+    """Verify attention over the slot-paged cache: row i of `query`
+    [max_slots, R, d] attends its slot's rows j <= pos[s, i]
+    (paddle_tpu/layers/nn.py:1840)."""
+    return _attention_op('kv_cache_verify_attention', query,
+                         {'KCache': k_cache, 'VCache': v_cache, 'Pos': pos},
+                         n_head, scale)
+
+
+def kv_block_verify_write(cache, kv, pos, block_table):
+    """kv_cache_verify_write over the block pool: R speculative rows a
+    slot scatter through its `block_table` row; pad rows carry pos =
+    max_blocks * block_size and land in the trash block. In place
+    (paddle_tpu/layers/nn.py:1890)."""
+    return _write_op('kv_block_verify_write', cache,
+                     {'KV': kv, 'Pos': pos, 'BlockTable': block_table})
+
+
+def kv_block_verify_attention(query, k_cache, v_cache, pos, block_table,
+                              n_head, scale=None):
+    """kv_cache_verify_attention over the block pool: each slot's logical
+    view gathers through `block_table`, row i masks at j <= pos[s, i]
+    (paddle_tpu/layers/nn.py:1904)."""
+    return _attention_op('kv_block_verify_attention', query,
+                         {'KCache': k_cache, 'VCache': v_cache, 'Pos': pos,
+                          'BlockTable': block_table}, n_head, scale)

@@ -4,9 +4,10 @@ The port's copy of models/transformer.py:16-196 (post-LN residual blocks,
 sinusoid position encoding, as in the reference benchmark's Transformer):
 _split_heads, _merge_heads, multi_head_attention, _residual_ln, ffn,
 encoder_layer, decoder_layer, _embed and build_transformer_train,
-appending the same ops with the same names; and of :210-550, _pe_table
+appending the same ops with the same names; and of :210-929, _pe_table
 and build_decode_spec, the decode-serving programs of a decoder-only LM
-in the slot layout with an f32 cache.
+with an f32 cache, in the slot and the block-paged layout, with the
+speculative verify program.
 
 multi_head_attention takes the reference's two branches. With attention
 dropout 0 and no additive mask (or a causal one): one
@@ -193,13 +194,16 @@ def build_transformer_train(src_vocab=32000, trg_vocab=32000, max_len=256,
 
 
 # ---------------------------------------------------------------------------
-# Continuous-decode serving programs (models/transformer.py:200-550): a
+# Continuous-decode serving programs (models/transformer.py:200-929): a
 # decoder-only LM as the fixed-shape programs the decode-serving tier
-# (inference/decoding.py) runs: a PREFILL program per prompt-length bucket
-# (one request, causal self-attention over the bucket, its K/V rows written
-# into one slot of the paged cache) and a DECODE-STEP program (max_slots
-# requests, one token per slot per step, cache-aware attention through
-# ops/decode_ops.py). Every parameter is shared by name across the
+# (inference/decoding.py) runs. In the slot layout: a PREFILL program per
+# prompt-length bucket (one request, causal self-attention over the bucket,
+# its K/V rows written into one slot of the paged cache) and a DECODE-STEP
+# program (max_slots requests, one token per slot per step, cache-aware
+# attention through ops/decode_ops.py). In the block layout: the step
+# reads and writes a block pool through block tables, and prefill is one
+# CHUNK program per chunk size. With draft_k, a VERIFY program scores
+# draft_k + 1 rows a slot. Every parameter is shared by name across the
 # programs.
 # ---------------------------------------------------------------------------
 
@@ -227,16 +231,31 @@ def build_decode_spec(vocab=67, d_model=32, n_head=4, n_layer=2, d_ff=64,
       {'startup': Program,           # run ONCE to init the shared params
        'step':    {'program', 'feeds', 'samples', 'fetches'},
        'prefill': {bucket_len: {'program', 'feeds', 'samples', 'fetches'}},
-       'cache_vars': [names],        # paged KV state [S, T, d_model]
+       'cache_vars': [names],        # KV state, one K and one V a layer
        'max_slots', 'max_cache_len', 'eos_id', 'vocab', 'kv_cache_dtype'}
 
-    The slot layout with an f32 cache, op for op the reference's
-    (models/transformer.py:224). The reference's other tiers are not
-    ported yet and raise NotImplementedError: kv_cache_dtype='int8' (queue
-    1 item 8, the int8 tier), block_size (the block-paged layout with
-    chunked prefill; num_blocks and chunk_sizes belong to it), mp_shard
-    (the sharded block tier, item 10) and draft_k (the speculative verify
-    program, item 7's drafters).
+    Op for op the reference's (models/transformer.py:224), with an f32
+    cache. The slot layout's cache is [S, T, d_model].
+
+    block_size=N: the block-paged layout (models/transformer.py:553). The
+    cache is a pool [num_blocks, N, d_model] addressed through block
+    tables the serving tier feeds each dispatch (the step's
+    'block_tables' [S, max_blocks]); prefill is chunked, one program per
+    size in `chunk_sizes` (default: the prompt_buckets) under 'chunk'
+    instead of 'prefill'; num_blocks defaults to full capacity, S *
+    ceil(T / N) + 1 (block 0 is the trash block). The spec adds 'layout':
+    'block', 'block_size', 'num_blocks' and 'max_blocks_per_slot'.
+
+    draft_k=K: a verify program under 'verify' (and 'draft_k': K) scores
+    [S, K+1] token rows in one dispatch over the same cache, row i
+    attending j <= pos[s, i]. It is built last and shares every weight by
+    name, so the other programs and the startup are what a draft_k=0
+    build gives. Pad rows carry pos = T (slot layout: the write drops
+    them) or max_blocks * block_size (block layout: the trash block).
+
+    Not ported yet, each raising NotImplementedError:
+    kv_cache_dtype='int8' (the int8 KV tier, ROADMAP queue 1 item 6) and
+    mp_shard (the sharded decode tier, item 10).
     """
     import numpy as np
     PA = fluid.ParamAttr
@@ -248,24 +267,37 @@ def build_decode_spec(vocab=67, d_model=32, n_head=4, n_layer=2, d_ff=64,
                          'got %r' % (draft_k,))
     for what, given in (
             ("kv_cache_dtype='int8' (the int8 KV tier, ROADMAP queue 1 "
-             "item 8)", kv_cache_dtype == 'int8'),
-            ('block_size (the block-paged layout, ROADMAP queue 1 item 7)',
-             block_size is not None or num_blocks is not None
-             or chunk_sizes is not None),
+             "item 6)", kv_cache_dtype == 'int8'),
             ('mp_shard (the sharded decode tier, ROADMAP queue 1 item 10)',
-             bool(mp_shard)),
-            ('draft_k (the speculative verify program, ROADMAP queue 1 '
-             'item 7)', bool(draft_k))):
+             bool(mp_shard))):
         if given:
             raise NotImplementedError(
                 'build_decode_spec: %s is not ported yet; the port builds '
-                'the slot layout with an f32 cache' % what)
+                'the slot and block layouts with an f32 cache' % what)
     S, T, D = int(max_slots), int(max_cache_len), int(d_model)
     if D % n_head or D % 2:
         raise ValueError("d_model must be even and divisible by n_head")
-    buckets = sorted({int(b) for b in prompt_buckets})
-    if not buckets or buckets[0] < 1 or buckets[-1] > T:
-        raise ValueError("prompt_buckets must be in [1, max_cache_len]")
+    block = block_size is not None
+    if block:
+        BS = int(block_size)
+        if not 1 <= BS <= T:
+            raise ValueError("block_size must be in [1, max_cache_len]")
+        MAXB = -(-T // BS)                 # logical blocks a slot
+        NB = int(num_blocks) if num_blocks is not None else S * MAXB + 1
+        if NB < 2:
+            raise ValueError("num_blocks must be >= 2 (block 0 is the "
+                             "reserved trash block)")
+        chunks = sorted({int(c) for c in (chunk_sizes or prompt_buckets)})
+        if not chunks or chunks[0] < 1 or chunks[-1] > T:
+            raise ValueError("chunk_sizes must be in [1, max_cache_len]")
+        cache_shape = [NB, BS, D]
+        pad_pos = MAXB * BS                # a verify pad row: trash block
+    else:
+        buckets = sorted({int(b) for b in prompt_buckets})
+        if not buckets or buckets[0] < 1 or buckets[-1] > T:
+            raise ValueError("prompt_buckets must be in [1, max_cache_len]")
+        cache_shape = [S, T, D]
+        pad_pos = T                        # a verify pad row: dropped
     dh = D // n_head
     startup = fluid.Program()
     pe = _pe_table(T, D)
@@ -280,8 +312,8 @@ def build_decode_spec(vocab=67, d_model=32, n_head=4, n_layer=2, d_ff=64,
 
     def caches(i):
         zero = fluid.initializer.ConstantInitializer(0.0)
-        return (const_param('kv_k_%d' % i, [S, T, D], zero),
-                const_param('kv_v_%d' % i, [S, T, D], zero))
+        return (const_param('kv_k_%d' % i, cache_shape, zero),
+                const_param('kv_v_%d' % i, cache_shape, zero))
 
     def pe_param():
         return const_param(
@@ -296,7 +328,8 @@ def build_decode_spec(vocab=67, d_model=32, n_head=4, n_layer=2, d_ff=64,
 
     def block_tail(x, a, i, nfd):
         """The residual + LN + FFN tail; `nfd` = 1 (step, [S, D]) or 2
-        (prefill, [1, L, D]), the same [D]-shaped params either way."""
+        (prefill, chunk and verify, [*, L, D]), the same [D]-shaped params
+        either way."""
         x = fluid.layers.layer_norm(
             x + fluid.layers.fc(a, D, num_flatten_dims=nfd,
                                 param_attr=PA(name='l%d_o_w' % i),
@@ -318,18 +351,22 @@ def build_decode_spec(vocab=67, d_model=32, n_head=4, n_layer=2, d_ff=64,
                                    param_attr=PA(name='dec_emb_w'))
         return fluid.layers.scale(x, scale=float(D ** 0.5))
 
-    def out_logits(x):
-        return fluid.layers.fc(x, vocab, param_attr=PA(name='out_w'),
-                               bias_attr=False)
+    def out_logits(x, nfd=1):
+        return fluid.layers.fc(x, vocab, num_flatten_dims=nfd,
+                               param_attr=PA(name='out_w'), bias_attr=False)
+
+    def int_feed(name, shape, dtype='int32'):
+        # fully static shapes (append_batch_size=False): one shape a program
+        return fluid.layers.data(name=name, shape=shape,
+                                 append_batch_size=False, dtype=dtype)
 
     # ---- decode-step program: [S] slots advance one token ----------------
-    # fully static shapes (append_batch_size=False): one shape per program
     step_p = fluid.Program()
     with fluid.program_guard(step_p, startup):
-        tokens = fluid.layers.data(name='tokens', shape=[S, 1],
-                                   append_batch_size=False, dtype='int64')
-        pos = fluid.layers.data(name='pos', shape=[S, 1],
-                                append_batch_size=False, dtype='int32')
+        tokens = int_feed('tokens', [S, 1], 'int64')
+        pos = int_feed('pos', [S, 1])
+        if block:
+            tables = int_feed('block_tables', [S, MAXB])
         table = pe_param()
         x = embed(tokens)                                       # [S, D]
         x = fluid.layers.elementwise_add(x,
@@ -339,25 +376,42 @@ def build_decode_spec(vocab=67, d_model=32, n_head=4, n_layer=2, d_ff=64,
             # the per-op random streams, as in the reference
             kcache, vcache = caches(i)
             q, k, v = qkv(x, i, 1)
-            kcache = fluid.layers.kv_cache_write(kcache, k, pos)
-            vcache = fluid.layers.kv_cache_write(vcache, v, pos)
-            a = fluid.layers.kv_cache_attention(q, kcache, vcache, pos,
-                                                n_head)
+            if block:
+                kcache = fluid.layers.kv_block_write(kcache, k, pos, tables)
+                vcache = fluid.layers.kv_block_write(vcache, v, pos, tables)
+                a = fluid.layers.kv_block_attention(q, kcache, vcache, pos,
+                                                    tables, n_head)
+            else:
+                kcache = fluid.layers.kv_cache_write(kcache, k, pos)
+                vcache = fluid.layers.kv_cache_write(vcache, v, pos)
+                a = fluid.layers.kv_cache_attention(q, kcache, vcache, pos,
+                                                    n_head)
             x = block_tail(x, a, i, 1)
         step_logits = out_logits(x)                             # [S, V]
+    step_feeds = ['tokens', 'pos'] + (['block_tables'] if block else [])
+    step_samples = {'tokens': np.zeros((S, 1), np.int64),
+                    'pos': np.zeros((S, 1), np.int32)}
+    if block:
+        step_samples['block_tables'] = np.zeros((S, MAXB), np.int32)
 
-    # ---- prefill programs: one request, bucketed by prompt length --------
+    def last_logits(x, n, length):
+        """Logits at the last real row of [1, n, D] `x` (`length` [1, 1]
+        int32): the rows past it hold pad garbage."""
+        flat = fluid.layers.reshape(x, shape=[n, D])
+        last = fluid.layers.gather(
+            flat, fluid.layers.elementwise_sub(
+                length, fluid.layers.fill_constant([1], 'int32', 1)))
+        return out_logits(last)                                 # [1, V]
+
+    # ---- prefill programs (slot layout): one request, bucketed by prompt
+    # length ---------------------------------------------------------------
     prefills = {}
-    for L in buckets:
+    for L in ([] if block else buckets):
         pp = fluid.Program()
         with fluid.program_guard(pp, startup):
-            prompt = fluid.layers.data(name='prompt_ids', shape=[1, L],
-                                       append_batch_size=False,
-                                       dtype='int64')
-            plen = fluid.layers.data(name='prompt_len', shape=[1, 1],
-                                     append_batch_size=False, dtype='int32')
-            slot = fluid.layers.data(name='slot', shape=[1, 1],
-                                     append_batch_size=False, dtype='int32')
+            prompt = int_feed('prompt_ids', [1, L], 'int64')
+            plen = int_feed('prompt_len', [1, 1])
+            slot = int_feed('slot', [1, 1])
             table = pe_param()
             x = embed(prompt)                                   # [1, L, D]
             pe_l = fluid.layers.slice(table, axes=[0], starts=[0],
@@ -388,13 +442,7 @@ def build_decode_spec(vocab=67, d_model=32, n_head=4, n_layer=2, d_ff=64,
                     fluid.layers.transpose(ctxv, perm=[0, 2, 1, 3]),
                     shape=[1, L, D])
                 x = block_tail(x, a, i, 2)
-            # logits at the last real prompt position (the padded rows past
-            # prompt_len hold garbage the decode step overwrites first)
-            flat = fluid.layers.reshape(x, shape=[L, D])
-            last = fluid.layers.gather(
-                flat, fluid.layers.elementwise_sub(
-                    plen, fluid.layers.fill_constant([1], 'int32', 1)))
-            pre_logits = out_logits(last)                       # [1, V]
+            pre_logits = last_logits(x, L, plen)
         prefills[L] = {
             'program': pp,
             'feeds': ['prompt_ids', 'prompt_len', 'slot'],
@@ -403,14 +451,113 @@ def build_decode_spec(vocab=67, d_model=32, n_head=4, n_layer=2, d_ff=64,
                         'slot': np.zeros((1, 1), np.int32)},
             'fetches': [pre_logits.name]}
 
-    return {'startup': startup,
-            'step': {'program': step_p,
-                     'feeds': ['tokens', 'pos'],
-                     'samples': {'tokens': np.zeros((S, 1), np.int64),
-                                 'pos': np.zeros((S, 1), np.int32)},
+    # ---- chunked-prefill programs (block layout): one chunk of one prompt,
+    # attending the earlier chunks and shared prefix blocks through the
+    # slot's table --------------------------------------------------------
+    chunk_progs = {}
+    for C in (chunks if block else []):
+        cp = fluid.Program()
+        with fluid.program_guard(cp, startup):
+            chunk_ids = int_feed('chunk_ids', [1, C], 'int64')
+            start = int_feed('start', [1, 1])
+            clen = int_feed('chunk_len', [1, 1])
+            btab = int_feed('block_table', [1, MAXB])
+            table = pe_param()
+            x = embed(chunk_ids)                               # [1, C, D]
+            cidx = fluid.layers.range(0, C, 1, 'int32')        # [C]
+            posv = fluid.layers.elementwise_add(
+                cidx, fluid.layers.reshape(start, shape=[1]))
+            # a final slice's pad rows may run past the PE table (the
+            # reference's gather fills them with NaN, the port's refuses
+            # the index): clamp the gather's index only, as the verify
+            # program does; the writes still route rows past the table's
+            # span to the trash block
+            pe_idx = fluid.layers.clip(posv, 0, T - 1, name='chunk_pe_idx')
+            pe_c = fluid.layers.gather(table, pe_idx)          # [C, D]
+            x = fluid.layers.elementwise_add(
+                x, fluid.layers.reshape(pe_c, shape=[1, C, D]))
+            for i in range(n_layer):
+                kcache, vcache = caches(i)
+                q, k, v = qkv(x, i, 2)
+                kcache = fluid.layers.kv_block_chunk_write(kcache, k, start,
+                                                           btab)
+                vcache = fluid.layers.kv_block_chunk_write(vcache, v, start,
+                                                           btab)
+                a = fluid.layers.kv_block_chunk_attention(
+                    q, kcache, vcache, start, btab, n_head)
+                x = block_tail(x, a, i, 2)
+            # the scheduler reads them only from a prompt's final chunk
+            chunk_logits = last_logits(x, C, clen)
+        chunk_progs[C] = {
+            'program': cp,
+            'feeds': ['chunk_ids', 'start', 'chunk_len', 'block_table'],
+            'samples': {'chunk_ids': np.zeros((1, C), np.int64),
+                        'start': np.zeros((1, 1), np.int32),
+                        'chunk_len': np.ones((1, 1), np.int32),
+                        'block_table': np.zeros((1, MAXB), np.int32)},
+            'fetches': [chunk_logits.name]}
+
+    # ---- verify program, built LAST so the op-creation order of the
+    # programs above (and so the weights the startup draws) is unchanged:
+    # [S, R] rows (R = draft_k + 1) score in one dispatch ------------------
+    verify = None
+    if draft_k:
+        R = int(draft_k) + 1
+        vp = fluid.Program()
+        with fluid.program_guard(vp, startup):
+            vtok = int_feed('tokens', [S, R], 'int64')
+            vpos = int_feed('pos', [S, R])
+            if block:
+                vtab = int_feed('block_tables', [S, MAXB])
+            table = pe_param()
+            x = embed(vtok)                                 # [S, R, D]
+            # pad rows carry a position past the PE table: clamp the
+            # gather's index only (the writes keep the pad encoding)
+            pe_idx = fluid.layers.clip(vpos, 0, T - 1)
+            pe_r = fluid.layers.gather(table, pe_idx)       # [S*R, D]
+            x = fluid.layers.elementwise_add(
+                x, fluid.layers.reshape(pe_r, shape=[S, R, D]))
+            for i in range(n_layer):
+                kcache, vcache = caches(i)
+                q, k, v = qkv(x, i, 2)
+                if block:
+                    kcache = fluid.layers.kv_block_verify_write(
+                        kcache, k, vpos, vtab)
+                    vcache = fluid.layers.kv_block_verify_write(
+                        vcache, v, vpos, vtab)
+                    a = fluid.layers.kv_block_verify_attention(
+                        q, kcache, vcache, vpos, vtab, n_head)
+                else:
+                    kcache = fluid.layers.kv_cache_verify_write(
+                        kcache, k, vpos)
+                    vcache = fluid.layers.kv_cache_verify_write(
+                        vcache, v, vpos)
+                    a = fluid.layers.kv_cache_verify_attention(
+                        q, kcache, vcache, vpos, n_head)
+                x = block_tail(x, a, i, 2)
+            verify_logits = out_logits(x, nfd=2)            # [S, R, V]
+        vsamples = {'tokens': np.zeros((S, R), np.int64),
+                    'pos': np.full((S, R), pad_pos, np.int32)}
+        if block:
+            vsamples['block_tables'] = np.zeros((S, MAXB), np.int32)
+        verify = {'program': vp, 'feeds': list(step_feeds),
+                  'samples': vsamples, 'fetches': [verify_logits.name]}
+
+    spec = {'startup': startup,
+            'step': {'program': step_p, 'feeds': step_feeds,
+                     'samples': step_samples,
                      'fetches': [step_logits.name]},
-            'prefill': prefills,
             'cache_vars': list(cache_vars),
             'max_slots': S, 'max_cache_len': T,
             'eos_id': int(eos_id), 'vocab': int(vocab),
             'kv_cache_dtype': kv_cache_dtype}
+    if block:
+        spec.update({'layout': 'block', 'block_size': BS,
+                     'num_blocks': NB, 'max_blocks_per_slot': MAXB,
+                     'chunk': chunk_progs})
+    else:
+        spec['prefill'] = prefills
+    if verify is not None:
+        spec['verify'] = verify
+        spec['draft_k'] = int(draft_k)
+    return spec

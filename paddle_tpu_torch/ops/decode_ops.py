@@ -1,20 +1,38 @@
-"""KV-cache op lowerings of continuous decode serving: kv_cache_write,
-kv_cache_prefill_write and kv_cache_attention (ref:
-paddle_tpu/ops/decode_ops.py:456-537).
+"""KV-cache op lowerings of continuous decode serving (ref:
+paddle_tpu/ops/decode_ops.py:456-537, 619-775, 898-1028): the slot
+layout's kv_cache_write, kv_cache_prefill_write and kv_cache_attention;
+the block layout's kv_block_write, kv_block_attention,
+kv_block_chunk_write and kv_block_chunk_attention; and the speculative
+verify ops of both layouts, kv_cache_verify_write,
+kv_cache_verify_attention, kv_block_verify_write and
+kv_block_verify_attention. All f32; the int8 (`*_quant`) variants are not
+ported.
 
 The decode-serving tier (inference/decoding.py) runs a decoder-only LM as
-fixed-shape programs over a preallocated slot-paged KV cache
-[max_slots, max_cache_len, d_model] held as persistable state: a bucketed
-prefill program writes a whole prompt's K/V rows into one slot, and a
-decode-step program advances every slot by one token.
+fixed-shape programs over a preallocated KV cache held as persistable
+state. In the slot layout the cache is [max_slots, max_cache_len,
+d_model]: a bucketed prefill program writes a whole prompt's K/V rows
+into one slot, and a decode-step program advances every slot by one
+token. In the block layout it is a pool [num_blocks, block_size, d_model]
+addressed through per-slot block tables (int32 [*, max_blocks]) that the
+scheduler feeds each dispatch: logical position p of a slot lives at
+cache[table[p // bs], p % bs]. Prefill is chunked there (one program per
+chunk size), and physical block 0 is the trash block, where idle and pad
+rows scatter and which no table maps into an attention window. A verify
+program scores R = draft_k + 1 rows per slot in one dispatch.
 
-- The two writes update the cache tensor in place (index_put_ /
-  index_copy_), as their Out aliases Cache: nothing of [S, T, D] is
-  copied per write. Their starts map as jax.lax.dynamic_update_slice
-  maps them (_dus_start): a negative start counts from the end, then the
-  start clamps so that the update fits. A step position at or above T
-  writes row T-1, a prefill slot at or above S writes slot S-1. No index
-  ever leaves the tensor.
+- The writes update the cache tensor in place (index_put_ /
+  index_copy_), as their Out aliases Cache: nothing of the cache is
+  copied per write. The slot writes' starts map as
+  jax.lax.dynamic_update_slice maps them (_dus_start): a negative start
+  counts from the end, then the start clamps so that the update fits. A
+  step position at or above T writes row T-1, a prefill slot at or above
+  S writes slot S-1. No index ever leaves the tensor.
+- A block write's row whose position lies past the table's logical span
+  (a chunk's pad rows past max_cache_len, a verify pad row at
+  max_blocks * block_size) lands in the trash block, as in the reference
+  (_block_scatter_idx). A slot-layout verify pad row (position T) writes
+  nothing, as the reference's out-of-bounds scatter drops it.
 - The attention is plain torch (einsum, masked_fill, softmax), as the
   reference's is plain jnp: no Pallas kernel stands behind it, so no
   hand-written one does here. Rows j > pos are set to -inf before the
@@ -22,7 +40,10 @@ decode-step program advances every slot by one token.
   masked or foreign rows cannot move an active slot's output. Every
   product keeps a slot's rows apart from the others' (the slot is a batch
   dim of each einsum), so a slot's outputs do not depend on which other
-  requests share the step: the continuous-batching contract.
+  requests share the step: the continuous-batching contract. The block
+  attention gathers each slot's logical view through its table and runs
+  the slot layout's expression on it, and a verify row i runs that
+  expression with its own frontier pos[s, i].
 """
 from __future__ import annotations
 
@@ -66,16 +87,12 @@ def _kv_cache_prefill_write(ctx, ins):
     return {'Out': [cache]}
 
 
-@register('kv_cache_attention', no_grad=True)
-def _kv_cache_attention(ctx, ins):
-    """Q [S, D], KCache/VCache [S, T, D], Pos [S] int: each slot's query
-    attends its own cache rows j <= Pos[s] (already written this step),
-    heads split inside the op (attr n_head), scale the attr or dh^-0.5.
-    Out [S, D] in Q's dtype."""
-    q = ins['Q'][0]
-    kc = ins['KCache'][0]
-    vc = ins['VCache'][0]
-    pos = ins['Pos'][0].reshape(-1).long()
+def _paged_attention_body(ctx, q, kc, vc, pos):
+    """The masked attention of one query row a slot: Q [S, D] attends its
+    slot's cache rows j <= Pos[s] (KCache/VCache [S, T, D]), heads split
+    inside (attr n_head), scale the attr or dh^-0.5. Out [S, D] in Q's
+    dtype. Shared by the slot and block ops, so a slot's output is the same
+    however its history is paged."""
     n_head = int(ctx.attr('n_head', 1))
     s, t, d = kc.shape
     dh = d // n_head
@@ -88,4 +105,220 @@ def _kv_cache_attention(ctx, ins):
     scores = scores.masked_fill(~valid[:, None, :], float('-inf'))
     w = torch.softmax(scores, dim=-1)
     ctxv = torch.einsum('sht,sthd->shd', w, vh)
-    return {'Out': [ctxv.reshape(s, d).to(q.dtype)]}
+    return ctxv.reshape(s, d).to(q.dtype)
+
+
+@register('kv_cache_attention', no_grad=True)
+def _kv_cache_attention(ctx, ins):
+    """Q [S, D], KCache/VCache [S, T, D], Pos [S] int: each slot's query
+    attends its own cache rows j <= Pos[s] (already written this step).
+    Out [S, D] in Q's dtype."""
+    pos = ins['Pos'][0].reshape(-1).long()
+    return {'Out': [_paged_attention_body(ctx, ins['Q'][0], ins['KCache'][0],
+                                          ins['VCache'][0], pos)]}
+
+
+# -- block layout ------------------------------------------------------------
+def _block_view(cache, table):
+    """Each row's logically ordered view of the block pool: cache [NB, BS,
+    D], table [R, MAXB] int -> [R, MAXB * BS, D] (view row j is logical
+    position j)."""
+    r, maxb = table.shape
+    v = cache.index_select(0, table.reshape(-1).long())
+    return v.reshape((r, maxb * cache.shape[1]) + tuple(cache.shape[2:]))
+
+
+def _block_scatter_idx(table, pos, bs):
+    """(physical block, offset in the block) of each row: table [R, MAXB],
+    pos [R] int -> (bidx [R], boff [R]) int64. A row whose table entry is
+    the trash block lands in block 0, and so does a row whose position
+    lies past the table's logical span (a chunk's pad rows past
+    max_cache_len): clamping the table lookup would give the last
+    column's block, a real one when the table is full."""
+    pos = pos.long()
+    lblk = torch.div(pos, bs, rounding_mode='floor')
+    boff = pos - lblk * bs
+    maxb = table.shape[1]
+    bidx = table.long().gather(1, lblk.clamp(0, maxb - 1)[:, None])[:, 0]
+    bidx = torch.where(lblk < maxb, bidx, torch.zeros_like(bidx))
+    return bidx, boff
+
+
+@register('kv_block_write', no_grad=True)
+def _kv_block_write(ctx, ins):
+    """Cache [NB, BS, D], KV [S, D], Pos [S] or [S, 1] int, BlockTable [S,
+    MAXB] int: slot s's row scatters to (table[s][Pos // BS], Pos % BS),
+    in place. The scheduler makes every real write block uniquely owned
+    (copy on write), so real rows never collide; idle slots all write the
+    trash block, which nothing reads. Out is Cache."""
+    cache = ins['Cache'][0]
+    kv = ins['KV'][0]
+    pos = ins['Pos'][0].reshape(-1)
+    bidx, boff = _block_scatter_idx(ins['BlockTable'][0], pos,
+                                    cache.shape[1])
+    cache.index_put_((bidx, boff), kv.reshape(bidx.shape[0], -1)
+                     .to(cache.dtype))
+    return {'Out': [cache]}
+
+
+@register('kv_block_attention', no_grad=True)
+def _kv_block_attention(ctx, ins):
+    """kv_cache_attention over the block pool: Q [S, D], KCache/VCache
+    [NB, BS, D], Pos [S] int, BlockTable [S, MAXB] int. Each slot attends
+    its table's logical view rows j <= Pos[s]; foreign blocks and trash
+    rows get exactly zero weight. Out [S, D]."""
+    table = ins['BlockTable'][0]
+    pos = ins['Pos'][0].reshape(-1).long()
+    kview = _block_view(ins['KCache'][0], table)
+    vview = _block_view(ins['VCache'][0], table)
+    return {'Out': [_paged_attention_body(ctx, ins['Q'][0], kview, vview,
+                                          pos)]}
+
+
+def _chunk_attention_body(ctx, q, kview, vview, start, d):
+    """Chunked-prefill attention of one slot: q [1, C, D] (chunk rows at
+    positions start + i), kview/vview [T', D] the slot's logical view. Row
+    i attends j <= start + i: causal in the chunk and over everything
+    written before it (earlier chunks, shared prefix blocks). Out [1, C,
+    D]."""
+    n_head = int(ctx.attr('n_head', 1))
+    c = q.shape[1]
+    t = kview.shape[0]
+    dh = d // n_head
+    scale = float(ctx.attr('scale', 0.0) or 0.0) or dh ** -0.5
+    qh = q.reshape(c, n_head, dh)
+    kh = kview.reshape(t, n_head, dh)
+    vh = vview.reshape(t, n_head, dh)
+    scores = torch.einsum('chd,thd->cht', qh, kh) * scale
+    start = start.reshape(()).long()
+    valid = (torch.arange(t, device=q.device)[None, :]
+             <= start + torch.arange(c, device=q.device)[:, None])
+    scores = scores.masked_fill(~valid[:, None, :], float('-inf'))
+    w = torch.softmax(scores, dim=-1)
+    ctxv = torch.einsum('cht,thd->chd', w, vh)
+    return ctxv.reshape(1, c, d).to(q.dtype)
+
+
+@register('kv_block_chunk_write', no_grad=True)
+def _kv_block_chunk_write(ctx, ins):
+    """Cache [NB, BS, D], KV [1, C, D], Start [1, 1] int, BlockTable [1,
+    MAXB] int: the chunk's rows at positions Start..Start+C-1 of one slot
+    scatter into the pool through its table, in place. Rows past the
+    chunk's true length carry pad garbage into the slot's own tail block
+    (or the trash block past its allocated span), which a decode step
+    overwrites before any mask admits it. Out is Cache."""
+    cache = ins['Cache'][0]
+    kv = ins['KV'][0]
+    table = ins['BlockTable'][0]
+    c = kv.shape[1]
+    pos = (ins['Start'][0].reshape(()).long()
+           + torch.arange(c, device=table.device))
+    bidx, boff = _block_scatter_idx(table.reshape(1, -1).expand(c, -1), pos,
+                                    cache.shape[1])
+    cache.index_put_((bidx, boff), kv[0].to(cache.dtype))
+    return {'Out': [cache]}
+
+
+@register('kv_block_chunk_attention', no_grad=True)
+def _kv_block_chunk_attention(ctx, ins):
+    """Q [1, C, D] chunk rows of one slot attend its logical view
+    (KCache/VCache [NB, BS, D] through BlockTable [1, MAXB]) rows j <=
+    Start + i. Out [1, C, D]."""
+    kc = ins['KCache'][0]
+    table = ins['BlockTable'][0].reshape(1, -1)
+    kview = _block_view(kc, table)[0]
+    vview = _block_view(ins['VCache'][0], table)[0]
+    return {'Out': [_chunk_attention_body(ctx, ins['Q'][0], kview, vview,
+                                          ins['Start'][0], kc.shape[2])]}
+
+
+# -- speculative verify ------------------------------------------------------
+def _verify_attention_body(ctx, q, kc, vc, pos):
+    """Verify attention: Q [S, R, D] attends its slot's cache view
+    (KCache/VCache [S, T, D]) with a frontier a row: row i sees j <=
+    pos[s, i]. Row by row it is _paged_attention_body's expression. Out
+    [S, R, D]."""
+    n_head = int(ctx.attr('n_head', 1))
+    s, t, d = kc.shape
+    r = q.shape[1]
+    dh = d // n_head
+    scale = float(ctx.attr('scale', 0.0) or 0.0) or dh ** -0.5
+    qh = q.reshape(s, r, n_head, dh)
+    kh = kc.reshape(s, t, n_head, dh)
+    vh = vc.reshape(s, t, n_head, dh)
+    scores = torch.einsum('srhd,sthd->srht', qh, kh) * scale
+    valid = (torch.arange(t, device=q.device)[None, None, :]
+             <= pos[:, :, None])
+    scores = scores.masked_fill(~valid[:, :, None, :], float('-inf'))
+    w = torch.softmax(scores, dim=-1)
+    ctxv = torch.einsum('srht,sthd->srhd', w, vh)
+    return ctxv.reshape(s, r, d).to(q.dtype)
+
+
+@register('kv_cache_verify_write', no_grad=True)
+def _kv_cache_verify_write(ctx, ins):
+    """Cache [S, T, D], KV [S, R, D], Pos [S, R] int: row (s, i) becomes
+    cache[s, Pos[s, i]], in place. A negative position counts from the
+    end; a pad row (position T or beyond) writes nothing, as the
+    reference's out-of-bounds scatter drops it. Here a pad row writes back
+    the value already at the first position of its slot that no real row
+    of this call writes (one exists while R < T, as draft_k <=
+    max_cache_len - 2 makes it), so every write is of a fixed value and
+    the result does not depend on the order of duplicate indices. Out is
+    Cache."""
+    cache = ins['Cache'][0]
+    kv = ins['KV'][0]
+    pos = ins['Pos'][0].long()
+    s, r = pos.shape
+    t = cache.shape[1]
+    pos = torch.where(pos < 0, pos + t, pos)
+    real = (pos >= 0) & (pos < t)
+    safe = torch.where(real, pos, torch.zeros_like(pos))
+    written = torch.zeros((s, t), dtype=torch.int32, device=cache.device)
+    written.scatter_add_(1, safe, real.to(torch.int32))
+    spare = (written == 0).to(torch.int32).argmax(dim=1)       # [S]
+    tgt = torch.where(real, pos, spare[:, None])
+    rows = torch.arange(s, device=cache.device)[:, None].expand(s, r)
+    vals = torch.where(real[:, :, None], kv.to(cache.dtype), cache[rows, tgt])
+    cache.index_put_((rows.reshape(-1), tgt.reshape(-1)),
+                     vals.reshape(s * r, -1))
+    return {'Out': [cache]}
+
+
+@register('kv_cache_verify_attention', no_grad=True)
+def _kv_cache_verify_attention(ctx, ins):
+    """Q [S, R, D], KCache/VCache [S, T, D], Pos [S, R] int: row i of a
+    slot attends its cache rows j <= Pos[s, i], the speculative rows this
+    dispatch wrote included. Out [S, R, D]."""
+    return {'Out': [_verify_attention_body(
+        ctx, ins['Q'][0], ins['KCache'][0], ins['VCache'][0],
+        ins['Pos'][0].long())]}
+
+
+@register('kv_block_verify_write', no_grad=True)
+def _kv_block_verify_write(ctx, ins):
+    """kv_cache_verify_write over the block pool: Cache [NB, BS, D], KV
+    [S, R, D], Pos [S, R] int, BlockTable [S, MAXB] int; each slot's table
+    serves its R rows. Pad rows carry position MAXB * BS, past the span,
+    so they land in the trash block. Out is Cache."""
+    cache = ins['Cache'][0]
+    kv = ins['KV'][0]
+    pos = ins['Pos'][0]
+    table = ins['BlockTable'][0]
+    s, r = pos.shape
+    wide = table[:, None, :].expand(s, r, table.shape[1]).reshape(s * r, -1)
+    bidx, boff = _block_scatter_idx(wide, pos.reshape(-1), cache.shape[1])
+    cache.index_put_((bidx, boff), kv.reshape(s * r, -1).to(cache.dtype))
+    return {'Out': [cache]}
+
+
+@register('kv_block_verify_attention', no_grad=True)
+def _kv_block_verify_attention(ctx, ins):
+    """kv_cache_verify_attention over the block pool: each slot's logical
+    view gathers through its table row, and row i masks at j <= Pos[s,
+    i]. Out [S, R, D]."""
+    table = ins['BlockTable'][0]
+    kview = _block_view(ins['KCache'][0], table)
+    vview = _block_view(ins['VCache'][0], table)
+    return {'Out': [_verify_attention_body(ctx, ins['Q'][0], kview, vview,
+                                           ins['Pos'][0].long())]}
