@@ -15,7 +15,7 @@ It builds the port's CUDA kernels from paddle_tpu_torch/csrc/ (bn_apply,
 flash_attn_fwd and flash_attn_bwd, one nvcc each, in parallel) and holds
 each against its plain PyTorch version on the card (bn_apply and its
 backward, which is plain torch, at batch 16 and 128, and in bf16 at 256).
-Then it drives twenty-five paths, with random weights from a seed, TF32 off
+Then it drives twenty-seven paths, with random weights from a seed, TF32 off
 and bf16 GEMMs reducing in f32:
 
 - ResNet-50 (depth 50, 224x224, 1000 classes) served through
@@ -84,6 +84,15 @@ and bf16 GEMMs reducing in f32:
   held against plain decode's; and the block artifact on the CPU against
   the card, chunk slices, steps and a verify dispatch teacher-forced (1e-3
   of the largest logit). No kernel launches on these paths.
+- bench.py:949-1030 bench_decode_serving_int8's design at decode-base:
+  the int8 KV cache (build_decode_spec(kv_cache_dtype='int8')) at 64
+  slots against the f32 cache at 32, same weights, in both layouts (the
+  block one with its verify program): the 64 prompts submitted at once
+  to each tier (tokens/s, cache bytes, occupancy, ITL, transcript_match
+  >= 0.85), a full-occupancy step profiled, a beam-3 request beside
+  greedy traffic (blocks copied on write), the int8 artifact on the CPU
+  against the card (margin rule), n-gram speculation on 8 prompts on the
+  int8 block pool (0 draft errors). No kernel launches.
 - the image-classification rows of bench.py (BENCHES, bench.py:1771-1790)
   as it runs them: build_train_net -> enable_bf16 -> Executor.run, 2
   warm-up and 10 timed steps on one fixed batch, for SmallNet at 32x32
@@ -107,6 +116,18 @@ and bf16 GEMMs reducing in f32:
   8 run() calls bit for bit); 32 concurrent submits to a single-bucket
   {32} artifact, each equal to its unbatched run bit for bit; each
   bucket's logits against the CPU's.
+- the same directory's int8 tier as bench.py:866-946
+  bench_resnet_serving_int8 serves it: one export_compiled(
+  quantize='int8') at buckets 1/8/32 calibrated on 2 batches of 32 writes
+  both tiers (54 ops quantized), each tier's run_batches slope at K = 8,
+  top-1 parity, 53 f32 bn_apply launches and one integer GEMM
+  (quant_ops.int8_gemm, torch._int_mm) per quantized op a batch at every
+  bucket, 64 concurrent batch-1 requests through
+  BatchingPredictor(tier='int8') each equal to its unbatched bucket-1
+  run bit for bit; and quantize_int8, conv2d_int8 and mul_int8 at every
+  ResNet-50 shape at bucket 32 (the FC also at 1 and 8) held against
+  their plain versions (the sums in float64, exact) and timed beside
+  cuDNN / cuBLAS in f32 and bf16.
 - the bf16 ResNet-50 training program above exported by
   export_train_step and trained by CompiledTrainer at batch 64: 3 steps
   equal to 3 Executor.run steps bit for bit (losses and every
@@ -170,9 +191,10 @@ from paddle_tpu_torch.models.bert import bert_mlm_logits, build_bert_pretrain
 from paddle_tpu_torch.models.resnet import build_train_net, resnet_imagenet
 from paddle_tpu_torch.models.transformer import (build_decode_spec,
                                                  build_transformer_train)
+from paddle_tpu_torch.core import registry as op_registry
 from paddle_tpu_torch.ops import bn_apply as bn_mod
 from paddle_tpu_torch.ops import flash_attention as fa
-from paddle_tpu_torch.ops import tensor_ops
+from paddle_tpu_torch.ops import quant_ops, tensor_ops
 from paddle_tpu_torch.core.lowering import TraceError
 
 SEED = 0
@@ -3260,13 +3282,19 @@ def decode_paths():
             t0 = time.perf_counter()
             phase_decode_block_gpu_vs_cpu(bd, decode_prompts)
             _phase_seconds('decode_block_gpu_vs_cpu', t0)
+            # bench_decode_serving_int8: the int8 cache at twice the slots
+            params = {n: decode_pred._scope.get(n) for n in dsig['params']}
+            int8_counts = phase_decode_int8(params, {'slot': d, 'block': bd},
+                                            decode_prompts)
+            del params
         decode_pred.close()
         del decode_pred
     torch.cuda.empty_cache()
     return {'decode_serving': decode_counts,
             'decode_block_serving': block_counts,
             'decode_prefix_sharing': prefix_counts,
-            'decode_spec': spec_counts}
+            'decode_spec': spec_counts,
+            'decode_int8': int8_counts}
 
 
 def _phase_seconds(label, t0):
@@ -4563,6 +4591,605 @@ def phase_verify_hook():
 
 
 
+# -- the int8 serving tier (bench.py:866-1030) -------------------------------
+INT8_BUCKETS = (1, 8, 32)        # bench_resnet_serving_int8's buckets
+INT8_CALIB_BATCHES = 2           # of the largest bucket's rows
+INT8_K = 8                       # the run_batches slope's K a tier
+INT8_REQUESTS = 64               # batch-1 requests through the batcher
+INT8_CHECK_ROWS = 2              # images held against the f64 plain sums
+INT8_SPEC_PROMPTS = 8            # n-gram speculation on the int8 block pool
+INT8_GATE_NEW = 8                # tokens of the int8 GPU-vs-CPU transcripts
+INT8_OPS_PER_S = 1979e12         # int8 tensor cores, dense
+INT8_MATCH_GATE = 0.85           # tests/test_quantize.py:431
+
+
+def _int8_ctx(attrs):
+    class _Ctx(object):
+        def attr(self, name, default=None):
+            return attrs.get(name, default)
+    return _Ctx()
+
+
+def _resnet_quant_shapes(program, batch):
+    """The quantizable ops of ResNet-50's inference program at `batch`:
+    {(type, x shape, w shape, strides, paddings): count} for conv2d and
+    mul (the FC, x flattened to [batch, K]), and {x shape: count} of the
+    activations they read (one quantize_int8 each: a shortcut and the
+    block's first conv share theirs), from the declared shapes."""
+    block = program.global_block()
+    ops, acts, seen = collections.Counter(), collections.Counter(), set()
+    for op in block.ops:
+        if op.type not in ('conv2d', 'mul'):
+            continue
+        slot, wslot = (('Input', 'Filter') if op.type == 'conv2d'
+                       else ('X', 'Y'))
+        x = op.input(slot)[0]
+        xs = (batch,) + tuple(block.var(x).shape[1:])
+        ws = tuple(block.var(op.input(wslot)[0]).shape)
+        if x not in seen:       # one quantize_int8 an activation
+            seen.add(x)
+            acts[xs] += 1
+        if op.type == 'mul':
+            ops[('mul', (batch, int(np.prod(xs[1:]))), ws, None, None)] += 1
+        else:
+            ops[('conv2d', xs, ws, tuple(op.attr('strides')),
+                 tuple(op.attr('paddings')))] += 1
+    return ops, acts
+
+
+def phase_int8_ops(program):
+    """quantize_int8, conv2d_int8 and mul_int8 on the card at every shape
+    ResNet-50 gives them at bucket 32 (the FC also at buckets 1 and 8),
+    each held against its plain version: conv2d_int8 and mul_int8's
+    outputs (the card's int32 sums, dequantized) on INT8_CHECK_ROWS rows
+    against the plain sums in float64 (exact for int8 products), converted
+    and scaled as the op scales them, bit for bit; quantize_int8 against
+    the CPU's run of the op, bit for bit. Then each op's time (CUDA
+    events) beside the f32 op of the tier (cuDNN / cuBLAS, TF32 off) and
+    the bf16 one at the same shapes, and the bound (bytes at the HBM rate
+    or int8 operations at 1979 TOP/s), summed over the batch's ops.
+    Returns the summary."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 40)
+    batch = max(INT8_BUCKETS)
+    ops, acts = _resnet_quant_shapes(program, batch)
+    for b in INT8_BUCKETS[:-1]:
+        for key, n in list(ops.items()):
+            if key[0] == 'mul':
+                ops[('mul', (b,) + key[1][1:]) + key[2:]] = 0
+    rows = collections.defaultdict(lambda: dict(
+        ms=0.0, f32_ms=0.0, bf16_ms=0.0, bound_ms=0.0, count=0, shapes=0))
+    worst = 0.0
+    lower = {t: op_registry.get(t).lower
+             for t in ('quantize_int8', 'conv2d_int8', 'mul_int8')}
+    for xs, n in sorted(acts.items()):
+        numel = int(np.prod(xs))
+        copies = max(2, math.ceil(2 * L2_BYTES / (numel * 4)))
+        xf = [torch.randn(xs, device='cuda', generator=gen)
+              for _ in range(copies)]
+        ctx = _int8_ctx({'scale': 0.0371})
+        got = lower['quantize_int8'](ctx, {'X': [xf[0]]})['Out'][0]
+        want = lower['quantize_int8'](ctx, {'X': [xf[0].cpu()]})['Out'][0]
+        check(torch.equal(got.cpu(), want), 'quantize_int8 on the card '
+              'differs from the CPU at %s' % (xs,))
+        ms = _time_ms(lambda x: lower['quantize_int8'](ctx, {'X': [x]}), xf)
+        bound = numel * 5 / HBM_BYTES_PER_S * 1e3
+        r = rows['quantize_int8']
+        r['ms'] += n * ms
+        r['bound_ms'] += n * bound
+        r['count'] += n
+        r['shapes'] += 1
+        print('int8_op quantize_int8 x=%s count=%d ms=%r bound_ms=%r '
+              '(bytes)' % (list(xs), n, ms, bound))
+        del xf
+    for (kind, xs, ws, st, pd), n in sorted(ops.items(),
+                                            key=lambda kv: str(kv[0])):
+        name = kind + '_int8'
+        numel = int(np.prod(xs))
+        copies = max(2, math.ceil(2 * L2_BYTES / numel))
+        xq = [torch.randint(-127, 128, xs, device='cuda', generator=gen,
+                            dtype=torch.int8) for _ in range(copies)]
+        w = torch.randint(-127, 128, ws, device='cuda', generator=gen,
+                          dtype=torch.int8)
+        scale = torch.rand(ws[0] if kind == 'conv2d' else ws[1],
+                           device='cuda', generator=gen) * 0.01 + 1e-3
+        if kind == 'conv2d':
+            attrs = {'in_scale': 0.0211, 'strides': list(st),
+                     'paddings': list(pd), 'dilations': [1, 1], 'groups': 1}
+            conv = (list(st), list(pd), [1, 1], 1)
+
+            def run(x):
+                return lower[name](_int8_ctx(attrs), {
+                    'Input': [x], 'Filter': [w], 'Scale': [scale]})[
+                        'Output'][0]
+
+            def plain(x):
+                return quant_ops.conv2d_int8_plain(
+                    x, w, *conv, dtype=torch.float64).float() * (
+                        0.0211 * scale).reshape(1, -1, 1, 1)
+            wf, wb = w.float(), w.bfloat16()
+
+            def f32(x):
+                return F.conv2d(x, wf, stride=st, padding=pd)
+
+            def bf16(x):
+                return F.conv2d(x, wb, stride=st, padding=pd)
+            out = run(xq[0])
+            mkn = (out.numel() // ws[0], ws[0], int(np.prod(ws[1:])))
+        else:
+            attrs = {'in_scale': 0.0211, 'x_num_col_dims': 1,
+                     'y_num_col_dims': 1}
+
+            def run(x):
+                return lower[name](_int8_ctx(attrs), {
+                    'X': [x], 'Y': [w], 'Scale': [scale]})['Out'][0]
+
+            def plain(x):
+                return quant_ops.mul_int8_plain(
+                    x, w, dtype=torch.float64).float() * (
+                        0.0211 * scale).reshape(1, -1)
+            wf, wb = w.float(), w.bfloat16()
+
+            def f32(x):
+                return torch.matmul(x, wf)
+
+            def bf16(x):
+                return torch.matmul(x, wb)
+            out = run(xq[0])
+            mkn = (xs[0], ws[1], ws[0])
+        k = INT8_CHECK_ROWS
+        want = plain(xq[0][:k])
+        got = out[:k]
+        err = (got - want).abs().max().item()
+        worst = max(worst, err)
+        check(torch.equal(got, want), '%s at x=%s w=%s: the card differs '
+              'from the f64 plain sums by %r' % (name, xs, ws, err))
+        calls = [0]
+
+        def counted(x):
+            calls[0] += 1
+            return run(x)
+        before = quant_ops.int8_gemm.launches
+        ms = _time_ms(counted, xq)
+        check(quant_ops.int8_gemm.launches - before == calls[0] > 0,
+              'the timing loop of %s did not dispatch one integer GEMM a '
+              'call' % name)
+        xf = [x.float() for x in xq[:2]]
+        f32_ms = _time_ms(f32, xf)
+        xb = [x.bfloat16() for x in xq[:2]]
+        bf16_ms = _time_ms(bf16, xb)
+        m, o, kk = mkn
+        nbytes = numel + w.numel() + out.numel() * 4
+        bound = max(nbytes / HBM_BYTES_PER_S,
+                    2.0 * m * o * kk / INT8_OPS_PER_S) * 1e3
+        if n:
+            r = rows[name]
+            for key, v in (('ms', ms), ('f32_ms', f32_ms),
+                           ('bf16_ms', bf16_ms), ('bound_ms', bound)):
+                r[key] += n * v
+            r['count'] += n
+            r['shapes'] += 1
+        print('int8_op %s x=%s w=%s stride=%s pad=%s count=%d ms=%r '
+              'f32_ms=%r bf16_ms=%r bound_ms=%r (%s) gemm=[%d, %d, %d]'
+              % (name, list(xs), list(ws), st, pd, n, ms, f32_ms, bf16_ms,
+                 bound, 'bytes' if nbytes / HBM_BYTES_PER_S
+                 > 2.0 * m * o * kk / INT8_OPS_PER_S else 'operations', m,
+                 o, kk))
+        del xq, xf, xb
+    torch.cuda.empty_cache()
+    summary = {k: dict(v) for k, v in rows.items()}
+    summary['max_abs_err'] = worst
+    print('int8_ops at bucket %d (sums over one ResNet-50 batch; f32_ms and '
+          'bf16_ms the library op of the f32 tier and its bf16 form): %s'
+          % (batch, json.dumps(summary)))
+    return summary
+
+
+def phase_resnet_int8_serving(dirname, n_bn):
+    """bench.py:866-946 bench_resnet_serving_int8 on the card, from the
+    served ResNet-50 directory (224x224, 1000 classes, f32): one
+    export_compiled at buckets 1/8/32 writes both tiers, the int8 one
+    calibrated on INT8_CALIB_BATCHES batches of 32 standard normal images
+    from RandomState(0) (a RuntimeWarning, the pipeline's fallback, fails
+    the phase); each tier's run_batches two-point slope at K = INT8_K
+    (bf16_ms, int8_ms, img/s and their ratio); top-1 parity of the tiers
+    over the calibration rows; exactly n_bn f32 bn_apply launches and one
+    integer GEMM dispatch per quantized op a batch, at every bucket;
+    INT8_REQUESTS concurrent batch-1 requests through
+    BatchingPredictor(tier='int8'), each equal bit for bit to
+    CompiledPredictor.run of that request through the int8 tier's bucket
+    1; each tier's peak memory over the calibration batches. Returns (the
+    launches over the batcher's batches, the summary, the saved program
+    for phase_int8_ops)."""
+    t0 = time.perf_counter()
+    big = max(INT8_BUCKETS)
+    rng = np.random.RandomState(0)
+    calib = [{'data': rng.randn(big, 3, 224, 224).astype(np.float32)}
+             for _ in range(INT8_CALIB_BATCHES)]
+    pred = fluid.inference.create_predictor(fluid.inference.Config(dirname))
+    adir = os.path.join(dirname, 'artifact_int8')
+    sweep = {}
+    calibrate = passes.calibrate_program
+
+    def timed_sweep(*a, **kw):
+        t1 = time.perf_counter()
+        out = calibrate(*a, **kw)
+        sweep['s'] = time.perf_counter() - t1
+        return out
+    passes.calibrate_program = timed_sweep
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter('error', RuntimeWarning)
+            export_compiled(pred, [calib[0]['data']], adir,
+                            batch_sizes=INT8_BUCKETS, quantize='int8',
+                            calibration=calib)
+    finally:
+        passes.calibrate_program = calibrate
+    export_s = time.perf_counter() - t0
+    with open(os.path.join(adir, 'signature.json')) as f:
+        top = json.load(f)
+    q = top['quantization']
+    with open(os.path.join(adir, 'int8', '__model__')) as f:
+        qtypes = collections.Counter(op['type'] for op in
+                                     json.load(f)['blocks'][0]['ops'])
+    print('resnet50_int8 export_s=%r calibration_s=%r tiers=%s '
+          'quantized_ops=%d float_ops=%d float_op_reasons=%s weight_bytes '
+          '%d -> %d; the int8 program: %s' % (
+              export_s, sweep.get('s'), top['tiers'], q['quantized_ops'],
+              len(q['float_ops']), json.dumps(q['float_op_reasons']),
+              q['weight_bytes_before'], q['weight_bytes_after'],
+              json.dumps(dict(qtypes))))
+    check(top['tiers'] == ['bf16', 'int8'] and q['quantized_ops'] == 54
+          and qtypes['conv2d_int8'] == 53 and qtypes['mul_int8'] == 1
+          and qtypes['batch_norm'] == n_bn and not qtypes['conv2d'],
+          'the int8 tier quantized %d ops: %s' % (q['quantized_ops'],
+                                                  dict(qtypes)))
+    raw = pred._program
+    del pred
+    torch.cuda.empty_cache()
+
+    tiers, out = {}, {}
+    batches = [[c['data']] for c in
+               (calib * (INT8_K // INT8_CALIB_BATCHES + 1))[:INT8_K]]
+    for tier in ('bf16', 'int8'):
+        p = CompiledPredictor(adir, tier=tier)
+        check(p.tier == tier and p.place == fluid.CUDAPlace(0),
+              'tier %s loaded as %s on %r' % (tier, p.tier, p.place))
+        p.run_batches(batches[:1])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launches()
+        quant_ops.reset_launches()
+        out[tier] = [p.run([c['data']])[0] for c in calib]
+        peak = torch.cuda.max_memory_allocated() - base
+        counts = read_launches()
+        gemms = quant_ops.int8_gemm.launches
+        n = len(calib)
+        want_gemms = q['quantized_ops'] * n if tier == 'int8' else 0
+        check(counts['bn_apply'] == n_bn * n
+              and read_launches_by_dtype()['bn_apply'].get('float32', 0)
+              == n_bn * n and gemms == want_gemms,
+              '%s tier: bn_apply %s, integer GEMMs %d over %d batches (want '
+              '%d and %d)' % (tier, read_launches_by_dtype()['bn_apply'],
+                              gemms, n, n_bn * n, want_gemms))
+
+        def run_k(kk, p=p):
+            p.run_batches(batches[:kk], group=kk)
+        ms = _slope_ms(run_k, INT8_K)
+        tiers[tier] = {'ms': ms, 'img_s': big / ms * 1e3,
+                       'peak_gb': peak / 2 ** 30,
+                       'launches': counts, 'int8_gemms': gemms}
+        print('resnet50_int8 tier=%s run_batches slope at bucket %d: '
+              'ms_per_batch=%r img_per_s=%r; %d batches: bn_apply %d f32, '
+              'integer GEMMs %d; peak allocated over them %.3f GB above '
+              'the loaded model' % (tier, big, ms, big / ms * 1e3, n,
+                                    counts['bn_apply'], gemms,
+                                    peak / 2 ** 30))
+        del p
+        torch.cuda.empty_cache()
+    agree = sum(int((a.argmax(1) == b.argmax(1)).sum())
+                for a, b in zip(out['bf16'], out['int8']))
+    total = sum(a.shape[0] for a in out['bf16'])
+    scale = max(float(np.abs(a).max()) for a in out['bf16'])
+    diff = max(float(np.abs(a - b).max())
+               for a, b in zip(out['bf16'], out['int8']))
+    check(all(np.isfinite(a).all() for a in out['int8']),
+          'int8 tier logits not finite')
+
+    # every bucket: one integer GEMM per quantized op a batch, bn_apply f32
+    reset_launches()
+    quant_ops.reset_launches()
+    bucket_runs = 0
+    for b in INT8_BUCKETS:
+        pb = CompiledPredictor(os.path.join(adir, 'int8', 'bucket_%05d' % b))
+        pb.run([calib[0]['data'][:b]])
+        bucket_runs += 1
+        del pb
+    counts = read_launches()
+    check(quant_ops.int8_gemm.launches == q['quantized_ops'] * bucket_runs
+          and quant_ops.int8_gemm.launches_by_op == {
+              'conv2d_int8': 53 * bucket_runs, 'mul_int8': bucket_runs}
+          and counts['bn_apply'] == n_bn * bucket_runs,
+          'int8 buckets: GEMMs %s, bn_apply %d over %d runs'
+          % (quant_ops.int8_gemm.launches_by_op, counts['bn_apply'],
+             bucket_runs))
+
+    # the batcher: INT8_REQUESTS concurrent batch-1 requests
+    rows = rng.randn(INT8_REQUESTS, 3, 224, 224).astype(np.float32)
+    one = CompiledPredictor(os.path.join(adir, 'int8', 'bucket_00001'))
+    solo = [one.run([rows[i:i + 1]])[0] for i in range(INT8_REQUESTS)]
+    del one
+    reset_launches()
+    quant_ops.reset_launches()
+    batcher = BatchingPredictor(adir, tier='int8',
+                                batch_timeout_ms=ARTIFACT_TIMEOUT_MS)
+    try:
+        check(batcher.tier == 'int8', 'batcher tier %s' % batcher.tier)
+        seen = _instrument(batcher)
+        t1 = time.perf_counter()
+        futs = [batcher.submit([rows[i:i + 1]])
+                for i in range(INT8_REQUESTS)]
+        got = [f.result(600)[0] for f in futs]
+        wall = time.perf_counter() - t1
+        snap = batcher.stats.snapshot()
+    finally:
+        batcher.close()
+    dispatched = sum(seen['batches'].values())
+    counts = read_launches()
+    differ = [i for i in range(INT8_REQUESTS)
+              if not np.array_equal(got[i], solo[i])]
+    print('resnet50_int8 batcher: %d concurrent batch-1 requests in %r s '
+          '(%r img/s), batches by bucket %s, occupancy %r, p50_ms %r, tier '
+          '%s; each equal to its unbatched bucket-1 run bit for bit: %d of '
+          '%d' % (INT8_REQUESTS, wall, INT8_REQUESTS / wall,
+                  json.dumps(dict(seen['batches'])), snap['occupancy'],
+                  snap['p50_ms'], snap['tier'], INT8_REQUESTS - len(differ),
+                  INT8_REQUESTS))
+    check(not differ and snap['tier'] == 'int8',
+          'batched int8 requests %s differ from their unbatched runs'
+          % differ)
+    check(quant_ops.int8_gemm.launches == q['quantized_ops'] * dispatched
+          and counts['bn_apply'] == n_bn * dispatched,
+          'batcher: %d integer GEMMs and %d bn_apply over %d batches'
+          % (quant_ops.int8_gemm.launches, counts['bn_apply'], dispatched))
+    ratio = tiers['bf16']['ms'] / tiers['int8']['ms']
+    summary = {'bf16_ms': tiers['bf16']['ms'], 'int8_ms': tiers['int8']['ms'],
+               'bf16_img_s': tiers['bf16']['img_s'],
+               'int8_img_s': tiers['int8']['img_s'],
+               'vs_bf16_tier': ratio, 'top1_parity': agree / total,
+               'max_logit_diff_over_max': diff / scale,
+               'quantized_ops': q['quantized_ops'],
+               'float_ops': len(q['float_ops']),
+               'calibration_s': sweep.get('s'), 'export_s': export_s,
+               'peak_gb': {t: tiers[t]['peak_gb'] for t in tiers},
+               'batcher_img_s': INT8_REQUESTS / wall}
+    print('resnet50_int8 %s' % json.dumps(summary))
+    return counts, summary, raw
+
+
+def _read_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def _decode_step_profile(pred, label):
+    """One full-occupancy step (every slot active at a random position of
+    the first 5/8 of the cache): host p50 over DECODE_PROFILE_STEPS
+    steps, device busy ms a step (profiler), the step's peak allocated
+    bytes above what was allocated before."""
+    S, T = pred.max_slots, DECODE['max_cache_len']
+    rng = np.random.RandomState(2)
+    tokens = rng.randint(2, DECODE['vocab'], (S, 1)).astype(np.int64)
+    pos = rng.randint(T // 8, T * 5 // 8, (S, 1)).astype(np.int32)
+    tables = None
+    if pred.layout == 'block':
+        maxb = pred._maxb
+        tables = (1 + np.arange(S * maxb, dtype=np.int32)).reshape(S, maxb)
+    for _ in range(3):
+        pred._dispatch_step(tokens, pos, tables)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(DECODE_PROFILE_STEPS):
+        t0 = time.perf_counter()
+        pred._dispatch_step(tokens, pos, tables)
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - base
+    per_kernel = _profile(lambda: pred._dispatch_step(tokens, pos, tables),
+                          label, 'steps', calls=DECODE_PROFILE_STEPS)
+    pred._reset_state()
+    busy = (sum(per_kernel.values()) / DECODE_PROFILE_STEPS
+            if per_kernel else None)
+    return {'host_p50_ms': float(np.percentile(times, 50)) * 1e3,
+            'device_busy_ms': busy, 'step_peak_gb': peak / 2 ** 30}
+
+
+def _beam_beside_greedy(pred, prompts, greedy_out):
+    """A beam-DECODE_BEAM request on prompts[0], solo and then beside 8
+    greedy requests (prompts[1:9]): its hypotheses and scores equal the
+    solo run's bit for bit, the greedy transcripts `greedy_out[1:9]`. In
+    the block layout the prefix cache is cleared before the second run
+    (a prefix hit would compute the prompt in other chunks, another
+    order of f32 sums), and blocks must be copied on write. Returns the
+    second run's stats."""
+    solo = pred.generate(prompts[0], max_new_tokens=DECODE_MAX_NEW,
+                         beam=DECODE_BEAM)
+    if pred.layout == 'block':
+        pred.block_manager.evict_all_prefixes()
+    pred.stats.reset()
+    beam = pred.submit(prompts[0], max_new_tokens=DECODE_MAX_NEW,
+                       beam=DECODE_BEAM)
+    greedy = [pred.submit(p, max_new_tokens=DECODE_MAX_NEW)
+              for p in prompts[1:9]]
+    ids, sc = beam.result(600)
+    check([s.result(600) for s in greedy] == greedy_out[1:9],
+          '%s: greedy beside a beam differs' % pred.layout)
+    snap = pred.stats.snapshot()
+    check(np.array_equal(ids, solo[0]) and np.array_equal(sc, solo[1]),
+          '%s: the beam beside greedy differs from its solo run'
+          % pred.layout)
+    check(pred.layout != 'block' or snap['cow_blocks'] > 0,
+          'the block beam copied no block on write')
+    print('decode-base int8 %s beam-%d beside %d greedy: equal to its solo '
+          'run (best score %r), cow_blocks %s' % (
+              pred.layout, DECODE_BEAM, len(greedy), float(sc[0]),
+              snap.get('cow_blocks')))
+    return snap
+
+
+def phase_decode_int8(params, fp_dirs, prompts):
+    """bench.py:949-1030 bench_decode_serving_int8's design at decode-base:
+    the fp tier (the f32 cache, 32 slots: the slot artifact and the block
+    one with its verify program) against the int8 tier at twice the slots
+    (build_decode_spec(kv_cache_dtype='int8', max_slots=64), the same
+    weights), in each layout: every prompt of DECODE_REQUESTS x
+    DECODE_MAX_NEW tokens submitted at once (tokens/s, occupancy, ITL
+    p50, cache_bytes, transcript_match of int8 against fp, gate
+    INT8_MATCH_GATE); a full-occupancy step timed and profiled; on the
+    int8 tier a beam-3 request beside greedy traffic (_beam_beside_greedy:
+    equal to its solo run; the block layout copies blocks on write), and
+    the int8 artifact served on the CPU against the card
+    (DECODE_GATE_PROMPTS prompts, INT8_GATE_NEW tokens, the margin rule);
+    in the block layout, n-gram speculation on
+    INT8_SPEC_PROMPTS prompts one at a time (0 draft errors, transcripts
+    equal plain int8 under the margin rule). The int8 cache at 64 slots
+    must take fewer bytes than the fp one at 32. No kernel of the port
+    launches. Returns the launches."""
+    reset_launches()
+    summary = {}
+    for layout, fp_dir, kw in (
+            ('slot', fp_dirs['slot'], {}),
+            ('block', fp_dirs['block'], dict(block_size=DECODE_BLOCK_SIZE,
+                                             draft_k=DECODE_DRAFT_K))):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as qdir:
+            qsig = build_decode_variant(
+                qdir, params, kv_cache_dtype='int8',
+                max_slots=2 * DECODE['max_slots'], **kw)
+            fp_sig = _read_json(os.path.join(fp_dir, 'decode_signature.json'))
+            print('decode-base int8 %s: slots %d (fp %d) cache_bytes %d (fp '
+                  '%d), state %s; build_init_export_s=%.1f' % (
+                      layout, qsig['max_slots'], fp_sig['max_slots'],
+                      qsig['cache_bytes'], fp_sig['cache_bytes'],
+                      json.dumps([(e['name'], e['dtype'], e['shape'])
+                                  for e in qsig['state'][:4]]),
+                      time.perf_counter() - t0))
+            check(qsig['kv_cache_dtype'] == 'int8'
+                  and qsig['max_slots'] == 2 * fp_sig['max_slots']
+                  and qsig['cache_bytes'] < fp_sig['cache_bytes'],
+                  'the int8 cache at %d slots takes %d bytes, the fp one at '
+                  '%d %d' % (qsig['max_slots'], qsig['cache_bytes'],
+                             fp_sig['max_slots'], fp_sig['cache_bytes']))
+            arms = {}
+            for tier, adir in (('fp', fp_dir), ('int8', qdir)):
+                pred = DecodingPredictor(adir)
+                try:
+                    pred.warmup()
+                    margins = _Margins(pred)
+                    out, streams, wall = _served(
+                        pred, prompts, DECODE_MAX_NEW, concurrent=True)
+                    snap = pred.stats.snapshot()
+                    n_tok = sum(len(t) for t in out)
+                    _arm_line('decode-base %s %s tier (%d slots, all %d '
+                              'requests at once)' % (layout, tier,
+                                                     pred.max_slots,
+                                                     len(prompts)),
+                              snap, n_tok, wall)
+                    check(snap['tier'] == ('int8' if tier == 'int8'
+                                           else 'bf16'),
+                          'stats tier %s' % snap['tier'])
+                    step = _decode_step_profile(
+                        pred, 'decode-base %s %s step, %d active slots'
+                        % (layout, tier, pred.max_slots))
+                    bsnap = {}
+                    if tier == 'int8':
+                        bsnap = _beam_beside_greedy(pred, prompts, out)
+                    arms[tier] = dict(out=out, streams=streams,
+                                      rec=margins.rec,
+                                      tokens_s=n_tok / wall, wall=wall,
+                                      occupancy=snap['occupancy'],
+                                      itl_p50_ms=snap['itl_p50_ms'],
+                                      ttft_p50_ms=snap['ttft_p50_ms'],
+                                      cow_blocks=bsnap.get('cow_blocks'),
+                                      **step)
+                    print('decode-base %s %s tier: step %s'
+                          % (layout, tier, json.dumps(step)))
+                finally:
+                    pred.close()
+                del pred
+                torch.cuda.empty_cache()
+            fp, q8 = arms['fp'], arms['int8']
+            match = float(np.mean([
+                np.mean(np.asarray(a[:min(len(a), len(b))])
+                        == np.asarray(b[:min(len(a), len(b))]))
+                for a, b in zip(fp['out'], q8['out'])]))
+            check(match >= INT8_MATCH_GATE, '%s transcript_match %r below %r'
+                  % (layout, match, INT8_MATCH_GATE))
+
+            # the int8 artifact on the CPU against the card
+            t1 = time.perf_counter()
+            gate = list(range(DECODE_GATE_PROMPTS))
+            with DecodingPredictor(qdir, place=fluid.CPUPlace()) as cpu:
+                cpu_out, _, _ = _served(cpu, [prompts[i] for i in gate],
+                                        INT8_GATE_NEW, concurrent=True)
+            div = _margin_rule(
+                'decode-base int8 %s GPU vs CPU' % layout, cpu_out,
+                [q8['out'][i][:INT8_GATE_NEW] for i in gate], q8['rec'],
+                [q8['streams'][i] for i in gate])
+            print('decode-base int8 %s GPU vs CPU: %d of %d transcripts '
+                  '(%d tokens) equal, %d near-tie divergences; cpu_s=%.1f'
+                  % (layout, sum(a == b[:INT8_GATE_NEW] for a, b in
+                                 zip(cpu_out, q8['out'])), len(gate),
+                     INT8_GATE_NEW, div, time.perf_counter() - t1))
+
+            spec = None
+            if layout == 'block':
+                pred = DecodingPredictor(qdir, draft='ngram')
+                try:
+                    pred.warmup()
+                    sm = _Margins(pred)
+                    sp, sp_streams, sp_wall = _served(
+                        pred, prompts[:INT8_SPEC_PROMPTS], DECODE_MAX_NEW)
+                    ssnap = pred.stats.snapshot()
+                finally:
+                    pred.close()
+                del pred
+                _arm_line('decode-base int8 block spec ngram (sequential, %d '
+                          'prompts)' % INT8_SPEC_PROMPTS, ssnap,
+                          sum(len(t) for t in sp), sp_wall)
+                _spec_gate('decode-base int8 block spec ngram', ssnap)
+                sdiv = _margin_rule('decode-base int8 block spec vs plain',
+                                    sp, q8['out'][:INT8_SPEC_PROMPTS],
+                                    sm.rec, sp_streams)
+                spec = {'acc_rate': ssnap['acc_rate'],
+                        'tokens_per_dispatch': ssnap['tokens_per_dispatch'],
+                        'draft_errors': ssnap['draft_errors'],
+                        'near_ties': sdiv}
+        summary[layout] = {
+            'fp_tokens_s': fp['tokens_s'], 'int8_tokens_s': q8['tokens_s'],
+            'vs_fp': q8['tokens_s'] / fp['tokens_s'],
+            'slots': [fp_sig['max_slots'], qsig['max_slots']],
+            'cache_bytes': [fp_sig['cache_bytes'], qsig['cache_bytes']],
+            'occupancy': [fp['occupancy'], q8['occupancy']],
+            'itl_p50_ms': [fp['itl_p50_ms'], q8['itl_p50_ms']],
+            'ttft_p50_ms': [fp['ttft_p50_ms'], q8['ttft_p50_ms']],
+            'step_device_busy_ms': [fp['device_busy_ms'],
+                                    q8['device_busy_ms']],
+            'step_host_p50_ms': [fp['host_p50_ms'], q8['host_p50_ms']],
+            'step_peak_gb': [fp['step_peak_gb'], q8['step_peak_gb']],
+            'transcript_match': match, 'cpu_near_ties': div,
+            'int8_beam_cow_blocks': q8['cow_blocks'],
+            'spec': spec}
+        _phase_seconds('decode_int8_%s' % layout, t0)
+    counts = read_launches()
+    check(not any(counts.values()), 'the int8 decode path launched %s'
+          % counts)
+    print('decode-base int8 (pairs are [fp 32 slots, int8 64 slots]): %s'
+          % json.dumps(summary))
+    return counts
+
+
 def _se_bn_shapes():
     """The (C, H, W) of SE-ResNeXt-50's 53 batch_norm inputs at 224x224,
     with counts, from its program."""
@@ -4618,6 +5245,14 @@ def main():
         # bench.py's resnet50_serving: the same directory exported and
         # served by the batcher
         artifact_counts = phase_resnet_artifact_serving(d, n_bn)
+        # bench.py's resnet50_serving_int8: the same directory with both
+        # tiers, and the int8 ops at the shapes this model gives them
+        t0 = time.perf_counter()
+        int8_counts, int8_summary, raw_prog = phase_resnet_int8_serving(
+            d, n_bn)
+        int8_ops = phase_int8_ops(raw_prog)
+        del raw_prog
+        _phase_seconds('resnet50_int8', t0)
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         n_ops, n_fused, n_params = build_and_save_bert(d)
@@ -4787,7 +5422,8 @@ def main():
                  resnet_b256_counts,
              'bert_training_remat': remat_counts,
              'bert_bench_training_remat': bench_remat_counts,
-             'googlenet_artifact_serving': gnet_art_counts}
+             'googlenet_artifact_serving': gnet_art_counts,
+             'resnet50_int8_serving': int8_counts}
     paths.update(decode_counts)
     paths.update(zoo_counts)
 
@@ -4829,6 +5465,8 @@ def main():
             'by_case': {_case_tag(key[1:]): row
                         for key, row in bwd_rows.items()
                         if key[0] == name}})
+    print('int8 tier summary: %s' % json.dumps({
+        'resnet50_serving_int8': int8_summary, 'int8_ops': int8_ops}))
     print('total seconds %.1f' % (time.perf_counter() - t_start))
     print(json.dumps({'kernels': [{
         'name': 'bn_apply', 'route': 'cuda',
@@ -4848,6 +5486,7 @@ def main():
             k1_amp or {}, batch=RESNET_AMP_BATCH,
             launches=resnet_amp_counts['bn_apply'] // TRAIN_STEPS),
         'bf16_batch%d' % RESNET_AMP_BATCH: totals_amp,
+        'resnet50_int8_tier_launches_per_batch': n_bn,
         'max_abs_err_zoo_shapes': {str(dt)[6:]: err
                                    for dt, err in zoo_k1_abs.items()},
         'zoo_shapes': zoo_k1,

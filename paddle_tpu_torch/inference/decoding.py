@@ -56,8 +56,16 @@ row-independent and masked rows carry exactly-zero attention weight.
 Greedy and fixed-width beam search run on the host over the fetched
 logits, with float64 scores and stable tie-breaking.
 
-Not ported yet (each raises or is left out): the int8 KV tier and
-`tier=`, mesh sharding, AOT sidecars, and the profiler's serving source.
+The int8 cache (an artifact of build_decode_spec(kv_cache_dtype='int8'))
+serves through the same scheduler: its scale state rides beside the pages
+as ordinary state vars, so every place the scheduler touches the state by
+name (a slot reorder, a block copy on write, the reset) moves the scales
+with their rows, and the block layout's scale pool shares the pages'
+block ids (prefix sharing, rollback and the trash block need nothing
+more). `tier=` picks an artifact tier (serve.resolve_tier).
+
+Not ported yet (each raises or is left out): mesh sharding, AOT sidecars,
+and the profiler's serving source.
 """
 from __future__ import annotations
 
@@ -80,6 +88,7 @@ from ..framework import to_torch_dtype
 from .batching import (DeadlineExceeded, ServerOverloaded,  # noqa: F401
                        select_bucket, shed_if_overloaded)
 from .kv_blocks import BlockManager, BlockPoolExhausted, TRASH_BLOCK
+from . import serve as _serve
 
 _STOP = object()
 _WAKE = object()   # no-op queue item: rouse an idle scheduler (drain)
@@ -133,7 +142,7 @@ class DecodeStats(object):
         # tagged-request failure trace (shed/expired requests that carried
         # a request_id)
         self._failures = deque(maxlen=16)
-        self.tier = 'float32'    # KV-cache dtype
+        self.tier = 'bf16'       # serving tier: 'int8' for an int8 cache
         self.queue_depth = 0
         # block layout: BlockManager.stats and reset_counters, merged into
         # snapshot() and reset(); None on slot artifacts
@@ -457,18 +466,19 @@ class DecodingPredictor(object):
     decode; `draft_k=` narrows the draft length a tick below K (unused
     rows ride as pads).
 
-    `tier=` (the reference's int8 tier, ROADMAP queue 1 item 6) is not
-    ported yet: anything but None raises NotImplementedError.
+    `tier=` resolves an artifact tier as BatchingPredictor(tier=) does
+    (serve.resolve_tier against decode_signature.json): 'int8' serves the
+    int8-cache artifact exported under <artifact>/int8/; an explicit tier
+    the artifact lacks raises ValueError, the PTPU_SERVE_TIER preference
+    falls back to the top level. `stats.tier` is 'int8' for an int8 cache,
+    else 'bf16' (the reference's name of the default tier).
     """
 
     def __init__(self, artifact_dir, place=None, max_queue=None,
                  default_max_new_tokens=32, stats_window=8192,
                  tier=None, draft=None, draft_k=None):
-        if tier is not None:
-            raise NotImplementedError(
-                'DecodingPredictor(tier=...) is not ported yet (the int8 '
-                'tier, ROADMAP queue 1 item 6): the port serves an f32 '
-                'cache')
+        artifact_dir = _serve.resolve_tier(artifact_dir, tier,
+                                           signature=_DECODE_SIGNATURE)
         sig_path = os.path.join(artifact_dir, _DECODE_SIGNATURE)
         with open(sig_path) as f:
             self._sig = json.load(f)
@@ -550,7 +560,8 @@ class DecodingPredictor(object):
         self._lifecycle = threading.Lock()
         self._queue = queue.Queue()
         self.stats = DecodeStats(stats_window)
-        self.stats.tier = self._sig['kv_cache_dtype']
+        self.stats.tier = ('int8' if self._sig['kv_cache_dtype'] == 'int8'
+                           else 'bf16')
         self._reset_state()
         self._sched_t = threading.Thread(
             target=self._sched_loop, name='ptpu-torch-decode-sched',

@@ -20,6 +20,10 @@ BatchingPredictor):
   bucket_<n>/signature.json   one per batch bucket, with 'root': '..':
                           a bucket directory loads on its own, from the
                           root's program and parameters
+  int8/                   with quantize='int8': the quantized tier, a
+                          tree of the same layout ('tier': 'int8' and
+                          'quantization' in each signature); the top
+                          signature then lists 'tiers'
 
 `export_train_step` (read by serve.py CompiledTrainer):
 
@@ -32,7 +36,9 @@ BatchingPredictor):
 program after the inference pipeline, as `export_compiled`'s):
 
   decode_signature.json   kind, layout, slots, cache length, eos and
-                          vocab, the cache state and every program's feeds
+                          vocab, the cache dtype and bytes, the cache state
+                          (an int8 cache: int8 pages and f32 scales) and
+                          every program's feeds
                           and fetches (the reference's keys where they
                           mean the same thing): 'prompt_buckets' and
                           'prefill' in the slot layout; 'block',
@@ -71,6 +77,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 
 import numpy as np
 import torch
@@ -84,6 +91,9 @@ from ..executor import _to_numpy
 from ..framework import Variable, convert_dtype, to_torch_dtype
 from . import decoding as _decoding
 from . import serve as _serve
+
+# the quantized tier's subdirectory of an export_compiled artifact
+_TIER_INT8 = 'int8'
 
 
 def _write_program(entry, out_dir, state_names=()):
@@ -113,7 +123,7 @@ def _check_feeds(what, entry, want):
                          % (what, sorted(want), entry['feeds']))
 
 
-def export_decode(spec, out_dir, scope=None):
+def export_decode(spec, out_dir, scope=None, kv_cache_dtype=None):
     """Write the decode-serving artifact of `spec` (the dict
     models.transformer.build_decode_spec returns) to out_dir, the
     parameters taken from `scope` (default: the global scope), where the
@@ -125,16 +135,22 @@ def export_decode(spec, out_dir, scope=None):
     'prompt_ids' [1, L] int64, 'prompt_len' and 'slot' [1, 1] int32; in
     the block layout each chunk program 'chunk_ids' [1, C] int64, 'start'
     and 'chunk_len' [1, 1] int32 and 'block_table' [1, max_blocks] int32;
-    both fetch the last real position's logits [1, vocab]. An f32 cache
-    only: the int8 tier raises NotImplementedError (ROADMAP queue 1 item
-    6). Returns out_dir."""
+    both fetch the last real position's logits [1, vocab].
+
+    kv_cache_dtype: None, or the cache dtype the caller expects; it must
+    be the one the spec was built with (build_decode_spec(kv_cache_dtype=),
+    paddle_tpu/inference/export.py:388-392). The signature records it, the
+    cache's bytes and each state var's shape and dtype (an int8 cache's
+    pages are int8, its scales f32). Returns out_dir."""
     scope = scope if scope is not None else global_scope()
     layout = spec.get('layout', 'slot')
     kv_dtype = spec.get('kv_cache_dtype', 'float32')
-    if kv_dtype != 'float32':
-        raise NotImplementedError(
-            'export_decode: the port exports an f32 cache; the %s tier is '
-            'not ported yet (ROADMAP queue 1 item 6)' % kv_dtype)
+    if kv_cache_dtype is not None and kv_cache_dtype != kv_dtype:
+        raise ValueError(
+            "export_decode(kv_cache_dtype=%r) but the spec was built with "
+            "kv_cache_dtype=%r — rebuild the decode spec with the requested "
+            "cache dtype (build_decode_spec(kv_cache_dtype=...))"
+            % (kv_cache_dtype, kv_dtype))
     if layout not in ('slot', 'block'):
         raise ValueError("layout must be 'slot' or 'block', got %r"
                          % (layout,))
@@ -338,18 +354,20 @@ def _export_single(predictor, program, sample, out_dir, root='.',
     return sig
 
 
-def _export_tier(predictor, program, sample, out_dir, sizes, reports=()):
+def _export_tier(predictor, program, sample, out_dir, sizes, reports=(),
+                 extra_sig=None):
     """The artifact tree: one signature when `sizes` is None, else one per
     bucket under bucket_<n>/ and a top signature mirroring the largest
     bucket, with the bucket list. The top signature records the
     pipeline's `reports` (PassReport.as_dict of each pass, in order;
     empty where the pipeline fell back to the raw program) under
-    'passes'."""
+    'passes'; every signature gets the keys of `extra_sig`."""
     _write_model(predictor, program, out_dir)
     passes_run = [r.as_dict() for r in reports]
     if sizes is None:
         return _export_single(predictor, program, sample, out_dir,
-                              extra={'passes': passes_run})
+                              extra=dict(extra_sig or {},
+                                         passes=passes_run))
     flat = [n for n, a in sample.items() if a.ndim < 1]
     if flat:
         raise ValueError("feeds %r have no batch dimension to bucket on"
@@ -366,7 +384,7 @@ def _export_tier(predictor, program, sample, out_dir, sizes, reports=()):
                    for n, a in sample.items()}
         sig = _export_single(predictor, program, resized,
                              os.path.join(out_dir, _serve._BUCKET_DIR % b),
-                             root='..')
+                             root='..', extra=extra_sig)
     sig.pop('root')
     sig['buckets'] = sizes
     sig['passes'] = passes_run
@@ -393,17 +411,25 @@ def export_compiled(predictor, sample_inputs, out_dir, batch_sizes=None,
     out_dir/bucket_<n>/, the top level mirroring the largest, the program
     and parameters written once for all of them.
 
-    quantize='int8' (the reference's post-training int8 tier) is not
-    ported yet (ROADMAP.md queue 1 item 6) and raises
-    NotImplementedError; `calibration`, `quantize_mode` and
-    `calibration_q` belong to it. Returns out_dir."""
-    if quantize is not None:
-        if quantize != 'int8':
-            raise ValueError("quantize must be None or 'int8', got %r"
-                             % (quantize,))
-        raise NotImplementedError(
-            "export_compiled(quantize='int8'): the post-training int8 tier "
-            "is not ported yet (ROADMAP.md queue 1 item 6)")
+    quantize='int8' (paddle_tpu/inference/export.py:120-134): also write a
+    post-training-quantized tier under out_dir/int8/, a whole artifact tree
+    of its own (the same buckets, its own program and parameters) whose
+    program went through passes/quantize.py (calibrated per-tensor
+    activation quant, per-channel int8 weights, the dequant in the int8
+    ops' epilogue) and then the inference pipeline. `calibration` is
+    required: a list of representative feed batches (dicts, or lists in
+    feed order) run through the predictor's Executor to observe the
+    activation ranges; `quantize_mode` picks the observer ('abs_max' or
+    'percentile', the latter at `calibration_q`). Each signature of the
+    tier carries 'tier': 'int8' and 'quantization' (the quantized op count,
+    every op left in float with its reason, the activation scales, the
+    weight bytes before and after); the top signature records 'tiers':
+    ['bf16', 'int8'] and the same 'quantization'. CompiledPredictor and
+    BatchingPredictor serve it with tier='int8'. A later export without
+    quantize removes a stale int8 tree. Returns out_dir."""
+    if quantize is not None and quantize != 'int8':
+        raise ValueError("quantize must be None or 'int8', got %r"
+                         % (quantize,))
     feed_names = list(predictor._feed_names)
     if isinstance(sample_inputs, (list, tuple)):
         sample = dict(zip(feed_names, sample_inputs))
@@ -427,11 +453,70 @@ def export_compiled(predictor, sample_inputs, out_dir, batch_sizes=None,
         if not sizes or sizes[0] < 1:
             raise ValueError("batch_sizes must be positive ints, got %r"
                              % (batch_sizes,))
+    if quantize is not None:
+        qprogram, qreports, quant_meta = _quantize_for_export(
+            predictor, calibration, quantize_mode, calibration_q)
     program, reports = _optimize_for_export(
         program, [v.name for v in predictor._fetch_vars if v is not None],
         feed_names)
     _export_tier(predictor, program, sample, out_dir, sizes, reports)
+    tier_dir = os.path.join(out_dir, _TIER_INT8)
+    if quantize is None:
+        # a stale int8 tree would serve old quantized weights beside the
+        # fresh default tier; a tree without a signature (an interrupted
+        # export) goes too
+        if os.path.isdir(tier_dir):
+            import warnings
+            warnings.warn('export_compiled: removing stale int8 tier %s (this '
+                          "export did not request quantize='int8')"
+                          % tier_dir, RuntimeWarning)
+            shutil.rmtree(tier_dir)
+        return out_dir
+    _export_tier(predictor, qprogram, sample, tier_dir, sizes, qreports,
+                 extra_sig={'tier': 'int8', 'quantization': quant_meta})
+    sig_path = os.path.join(out_dir, _serve._SIGNATURE)
+    with open(sig_path) as f:
+        sig = json.load(f)
+    sig['tiers'] = ['bf16', 'int8']
+    sig['quantization'] = quant_meta
+    with _io._atomic_file(sig_path) as f:
+        f.write(json.dumps(sig, indent=1).encode())
     return out_dir
+
+
+def _quantize_for_export(predictor, calibration, mode, q):
+    """Calibrate and quantize the predictor's program for the int8 tier
+    (paddle_tpu/inference/export.py:261-307): the sweep runs through the
+    predictor's own Executor and scope, and the quantized program then
+    goes through the inference pipeline. Returns (program, the pipeline's
+    reports, the signature's 'quantization')."""
+    from .. import passes
+    if not calibration:
+        raise ValueError(
+            "quantize='int8' requires calibration=[feed batches...]: a "
+            "representative sweep is what defines the activation scales "
+            "(passes/quantize.calibrate_program)")
+    feed_names = list(predictor._feed_names)
+    fetch_names = [v.name for v in predictor._fetch_vars if v is not None]
+    batches = [dict(zip(feed_names, b)) if isinstance(b, (list, tuple))
+               else dict(b) for b in calibration]
+    calib = passes.calibrate_program(
+        predictor._program, batches, predictor._exe,
+        scope=predictor._scope, q=q)
+    qprog, report = passes.quantize_program(
+        predictor._program, calib, predictor._scope, mode=mode,
+        fetch_names=fetch_names, feed_names=feed_names)
+    qprog, reports = _optimize_for_export(qprog, fetch_names, feed_names)
+    d = report.details
+    meta = {'method': 'post_training_int8', 'mode': d['mode'],
+            'percentile_q': float(q), 'calibration_batches': len(batches),
+            'quantized_ops': d['quantized_ops'],
+            'float_ops': d['float_ops'],
+            'float_op_reasons': d['float_op_reasons'],
+            'act_scales': d['act_scales'],
+            'weight_bytes_before': d['weight_bytes_before'],
+            'weight_bytes_after': d['weight_bytes_after']}
+    return qprog, reports, meta
 
 
 # -- export_train_step -------------------------------------------------------

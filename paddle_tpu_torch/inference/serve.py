@@ -13,7 +13,7 @@ line:
     python -m paddle_tpu_torch.inference.serve bench ARTIFACT_DIR IN.npz \\
         N_REQUESTS [TIMEOUT_MS]
     python -m paddle_tpu_torch.inference.serve decode ARTIFACT_DIR \\
-        PROMPTS.npz OUT.npz [MAX_NEW [BEAM]]
+        PROMPTS.npz OUT.npz [MAX_NEW [BEAM]] [--tier T]
 
 Everything runs on CUDAPlace(0) unless `platform='cpu'` or the environment
 sets PTPU_PLATFORM=cpu, as the reference reads it.
@@ -26,9 +26,15 @@ there are no AOT warm-start sidecars, and every bucket of a multi-bucket
 artifact runs the one program, at its own batch, over one device copy of
 the parameters. Each format refuses the other package's artifacts.
 
-Not ported yet: the int8 tier (ROADMAP.md queue 1 item 6), LoD feeds and
-fetches (item 8), the profiler's serving and bulk-inference sources, and
-the `fleet` and `gateway` commands (item 11).
+An artifact may hold tiers (`resolve_tier`): the default one at its root,
+and the post-training int8 one of export_compiled(quantize='int8') under
+int8/ (a decode artifact's int8 tier is an export_decode of an int8-cache
+spec written there). CompiledPredictor, BatchingPredictor,
+DecodingPredictor and the decode command's `--tier` pick one.
+
+Not ported yet: LoD feeds and fetches (ROADMAP.md queue 1 item 8), the
+profiler's serving and bulk-inference sources, and the `fleet` and
+`gateway` commands (item 11).
 """
 from __future__ import annotations
 
@@ -58,12 +64,15 @@ _JAX_MODULES = ('module.jaxexport', 'train_module.jaxexport')
 
 
 def resolve_tier(artifact_dir, tier=None, signature=_SIGNATURE):
-    """The artifact directory that serves `tier` (or env PTPU_SERVE_TIER):
-    'bf16' (the reference's name of the default, unquantized tier; the
-    default) serves the top level; another tier its subdirectory. An
-    explicit tier the artifact lacks raises; the env preference falls back
-    to the default tier. The port writes no int8 tier yet (ROADMAP.md
-    queue 1 item 6)."""
+    """The artifact directory that serves `tier` (or env PTPU_SERVE_TIER),
+    as paddle_tpu/inference/serve.py:99-131 resolves it: 'bf16' (the
+    reference's name of the default, unquantized tier; the default) serves
+    the top level, 'int8' the quantized tier's subdirectory, which counts
+    only with its `signature` file (decode artifacts resolve against
+    decode_signature.json). An explicit tier the artifact lacks raises;
+    the env preference falls back to the default tier, so one setting
+    covers artifacts with and without the tier (and the bucket loads
+    inside a resolved tier)."""
     req = tier or os.environ.get('PTPU_SERVE_TIER')
     if not req or req == 'bf16':
         return artifact_dir
@@ -71,10 +80,17 @@ def resolve_tier(artifact_dir, tier=None, signature=_SIGNATURE):
     if os.path.isdir(sub) and os.path.exists(os.path.join(sub, signature)):
         return sub
     if tier:
+        tiers = ['bf16']
+        try:
+            with open(os.path.join(artifact_dir, signature)) as f:
+                tiers = json.load(f).get('tiers', ['bf16'])
+        except (OSError, ValueError):
+            pass
         raise ValueError(
-            "artifact %s has no %r tier (tiers: ['bf16']) — the port's "
-            "export_compiled writes the default tier only; quantize='int8' "
-            "is ROADMAP.md queue 1 item 6" % (artifact_dir, req))
+            "artifact %s has no %r tier (tiers: %s) — export with "
+            "export_compiled(..., quantize='int8') (or export_decode the "
+            "int8-cache spec into <artifact>/%s) to add one"
+            % (artifact_dir, req, tiers, req))
     return artifact_dir
 
 
@@ -583,14 +599,34 @@ def _train_cli(argv):
     return 0
 
 
+def _pop_flag(argv, name):
+    """`--NAME VALUE` or `--NAME=VALUE` taken out of argv wherever it
+    stands; returns (the value or None, the rest of argv)."""
+    out, value, it = [], None, iter(argv)
+    for a in it:
+        if a == '--%s' % name:
+            value = next(it, None)
+            if value is None:
+                raise SystemExit('--%s needs a value' % name)
+        elif a.startswith('--%s=' % name):
+            value = a.split('=', 1)[1]
+        else:
+            out.append(a)
+    return value, out
+
+
 def _decode_cli(argv):
     # decode ARTIFACT_DIR PROMPTS.npz OUT.npz [MAX_NEW [BEAM]]:
     # PROMPTS.npz 'prompts' [N, L] int64 (0-padded) and optionally 'lens'
     # [N]; OUT.npz 'tokens' [N, MAX_NEW] (-1 after each transcript) and
-    # 'n_tokens' [N], with BEAM the best hypothesis and 'scores' [N]
+    # 'n_tokens' [N], with BEAM the best hypothesis and 'scores' [N].
+    # --tier serves an artifact tier (the int8-cache tier under
+    # <artifact>/int8/): an explicit tier the artifact lacks raises, as
+    # DecodingPredictor(tier=) does; without it PTPU_SERVE_TIER applies
+    tier, argv = _pop_flag(argv, 'tier')
     if len(argv) not in (5, 6, 7):
         print("usage: serve.py decode ARTIFACT_DIR PROMPTS.npz OUT.npz "
-              "[MAX_NEW [BEAM]]", file=sys.stderr)
+              "[MAX_NEW [BEAM]] [--tier T]", file=sys.stderr)
         return 2
     from .decoding import DecodingPredictor
     artifact_dir, in_path, out_path = argv[2:5]
@@ -600,7 +636,7 @@ def _decode_cli(argv):
         prompts = np.asarray(z['prompts'], np.int64)
         lens = (np.asarray(z['lens'], np.int64) if 'lens' in z.files
                 else np.full(prompts.shape[0], prompts.shape[1], np.int64))
-    with DecodingPredictor(artifact_dir, place=_place()) as pred:
+    with DecodingPredictor(artifact_dir, place=_place(), tier=tier) as pred:
         streams = [pred.submit(prompts[i, :lens[i]], max_new_tokens=max_new,
                                beam=beam) for i in range(prompts.shape[0])]
         results = [s.result() for s in streams]
@@ -618,7 +654,8 @@ def _decode_cli(argv):
     if beam:
         save['scores'] = scores
     np.savez(out_path, **save)
-    print(json.dumps({'requests': len(results), 'tokens': int(snap['tokens']),
+    print(json.dumps({'requests': len(results), 'tier': snap['tier'],
+                      'tokens': int(snap['tokens']),
                       'tokens_s': snap['tokens_s'],
                       'occupancy': snap['occupancy'],
                       'ttft_p50_ms': snap['ttft_p50_ms'],
@@ -642,7 +679,7 @@ _USAGE = ("usage: serve.py ARTIFACT_DIR IN.npz OUT.npz\n"
           "       serve.py bench ARTIFACT_DIR IN.npz N_REQUESTS "
           "[TIMEOUT_MS]\n"
           "       serve.py decode ARTIFACT_DIR PROMPTS.npz OUT.npz "
-          "[MAX_NEW [BEAM]]")
+          "[MAX_NEW [BEAM]] [--tier T]")
 
 
 def main(argv):

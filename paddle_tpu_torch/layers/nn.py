@@ -28,7 +28,12 @@ __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
            'kv_block_write', 'kv_block_attention', 'kv_block_chunk_write',
            'kv_block_chunk_attention', 'kv_cache_verify_write',
            'kv_cache_verify_attention', 'kv_block_verify_write',
-           'kv_block_verify_attention']
+           'kv_block_verify_attention', 'kv_cache_write_quant',
+           'kv_cache_prefill_write_quant', 'kv_cache_attention_quant',
+           'kv_block_write_quant', 'kv_block_attention_quant',
+           'kv_block_chunk_write_quant', 'kv_block_chunk_attention_quant',
+           'kv_cache_verify_write_quant', 'kv_cache_verify_attention_quant',
+           'kv_block_verify_write_quant', 'kv_block_verify_attention_quant']
 
 
 def _single(v, n):
@@ -556,3 +561,123 @@ def kv_block_verify_attention(query, k_cache, v_cache, pos, block_table,
     return _attention_op('kv_block_verify_attention', query,
                          {'KCache': k_cache, 'VCache': v_cache, 'Pos': pos,
                           'BlockTable': block_table}, n_head, scale)
+
+
+# -- the int8 cache (paddle_tpu/layers/nn.py:1620-1950): int8 pages beside one
+# f32 scale a page row; each write updates the (cache, scale) pair in place
+# and returns both, each attention dequantizes inside the op ---------------
+def _write_quant_op(type, cache, cache_scale, inputs):
+    """Append one of the in-place int8 cache writes; returns (cache,
+    cache_scale), the post-write bindings."""
+    helper = LayerHelper(type)
+    helper.append_op(type=type,
+                     inputs=dict(inputs, Cache=cache, Scale=cache_scale),
+                     outputs={'Out': cache, 'OutScale': cache_scale},
+                     attrs={})
+    return cache, cache_scale
+
+
+def _quant_caches(k_cache, k_scale, v_cache, v_scale):
+    return {'KCache': k_cache, 'KScale': k_scale, 'VCache': v_cache,
+            'VScale': v_scale}
+
+
+def kv_cache_write_quant(cache, cache_scale, kv, pos):
+    """kv_cache_write over the int8 slot-paged cache: `cache` int8
+    [max_slots, max_cache_len, d], `cache_scale` f32 [max_slots,
+    max_cache_len]; each slot's f32 row quantizes at its own abs-max scale
+    (paddle_tpu/layers/nn.py:1620)."""
+    return _write_quant_op('kv_cache_write_quant', cache, cache_scale,
+                           {'KV': kv, 'Pos': pos})
+
+
+def kv_cache_prefill_write_quant(cache, cache_scale, kv, slot):
+    """kv_cache_prefill_write over the int8 cache: a prompt's [1,
+    bucket_len, d] rows quantize a row a position into one slot
+    (paddle_tpu/layers/nn.py:1635)."""
+    return _write_quant_op('kv_cache_prefill_write_quant', cache,
+                           cache_scale, {'KV': kv, 'Slot': slot})
+
+
+def kv_cache_attention_quant(query, k_cache, k_scale, v_cache, v_scale,
+                             pos, n_head, scale=None):
+    """kv_cache_attention over the int8 cache: the rows dequantize inside
+    the op (paddle_tpu/layers/nn.py:1648)."""
+    return _attention_op('kv_cache_attention_quant', query,
+                         dict(_quant_caches(k_cache, k_scale, v_cache,
+                                            v_scale), Pos=pos),
+                         n_head, scale)
+
+
+def kv_block_write_quant(cache, cache_scale, kv, pos, block_table):
+    """kv_block_write over the int8 block pool (`cache_scale` f32
+    [num_blocks, block_size]) (paddle_tpu/layers/nn.py:1754)."""
+    return _write_quant_op('kv_block_write_quant', cache, cache_scale,
+                           {'KV': kv, 'Pos': pos,
+                            'BlockTable': block_table})
+
+
+def kv_block_attention_quant(query, k_cache, k_scale, v_cache, v_scale,
+                             pos, block_table, n_head, scale=None):
+    """kv_block_attention over the int8 block pool
+    (paddle_tpu/layers/nn.py:1770)."""
+    return _attention_op('kv_block_attention_quant', query,
+                         dict(_quant_caches(k_cache, k_scale, v_cache,
+                                            v_scale), Pos=pos,
+                              BlockTable=block_table), n_head, scale)
+
+
+def kv_block_chunk_write_quant(cache, cache_scale, kv, start, block_table):
+    """kv_block_chunk_write over the int8 block pool
+    (paddle_tpu/layers/nn.py:1789)."""
+    return _write_quant_op('kv_block_chunk_write_quant', cache, cache_scale,
+                           {'KV': kv, 'Start': start,
+                            'BlockTable': block_table})
+
+
+def kv_block_chunk_attention_quant(query, k_cache, k_scale, v_cache,
+                                   v_scale, k, v, start, block_table,
+                                   n_head, scale=None):
+    """kv_block_chunk_attention over the int8 block pool; `k` and `v` are
+    the chunk's own f32 projections, attended at full precision in place
+    of their quantized rows (paddle_tpu/layers/nn.py:1803)."""
+    return _attention_op('kv_block_chunk_attention_quant', query,
+                         dict(_quant_caches(k_cache, k_scale, v_cache,
+                                            v_scale), K=k, V=v, Start=start,
+                              BlockTable=block_table), n_head, scale)
+
+
+def kv_cache_verify_write_quant(cache, cache_scale, kv, pos):
+    """kv_cache_verify_write over the int8 cache; pad rows write neither
+    row nor scale (paddle_tpu/layers/nn.py:1860)."""
+    return _write_quant_op('kv_cache_verify_write_quant', cache,
+                           cache_scale, {'KV': kv, 'Pos': pos})
+
+
+def kv_cache_verify_attention_quant(query, k_cache, k_scale, v_cache,
+                                    v_scale, pos, n_head, scale=None):
+    """kv_cache_verify_attention over the int8 cache
+    (paddle_tpu/layers/nn.py:1873)."""
+    return _attention_op('kv_cache_verify_attention_quant', query,
+                         dict(_quant_caches(k_cache, k_scale, v_cache,
+                                            v_scale), Pos=pos),
+                         n_head, scale)
+
+
+def kv_block_verify_write_quant(cache, cache_scale, kv, pos, block_table):
+    """kv_block_verify_write over the int8 block pool
+    (paddle_tpu/layers/nn.py:1922)."""
+    return _write_quant_op('kv_block_verify_write_quant', cache,
+                           cache_scale, {'KV': kv, 'Pos': pos,
+                                         'BlockTable': block_table})
+
+
+def kv_block_verify_attention_quant(query, k_cache, k_scale, v_cache,
+                                    v_scale, pos, block_table, n_head,
+                                    scale=None):
+    """kv_block_verify_attention over the int8 block pool
+    (paddle_tpu/layers/nn.py:1936)."""
+    return _attention_op('kv_block_verify_attention_quant', query,
+                         dict(_quant_caches(k_cache, k_scale, v_cache,
+                                            v_scale), Pos=pos,
+                              BlockTable=block_table), n_head, scale)

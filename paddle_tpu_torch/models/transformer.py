@@ -253,9 +253,16 @@ def build_decode_spec(vocab=67, d_model=32, n_head=4, n_layer=2, d_ff=64,
     build gives. Pad rows carry pos = T (slot layout: the write drops
     them) or max_blocks * block_size (block layout: the trash block).
 
-    Not ported yet, each raising NotImplementedError:
-    kv_cache_dtype='int8' (the int8 KV tier, ROADMAP queue 1 item 6) and
-    mp_shard (the sharded decode tier, item 10).
+    kv_cache_dtype='int8' (models/transformer.py:242): the cache stores
+    int8 rows with one f32 scale a row, kv_ks_<i> and kv_vs_<i> ([S, T] in
+    the slot layout, [num_blocks, block_size] in the block layout, 1.0 at
+    init), listed in cache_vars after each layer's kv_k_<i> and kv_v_<i>;
+    every program uses the `*_quant` write and attention ops. Each layer
+    makes its cache params (pages, then scales) before its q, k and v
+    projections, as the reference's build_decode_spec does.
+
+    Not ported yet: mp_shard (the sharded decode tier, ROADMAP queue 1 item
+    10) raises NotImplementedError.
     """
     import numpy as np
     PA = fluid.ParamAttr
@@ -265,15 +272,11 @@ def build_decode_spec(vocab=67, d_model=32, n_head=4, n_layer=2, d_ff=64,
     if not 0 <= int(draft_k) <= int(max_cache_len) - 2:
         raise ValueError('draft_k must be in [0, max_cache_len - 2], '
                          'got %r' % (draft_k,))
-    for what, given in (
-            ("kv_cache_dtype='int8' (the int8 KV tier, ROADMAP queue 1 "
-             "item 6)", kv_cache_dtype == 'int8'),
-            ('mp_shard (the sharded decode tier, ROADMAP queue 1 item 10)',
-             bool(mp_shard))):
-        if given:
-            raise NotImplementedError(
-                'build_decode_spec: %s is not ported yet; the port builds '
-                'the slot and block layouts with an f32 cache' % what)
+    if mp_shard:
+        raise NotImplementedError(
+            'build_decode_spec: mp_shard (the sharded decode tier, ROADMAP '
+            'queue 1 item 10) is not ported yet; the port builds the slot '
+            'and block layouts on one device')
     S, T, D = int(max_slots), int(max_cache_len), int(d_model)
     if D % n_head or D % 2:
         raise ValueError("d_model must be even and divisible by n_head")
@@ -301,9 +304,12 @@ def build_decode_spec(vocab=67, d_model=32, n_head=4, n_layer=2, d_ff=64,
     dh = D // n_head
     startup = fluid.Program()
     pe = _pe_table(T, D)
+    kv_int8 = kv_cache_dtype == 'int8'
     cache_vars = []
     for i in range(n_layer):
         cache_vars += ['kv_k_%d' % i, 'kv_v_%d' % i]
+        if kv_int8:
+            cache_vars += ['kv_ks_%d' % i, 'kv_vs_%d' % i]
 
     def const_param(name, shape, init, dtype='float32'):
         return fluid.layers.create_parameter(
@@ -311,9 +317,45 @@ def build_decode_spec(vocab=67, d_model=32, n_head=4, n_layer=2, d_ff=64,
             default_initializer=init)
 
     def caches(i):
+        """The layer's cache params: (k, v), and with the int8 cache (k,
+        v, k_scale, v_scale), the scales one a page row at 1.0, so a
+        never-written row dequantizes to zeros."""
         zero = fluid.initializer.ConstantInitializer(0.0)
-        return (const_param('kv_k_%d' % i, cache_shape, zero),
-                const_param('kv_v_%d' % i, cache_shape, zero))
+        dt = 'int8' if kv_int8 else 'float32'
+        kv = (const_param('kv_k_%d' % i, cache_shape, zero, dt),
+              const_param('kv_v_%d' % i, cache_shape, zero, dt))
+        if not kv_int8:
+            return kv
+        one = fluid.initializer.ConstantInitializer(1.0)
+        return kv + (const_param('kv_ks_%d' % i, cache_shape[:2], one),
+                     const_param('kv_vs_%d' % i, cache_shape[:2], one))
+
+    def write_attend(kind, i, x, nfd, ins, attend=True):
+        """Layer i's cache params, its q, k and v projections of x, the K
+        and V writes of op `kv_<kind>_write` and the attention of
+        `kv_<kind>_attention` (the `_quant` ops with the int8 cache), both
+        taking `ins` (pos, slot or start, and a block table) after their
+        cache inputs. Returns the attention's output, or (q, k, v) without
+        `attend` (a slot prefill attends in the program itself)."""
+        c = caches(i)
+        q, k, v = qkv(x, i, nfd)
+        layers = fluid.layers
+        quant = '_quant' if kv_int8 else ''
+        write = getattr(layers, 'kv_%s_write%s' % (kind, quant))
+        if kv_int8:
+            kc, vc, ks, vs = c
+            kc, ks = write(kc, ks, k, *ins)
+            vc, vs = write(vc, vs, v, *ins)
+            caches_in = (kc, ks, vc, vs)
+        else:
+            kc, vc = c
+            caches_in = (write(kc, k, *ins), write(vc, v, *ins))
+        if not attend:
+            return q, k, v
+        # the int8 chunk attention attends the chunk's own rows in f32
+        fresh = (k, v) if kv_int8 and kind == 'block_chunk' else ()
+        return getattr(layers, 'kv_%s_attention%s' % (kind, quant))(
+            q, *(caches_in + fresh + tuple(ins)), n_head)
 
     def pe_param():
         return const_param(
@@ -374,18 +416,8 @@ def build_decode_spec(vocab=67, d_model=32, n_head=4, n_layer=2, d_ff=64,
         for i in range(n_layer):
             # cache params first, then q, k, v: the op-creation order seeds
             # the per-op random streams, as in the reference
-            kcache, vcache = caches(i)
-            q, k, v = qkv(x, i, 1)
-            if block:
-                kcache = fluid.layers.kv_block_write(kcache, k, pos, tables)
-                vcache = fluid.layers.kv_block_write(vcache, v, pos, tables)
-                a = fluid.layers.kv_block_attention(q, kcache, vcache, pos,
-                                                    tables, n_head)
-            else:
-                kcache = fluid.layers.kv_cache_write(kcache, k, pos)
-                vcache = fluid.layers.kv_cache_write(vcache, v, pos)
-                a = fluid.layers.kv_cache_attention(q, kcache, vcache, pos,
-                                                    n_head)
+            a = write_attend('block' if block else 'cache', i, x, 1,
+                             (pos, tables) if block else (pos,))
             x = block_tail(x, a, i, 1)
         step_logits = out_logits(x)                             # [S, V]
     step_feeds = ['tokens', 'pos'] + (['block_tables'] if block else [])
@@ -429,10 +461,9 @@ def build_decode_spec(vocab=67, d_model=32, n_head=4, n_layer=2, d_ff=64,
                     fluid.layers.reshape(z, shape=[1, L, n_head, dh]),
                     perm=[0, 2, 1, 3])
             for i in range(n_layer):
-                kcache, vcache = caches(i)
-                q, k, v = qkv(x, i, 2)
-                kcache = fluid.layers.kv_cache_prefill_write(kcache, k, slot)
-                vcache = fluid.layers.kv_cache_prefill_write(vcache, v, slot)
+                # the prompt attends its fresh f32 rows in the program
+                q, k, v = write_attend('cache_prefill', i, x, 2, (slot,),
+                                       attend=False)
                 scores = fluid.layers.matmul(heads(q), heads(k),
                                              transpose_y=True,
                                              alpha=dh ** -0.5)
@@ -477,14 +508,7 @@ def build_decode_spec(vocab=67, d_model=32, n_head=4, n_layer=2, d_ff=64,
             x = fluid.layers.elementwise_add(
                 x, fluid.layers.reshape(pe_c, shape=[1, C, D]))
             for i in range(n_layer):
-                kcache, vcache = caches(i)
-                q, k, v = qkv(x, i, 2)
-                kcache = fluid.layers.kv_block_chunk_write(kcache, k, start,
-                                                           btab)
-                vcache = fluid.layers.kv_block_chunk_write(vcache, v, start,
-                                                           btab)
-                a = fluid.layers.kv_block_chunk_attention(
-                    q, kcache, vcache, start, btab, n_head)
+                a = write_attend('block_chunk', i, x, 2, (start, btab))
                 x = block_tail(x, a, i, 2)
             # the scheduler reads them only from a prompt's final chunk
             chunk_logits = last_logits(x, C, clen)
@@ -518,22 +542,8 @@ def build_decode_spec(vocab=67, d_model=32, n_head=4, n_layer=2, d_ff=64,
             x = fluid.layers.elementwise_add(
                 x, fluid.layers.reshape(pe_r, shape=[S, R, D]))
             for i in range(n_layer):
-                kcache, vcache = caches(i)
-                q, k, v = qkv(x, i, 2)
-                if block:
-                    kcache = fluid.layers.kv_block_verify_write(
-                        kcache, k, vpos, vtab)
-                    vcache = fluid.layers.kv_block_verify_write(
-                        vcache, v, vpos, vtab)
-                    a = fluid.layers.kv_block_verify_attention(
-                        q, kcache, vcache, vpos, vtab, n_head)
-                else:
-                    kcache = fluid.layers.kv_cache_verify_write(
-                        kcache, k, vpos)
-                    vcache = fluid.layers.kv_cache_verify_write(
-                        vcache, v, vpos)
-                    a = fluid.layers.kv_cache_verify_attention(
-                        q, kcache, vcache, vpos, n_head)
+                a = write_attend('block_verify' if block else 'cache_verify',
+                                 i, x, 2, (vpos, vtab) if block else (vpos,))
                 x = block_tail(x, a, i, 2)
             verify_logits = out_logits(x, nfd=2)            # [S, R, V]
         vsamples = {'tokens': np.zeros((S, R), np.int64),

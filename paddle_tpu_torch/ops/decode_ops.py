@@ -5,8 +5,8 @@ the block layout's kv_block_write, kv_block_attention,
 kv_block_chunk_write and kv_block_chunk_attention; and the speculative
 verify ops of both layouts, kv_cache_verify_write,
 kv_cache_verify_attention, kv_block_verify_write and
-kv_block_verify_attention. All f32; the int8 (`*_quant`) variants are not
-ported.
+kv_block_verify_attention; and the int8 (`*_quant`) variant of each of
+those eleven ops (ref: :523-617, 777-860, 955-988, 1030-1074).
 
 The decode-serving tier (inference/decoding.py) runs a decoder-only LM as
 fixed-shape programs over a preallocated KV cache held as persistable
@@ -33,6 +33,17 @@ program scores R = draft_k + 1 rows per slot in one dispatch.
   max_blocks * block_size) lands in the trash block, as in the reference
   (_block_scatter_idx). A slot-layout verify pad row (position T) writes
   nothing, as the reference's out-of-bounds scatter drops it.
+- The int8 cache stores int8 rows and one f32 scale a row (a slot-page
+  or block-page: Scale [S, T] or [NB, BS] beside the [S, T, D] or [NB,
+  BS, D] pages). A row quantizes at write time at its own abs-max scale
+  (round(x / s) half to even, clipped to +-127, s = max|x| / 127 floored
+  at 1e-30 so an all-zero row stays finite); each write op updates Cache
+  and Scale in place and outputs both (Out, OutScale). The attention
+  dequantizes its operands (int8 row x its scale, one f32 copy of the
+  layer's K or V view) and then runs the f32 ops' own body, as the
+  reference's does. The block chunk attention attends the chunk's own
+  rows at full precision (the fresh f32 K and V splice over the view's
+  span of the chunk), as the slot layout's prefill does.
 - The attention is plain torch (einsum, masked_fill, softmax), as the
   reference's is plain jnp: no Pallas kernel stands behind it, so no
   hand-written one does here. Rows j > pos are set to -inf before the
@@ -255,33 +266,47 @@ def _verify_attention_body(ctx, q, kc, vc, pos):
     return ctxv.reshape(s, r, d).to(q.dtype)
 
 
+def _verify_targets(pos, t):
+    """Where kv_cache_verify_write puts each row: (rows, tgt, real) [S, R],
+    a negative position counted from the end; a pad row (position T or
+    beyond, real False) targets the first position of its slot that no
+    real row of the call writes (one exists while R < T, as draft_k <=
+    max_cache_len - 2 makes it), so it writes back the value already
+    there."""
+    pos = pos.long()
+    s, r = pos.shape
+    pos = torch.where(pos < 0, pos + t, pos)
+    real = (pos >= 0) & (pos < t)
+    safe = torch.where(real, pos, torch.zeros_like(pos))
+    written = torch.zeros((s, t), dtype=torch.int32, device=pos.device)
+    written.scatter_add_(1, safe, real.to(torch.int32))
+    spare = (written == 0).to(torch.int32).argmax(dim=1)       # [S]
+    tgt = torch.where(real, pos, spare[:, None])
+    rows = torch.arange(s, device=pos.device)[:, None].expand(s, r)
+    return rows, tgt, real
+
+
+def _verify_put(cache, rows, tgt, real, vals):
+    """cache[rows, tgt] = vals where real, else the value already there
+    (every write of a fixed value: the result does not depend on the order
+    of duplicate indices)."""
+    if vals.dim() == 3:
+        real = real[:, :, None]
+    vals = torch.where(real, vals.to(cache.dtype), cache[rows, tgt])
+    cache.index_put_((rows.reshape(-1), tgt.reshape(-1)),
+                     vals.reshape((-1,) + tuple(cache.shape[2:])))
+
+
 @register('kv_cache_verify_write', no_grad=True)
 def _kv_cache_verify_write(ctx, ins):
     """Cache [S, T, D], KV [S, R, D], Pos [S, R] int: row (s, i) becomes
     cache[s, Pos[s, i]], in place. A negative position counts from the
     end; a pad row (position T or beyond) writes nothing, as the
-    reference's out-of-bounds scatter drops it. Here a pad row writes back
-    the value already at the first position of its slot that no real row
-    of this call writes (one exists while R < T, as draft_k <=
-    max_cache_len - 2 makes it), so every write is of a fixed value and
-    the result does not depend on the order of duplicate indices. Out is
+    reference's out-of-bounds scatter drops it (_verify_targets). Out is
     Cache."""
     cache = ins['Cache'][0]
-    kv = ins['KV'][0]
-    pos = ins['Pos'][0].long()
-    s, r = pos.shape
-    t = cache.shape[1]
-    pos = torch.where(pos < 0, pos + t, pos)
-    real = (pos >= 0) & (pos < t)
-    safe = torch.where(real, pos, torch.zeros_like(pos))
-    written = torch.zeros((s, t), dtype=torch.int32, device=cache.device)
-    written.scatter_add_(1, safe, real.to(torch.int32))
-    spare = (written == 0).to(torch.int32).argmax(dim=1)       # [S]
-    tgt = torch.where(real, pos, spare[:, None])
-    rows = torch.arange(s, device=cache.device)[:, None].expand(s, r)
-    vals = torch.where(real[:, :, None], kv.to(cache.dtype), cache[rows, tgt])
-    cache.index_put_((rows.reshape(-1), tgt.reshape(-1)),
-                     vals.reshape(s * r, -1))
+    rows, tgt, real = _verify_targets(ins['Pos'][0], cache.shape[1])
+    _verify_put(cache, rows, tgt, real, ins['KV'][0])
     return {'Out': [cache]}
 
 
@@ -322,3 +347,197 @@ def _kv_block_verify_attention(ctx, ins):
     vview = _block_view(ins['VCache'][0], table)
     return {'Out': [_verify_attention_body(ctx, ins['Q'][0], kview, vview,
                                            ins['Pos'][0].long())]}
+
+
+# -- the int8 cache ----------------------------------------------------------
+_KV_QMAX = 127.0
+# an all-zero row quantizes at scale 0; the floor keeps x / s finite (0 / eps
+# = 0) without moving any real row's scale
+_KV_SCALE_EPS = 1e-30
+
+
+def _quantize_kv_rows(kv):
+    """[..., D] -> (int8 [..., D], f32 scale [...]): one symmetric abs-max
+    scale a row. The divisors are device tensors: a Python scalar divisor
+    of a CUDA tensor is applied as a multiply by its reciprocal."""
+    kv = kv.float()
+    qmax = torch.full((), _KV_QMAX, dtype=torch.float32, device=kv.device)
+    s = torch.clamp_min(kv.abs().amax(dim=-1) / qmax, _KV_SCALE_EPS)
+    q = torch.clamp(torch.round(kv / s[..., None]), -_KV_QMAX, _KV_QMAX)
+    return q.to(torch.int8), s
+
+
+def _dequant(cache, scale):
+    """int8 rows [..., D] times their f32 scales [...] -> f32."""
+    return cache.float() * scale[..., None]
+
+
+@register('kv_cache_write_quant', no_grad=True)
+def _kv_cache_write_quant(ctx, ins):
+    """kv_cache_write over the int8 cache: Cache int8 [S, T, D], Scale f32
+    [S, T], KV [S, D], Pos [S] or [S, 1] int. Each slot's row quantizes at
+    its own scale; Out and OutScale are Cache and Scale, updated in
+    place."""
+    cache, cscale = ins['Cache'][0], ins['Scale'][0]
+    s, t = cache.shape[0], cache.shape[1]
+    q, sc = _quantize_kv_rows(ins['KV'][0].reshape(s, -1))
+    pos = _dus_start(ins['Pos'][0].reshape(-1).long(), t, 1)
+    rows = torch.arange(s, device=cache.device)
+    cache.index_put_((rows, pos), q)
+    cscale.index_put_((rows, pos), sc)
+    return {'Out': [cache], 'OutScale': [cscale]}
+
+
+@register('kv_cache_prefill_write_quant', no_grad=True)
+def _kv_cache_prefill_write_quant(ctx, ins):
+    """kv_cache_prefill_write over the int8 cache: KV [1, L, D] quantizes
+    a row a position and lands in rows 0..L-1 of one slot of Cache int8
+    [S, T, D] and Scale f32 [S, T], in place."""
+    cache, cscale = ins['Cache'][0], ins['Scale'][0]
+    q, sc = _quantize_kv_rows(ins['KV'][0])             # [1, L, D], [1, L]
+    slot = _dus_start(ins['Slot'][0].reshape(-1)[:1].long(), cache.shape[0],
+                      1)
+    cache[:, :q.shape[1]].index_copy_(0, slot, q)
+    cscale[:, :q.shape[1]].index_copy_(0, slot, sc)
+    return {'Out': [cache], 'OutScale': [cscale]}
+
+
+@register('kv_cache_attention_quant', no_grad=True)
+def _kv_cache_attention_quant(ctx, ins):
+    """kv_cache_attention over the int8 cache: K and V dequantize (int8
+    row x its scale), then the f32 op's body runs. Q stays f32."""
+    pos = ins['Pos'][0].reshape(-1).long()
+    return {'Out': [_paged_attention_body(
+        ctx, ins['Q'][0], _dequant(ins['KCache'][0], ins['KScale'][0]),
+        _dequant(ins['VCache'][0], ins['VScale'][0]), pos)]}
+
+
+def _block_put_quant(cache, cscale, kv, bidx, boff):
+    q, sc = _quantize_kv_rows(kv)
+    cache.index_put_((bidx, boff), q)
+    cscale.index_put_((bidx, boff), sc)
+
+
+@register('kv_block_write_quant', no_grad=True)
+def _kv_block_write_quant(ctx, ins):
+    """kv_block_write over the int8 block pool: Cache int8 [NB, BS, D],
+    Scale f32 [NB, BS], KV [S, D], Pos [S] int, BlockTable [S, MAXB] int;
+    rows quantize at their own scale and scatter with it, in place."""
+    cache, cscale = ins['Cache'][0], ins['Scale'][0]
+    bidx, boff = _block_scatter_idx(ins['BlockTable'][0],
+                                    ins['Pos'][0].reshape(-1),
+                                    cache.shape[1])
+    _block_put_quant(cache, cscale,
+                     ins['KV'][0].reshape(bidx.shape[0], -1), bidx, boff)
+    return {'Out': [cache], 'OutScale': [cscale]}
+
+
+def _block_view_quant(cache, scale, table):
+    """The dequantized logical views [R, MAXB * BS, D] of the int8 pool
+    through table [R, MAXB]."""
+    return _dequant(_block_view(cache, table), _block_view(scale, table))
+
+
+@register('kv_block_attention_quant', no_grad=True)
+def _kv_block_attention_quant(ctx, ins):
+    """kv_block_attention over the int8 block pool: each slot's view
+    dequantizes, then the f32 op's body runs."""
+    table = ins['BlockTable'][0]
+    pos = ins['Pos'][0].reshape(-1).long()
+    return {'Out': [_paged_attention_body(
+        ctx, ins['Q'][0],
+        _block_view_quant(ins['KCache'][0], ins['KScale'][0], table),
+        _block_view_quant(ins['VCache'][0], ins['VScale'][0], table), pos)]}
+
+
+@register('kv_block_chunk_write_quant', no_grad=True)
+def _kv_block_chunk_write_quant(ctx, ins):
+    """kv_block_chunk_write over the int8 block pool: the chunk's rows
+    quantize a row a position and scatter through the slot's table, in
+    place."""
+    cache, cscale = ins['Cache'][0], ins['Scale'][0]
+    kv = ins['KV'][0]
+    table = ins['BlockTable'][0]
+    c = kv.shape[1]
+    pos = (ins['Start'][0].reshape(()).long()
+           + torch.arange(c, device=table.device))
+    bidx, boff = _block_scatter_idx(table.reshape(1, -1).expand(c, -1), pos,
+                                    cache.shape[1])
+    _block_put_quant(cache, cscale, kv[0], bidx, boff)
+    return {'Out': [cache], 'OutScale': [cscale]}
+
+
+@register('kv_block_chunk_attention_quant', no_grad=True)
+def _kv_block_chunk_attention_quant(ctx, ins):
+    """kv_block_chunk_attention over the int8 block pool. The chunk's own
+    rows attend at full precision: K and V [1, C, D] (the f32 projections
+    the write ops quantized) replace the view's rows start..start+C-1, as
+    the slot layout's prefill attends its fresh f32 rows; earlier chunks
+    and shared prefix blocks exist only as int8 pages and dequantize."""
+    kc = ins['KCache'][0]
+    table = ins['BlockTable'][0].reshape(1, -1)
+    start = ins['Start'][0].reshape(()).long()
+
+    def spliced(cache, scale, fresh):
+        view = _block_view_quant(cache, scale, table)[0]       # [T', D]
+        t, c = view.shape[0], fresh.shape[1]
+        j = torch.arange(t, device=view.device)
+        rel = (j - start).clamp(0, c - 1)
+        in_chunk = (j >= start) & (j < start + c)
+        return torch.where(in_chunk[:, None], fresh[0].float()[rel], view)
+
+    kview = spliced(kc, ins['KScale'][0], ins['K'][0])
+    vview = spliced(ins['VCache'][0], ins['VScale'][0], ins['V'][0])
+    return {'Out': [_chunk_attention_body(ctx, ins['Q'][0], kview, vview,
+                                          ins['Start'][0], kc.shape[2])]}
+
+
+@register('kv_cache_verify_write_quant', no_grad=True)
+def _kv_cache_verify_write_quant(ctx, ins):
+    """kv_cache_verify_write over the int8 cache: each speculative row
+    quantizes at its own scale; a pad row writes neither row nor scale
+    (_verify_targets). Out and OutScale are Cache and Scale, in place."""
+    cache, cscale = ins['Cache'][0], ins['Scale'][0]
+    rows, tgt, real = _verify_targets(ins['Pos'][0], cache.shape[1])
+    q, sc = _quantize_kv_rows(ins['KV'][0])             # [S, R, D], [S, R]
+    _verify_put(cache, rows, tgt, real, q)
+    _verify_put(cscale, rows, tgt, real, sc)
+    return {'Out': [cache], 'OutScale': [cscale]}
+
+
+@register('kv_cache_verify_attention_quant', no_grad=True)
+def _kv_cache_verify_attention_quant(ctx, ins):
+    """kv_cache_verify_attention over the int8 cache: K and V dequantize,
+    then the f32 verify body runs."""
+    return {'Out': [_verify_attention_body(
+        ctx, ins['Q'][0], _dequant(ins['KCache'][0], ins['KScale'][0]),
+        _dequant(ins['VCache'][0], ins['VScale'][0]),
+        ins['Pos'][0].long())]}
+
+
+@register('kv_block_verify_write_quant', no_grad=True)
+def _kv_block_verify_write_quant(ctx, ins):
+    """kv_block_verify_write over the int8 block pool: speculative rows
+    quantize at their own scale and scatter with it through the slots'
+    tables (pad rows to the trash block), in place."""
+    cache, cscale = ins['Cache'][0], ins['Scale'][0]
+    pos = ins['Pos'][0]
+    table = ins['BlockTable'][0]
+    s, r = pos.shape
+    wide = table[:, None, :].expand(s, r, table.shape[1]).reshape(s * r, -1)
+    bidx, boff = _block_scatter_idx(wide, pos.reshape(-1), cache.shape[1])
+    _block_put_quant(cache, cscale, ins['KV'][0].reshape(s * r, -1), bidx,
+                     boff)
+    return {'Out': [cache], 'OutScale': [cscale]}
+
+
+@register('kv_block_verify_attention_quant', no_grad=True)
+def _kv_block_verify_attention_quant(ctx, ins):
+    """kv_block_verify_attention over the int8 block pool: each slot's view
+    dequantizes, then the f32 verify body runs."""
+    table = ins['BlockTable'][0]
+    return {'Out': [_verify_attention_body(
+        ctx, ins['Q'][0],
+        _block_view_quant(ins['KCache'][0], ins['KScale'][0], table),
+        _block_view_quant(ins['VCache'][0], ins['VScale'][0], table),
+        ins['Pos'][0].long())]}

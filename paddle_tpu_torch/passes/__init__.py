@@ -1,5 +1,4 @@
-"""Program passes and lint: the port's copy of paddle_tpu/passes/ (all
-but quantize.py, which waits for the int8 tier).
+"""Program passes and lint: the port's copy of paddle_tpu/passes/.
 
 The Program is the IR (framework.py), and each pass rewrites it in place
 under a PassManager that clones, orders and accounts for them:
@@ -19,6 +18,9 @@ under a PassManager that clones, orders and accounts for them:
                         the act's lowering to the producer's output)
   recompute             move forward segments into remat_segment
                         sub-blocks (append_backward's `checkpoints`)
+  quantize_program      post-training int8: calibrated activation quant,
+                        per-channel int8 weights, the dequant in the int8
+                        ops' epilogue (export_compiled(quantize='int8'))
 
 Beside them sits the read-only dataflow analysis (dataflow.py): def-use
 chains, last-writer resolution across sub-blocks, live intervals,
@@ -54,6 +56,9 @@ from .dataflow import (DataflowAnalysis, DonationCertificate, Hazard,
                        var_bytes)
 from .horizontal_fuse import HorizontalFusePass, horizontal_fuse_program
 from .recompute import RecomputePass, recompute_program
+from .quantize import (CalibrationResult, QuantizeProgramPass,
+                       calibrate_program, calibration_targets,
+                       quantize_program, quantize_weight)
 
 # constant_fold runs first so dead_op_elimination sweeps the literal
 # producers whose consumers folded; fuse_activation last, on the final

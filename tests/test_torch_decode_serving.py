@@ -241,11 +241,12 @@ def test_warmup_drain_and_load_decoding(artifact):
 @pytest.mark.parametrize('kw', [{'tier': 'int8'}, {'draft': 'ngram'},
                                 {'draft': 'ngram', 'draft_k': 2}])
 def test_left_out_options_raise(artifact, kw):
-    """tier= (the int8 tier) is not ported yet and says which ROADMAP item
-    holds it; speculative decoding is ported, but this artifact has no
-    verify program, so draft= is refused as the reference refuses it."""
+    """This artifact has no int8 tier, so an explicit tier='int8' is
+    refused (serve.resolve_tier; tests/test_torch_kv_quant.py serves one),
+    and no verify program, so draft= is refused as the reference refuses
+    it."""
     if 'tier' in kw:
-        with pytest.raises(NotImplementedError, match='queue 1 item 6'):
+        with pytest.raises(ValueError, match="no 'int8' tier"):
             DecodingPredictor(artifact, place=CPU, **kw)
     else:
         with pytest.raises(ValueError, match='verify program'):
@@ -257,15 +258,23 @@ def test_left_out_options_raise(artifact, kw):
                                 {'kv_cache_dtype': 'int8', 'draft_k': 2},
                                 {'mp_shard': 2, 'block_size': 8}])
 def test_build_decode_spec_left_out_tiers_raise(kw):
-    """The tiers still to port raise NotImplementedError naming their
-    ROADMAP item, in every layout: the int8 cache (queue 1 item 6) and
-    the mp-sharded block layout (item 10). The block layout and draft_k
-    themselves build (tests/test_torch_kv_blocks.py,
-    tests/test_torch_spec_decode.py)."""
-    item = 'queue 1 item %d' % (10 if 'mp_shard' in kw else 6)
-    with ptt.unique_name.guard(), pytest.raises(NotImplementedError,
-                                                match=item):
-        build_decode_spec(**dict(SPEC, **kw))
+    """The mp-sharded block layout (ROADMAP queue 1 item 10) still raises
+    NotImplementedError naming its item; the int8 cache builds in every
+    layout (int8 pages, f32 scales in cache_vars;
+    tests/test_torch_kv_quant.py serves it)."""
+    if 'mp_shard' in kw:
+        with ptt.unique_name.guard(), pytest.raises(NotImplementedError,
+                                                    match='queue 1 item 10'):
+            build_decode_spec(**dict(SPEC, **kw))
+        return
+    with ptt.unique_name.guard():
+        spec = build_decode_spec(**dict(SPEC, **kw))
+    assert spec['kv_cache_dtype'] == 'int8'
+    assert spec['cache_vars'][:4] == ['kv_k_0', 'kv_v_0', 'kv_ks_0',
+                                      'kv_vs_0']
+    gb = spec['startup'].global_block()
+    assert str(gb.var('kv_k_0').dtype) == 'int8'
+    assert str(gb.var('kv_ks_0').dtype) == 'float32'
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason='a card is present')

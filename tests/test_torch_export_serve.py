@@ -296,7 +296,9 @@ def test_run_batches_equals_run_with_group_tail(fc_dir, tmp_path):
 
 def test_int8_lod_and_jax_artifacts_raise(fc_dir, jax_side, tmp_path):
     pred = _predictor(os.path.join(fc_dir, 'model'))
-    with pytest.raises(NotImplementedError, match='item 6'):
+    # the int8 tier is ported (tests/test_torch_quant.py); without a
+    # calibration sweep it is refused
+    with pytest.raises(ValueError, match='requires calibration'):
         export_compiled(pred, [_x(0, 4)], str(tmp_path / 'q'),
                         quantize='int8')
     with pytest.raises(ValueError, match='quantize'):

@@ -22,9 +22,10 @@ MidStreamEvicted mid-decode).
 Block and slot layouts prefill through different programs (chunk slices
 against one bucketed prompt), whose f32 sums run in different orders, so
 beam scores agree within SCORE_TOL = 1e-5 rather than bit for bit; the
-hypotheses are equal. Left out of the mirror: the int8 pages (ROADMAP
-queue 1 item 6), the mp-sharded artifact and its warm replica (item 10;
-the port compiles nothing), and the AOT sidecars of the layout test.
+hypotheses are equal. Left out of the mirror: the int8 pages (served in
+tests/test_torch_kv_quant.py), the mp-sharded artifact and its warm
+replica (ROADMAP queue 1 item 10; the port compiles nothing), and the AOT
+sidecars of the layout test.
 """
 import json
 import os

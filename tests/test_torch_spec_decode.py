@@ -18,9 +18,9 @@ the plain step's up to the order of f32 sums, and the margins of these
 prompts are far above that (tests/test_torch_decode_block_cross.py holds
 the verify program's logits against the reference's).
 
-Left out of the mirror: the int8 tiers (ROADMAP queue 1 item 6), the
-profiler's serving report (item 11) and the AOT warm start (the port
-compiles nothing).
+Left out of the mirror: the int8 tiers (drafted in
+tests/test_torch_kv_quant.py), the profiler's serving report (ROADMAP
+queue 1 item 11) and the AOT warm start (the port compiles nothing).
 """
 import json
 import os
