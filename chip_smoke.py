@@ -3,9 +3,10 @@
 BERT-base and ResNet-50 trained in f32 and in bf16 mixed precision,
 BERT-base and Transformer-base trained at bench.py's own settings, a
 Transformer-base-wide decoder LM served token by token with continuous
-batching, and the image-classification zoo (SmallNet, AlexNet, VGG-19,
-GoogLeNet, SE-ResNeXt-50) trained and GoogLeNet served at bench.py's
-settings, on one NVIDIA GPU.
+batching, the image-classification zoo (SmallNet, AlexNet, VGG-19,
+GoogLeNet, SE-ResNeXt-50) trained and GoogLeNet served, and the
+stacked-LSTM text classifier and the DeepFM CTR model trained, at
+bench.py's settings, on one NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -15,7 +16,7 @@ It builds the port's CUDA kernels from paddle_tpu_torch/csrc/ (bn_apply,
 flash_attn_fwd and flash_attn_bwd, one nvcc each, in parallel) and holds
 each against its plain PyTorch version on the card (bn_apply and its
 backward, which is plain torch, at batch 16 and 128, and in bf16 at 256).
-Then it drives twenty-seven paths, with random weights from a seed, TF32 off
+Then it drives thirty paths, with random weights from a seed, TF32 off
 and bf16 GEMMs reducing in f32:
 
 - ResNet-50 (depth 50, 224x224, 1000 classes) served through
@@ -61,7 +62,7 @@ and bf16 GEMMs reducing in f32:
   drives it, at Transformer-base widths (decode-base:
   build_decode_spec with vocab 32000, d_model 512, 8 heads, 6 layers,
   d_ff 2048, 32 slots, a 512-long f32 cache, prompt buckets 64/128/256)
-  through export_decode -> DecodingPredictor: 64 requests of 64 new
+  through export_decode -> DecodingPredictor: 12 requests of 32 new
   tokens one at a time, then as Poisson arrivals at 8 times that request
   rate (transcripts equal), then 3 beam-3 requests beside greedy traffic
   (equal to their solo runs); no kernel launches on this path. The same
@@ -70,7 +71,7 @@ and bf16 GEMMs reducing in f32:
 - the same model and weights in the block-paged layout with a verify
   program (build_decode_spec(block_size=16, draft_k=4): the default pool
   of 1025 blocks, chunk sizes 64/128/256), as bench_decode_serving's block
-  arm drives it: the 64 prompts one at a time (transcripts held against
+  arm drives it: the 12 prompts one at a time (transcripts held against
   the slot layout's under the margin rule), then evict_all_prefixes(),
   reset_counters() and Poisson arrivals at 8 times that rate (equal to the
   sequential arm), 3 beam-3 requests against the slot layout's with
@@ -79,15 +80,16 @@ and bf16 GEMMs reducing in f32:
   turn of 8-64 tokens, 4 of 300-480 tokens) served with the prefix cache
   warm and after evict_all_prefixes() (equal transcripts, the prefix
   reused, fewer chunk slices warm); speculative decoding in both layouts
-  (draft='ngram' on the 64 prompts one at a time, and a DraftModelDrafter
-  over a second predictor of the same artifact on 8), greedy transcripts
+  (draft='ngram' on 8 prompts one at a time, and a DraftModelDrafter
+  over a second predictor of the same artifact on 4), greedy transcripts
   held against plain decode's; and the block artifact on the CPU against
   the card, chunk slices, steps and a verify dispatch teacher-forced (1e-3
   of the largest logit). No kernel launches on these paths.
 - bench.py:949-1030 bench_decode_serving_int8's design at decode-base:
   the int8 KV cache (build_decode_spec(kv_cache_dtype='int8')) at 64
   slots against the f32 cache at 32, same weights, in both layouts (the
-  block one with its verify program): the 64 prompts submitted at once
+  block one with its verify program): 64 prompts of 32 new tokens
+  submitted at once
   to each tier (tokens/s, cache bytes, occupancy, ITL, transcript_match
   >= 0.85), a full-occupancy step profiled, a beam-3 request beside
   greedy traffic (blocks copied on write), the int8 artifact on the CPU
@@ -134,9 +136,28 @@ and bf16 GEMMs reducing in f32:
   persistable, under torch.backends.cudnn.deterministic), a resume from
   a checkpoint taking step 3 as the first trainer did, 106 bf16 bn_apply
   launches a step.
+- the stacked-LSTM rows as bench.py:1114-1248 bench_stacked_lstm and
+  bench_stacked_lstm_multistep run them: build_stacked_lstm_train(64)
+  (vocab 30000, emb 256, hidden 256, 2 layers, seq 100, Adam 1e-3) ->
+  enable_bf16 -> Executor.run on bench's feed, 3 warm-up and 30 timed
+  steps (ms/batch, MFU, busy share, peak memory), the LSTM on cuDNN in
+  f32 (the dtype the reference computes it in under enable_bf16; two
+  cuDNN calls a step), then run_steps(8) in 6 timed dispatches, and
+  run_steps(8) against 8 run() calls bit for bit; cuDNN's LSTM held
+  against its plain version at the row's shape (forward and every
+  gradient, with and without dropout). No kernel launches.
+- the CTR row as bench.py:1457-1506 bench_ctr runs it:
+  build_deepfm_train() (26 fields, vocab 100000, embed 16, DNN 400x3,
+  is_sparse embeddings whose gradients are SelectedRows, lazy Adam) at
+  batch 4096 on bench's feed, 3 warm-up and 100 timed steps
+  (samples/s, busy share, peak memory); after the first step every
+  table and moment row no id touched keeps its bits and every touched
+  row moved. No kernel launches.
 
 Each path runs with every kernel's launch count set to 0 just before it
-and read just after. The run compares GPU and CPU outputs of each served
+and read just after. Every top-level step prints `phase <name> seconds`,
+and a `phase_seconds` line before the total lists each phase's own
+seconds from the largest down. The run compares GPU and CPU outputs of each served
 model, the loss and gradients of one step of each trained model (f32 and
 bf16; each tolerance 4 times the one-ulp noise measured over NOISE_DRAWS
 draws on each side; bench_bert's program at batch 2 with k=2, the CPU
@@ -149,7 +170,10 @@ gradient on the card (keep share, Out and dX exact, fresh masks per step
 and microbatch), holds one step of each zoo model at batch 2 (bf16, and
 f32 for VGG-19 and SE-ResNeXt-50) on the card against the CPU (the CPU
 given the card's dropout masks, the backward fed the card's forward
-values) and GoogLeNet's served logits, holds run_steps(4) on VGG-19 and
+values) and GoogLeNet's served logits, one step of the stacked-LSTM
+program at batch 2 (bf16 and f32; cuDNN against the CPU's plain LSTM)
+and of DeepFM at batch 64 (f32: the loss, both tables after the sparse
+update and their first moments), holds run_steps(4) on VGG-19 and
 run_batches(8) on GoogLeNet against run() bit for bit (the one phase that
 sets torch.backends.cudnn.deterministic), checks and times bn_apply at
 the zoo's shapes, times the kernels (CUDA events),
@@ -158,11 +182,37 @@ steps. Every check that fails
 raises, so the exit code is 0 only when all phases passed. Without a
 card it exits 1 and prints no result.
 
+The script must end well inside its time limit on a slow host, so some
+earlier checks run on less than their path's full size, each check and
+tolerance rule kept: the whole-step GPU-vs-CPU gates of the BERT,
+bench_bert and transformer paths build their programs at GATE_LAYERS (2)
+encoder layers (2+2 for the transformer; the CPU side steps each 1 +
+NOISE_DRAWS times), while the card's timed runs keep all 12 (6+6); the
+sequential and Poisson arms of the slot, block and speculative decode
+phases serve DECODE_SERVED (12) requests of bench's 64 (the n-gram arms
+8, the self-draft arms 4, of 16 and 8 before), and every decode
+request takes DECODE_MAX_NEW (32) new tokens of bench's 64 (the int8
+phases' 64 prompts still fill the 64-slot tier); the one-ulp draws of
+the gates are made by torch's generator in f32 (numpy's float64 draws
+of the BERT and transformer gates' states took ~8 s each). Each
+whole-step and backward gate takes its card's steps in its phase and
+hands its CPU's steps, comparison and checks to one worker thread
+(CPU_WORKER_THREADS of torch's threads), which works through them while
+the main thread drives the next phases; the kernels build on that
+worker while the card runs bench_bert's path, which launches none of
+them, and the decode phases run after the zoo's gates. A gate that
+fails on the worker fails the run at the next phase's end, and the
+`cpu_gates_wait` phase waits for the last of them.
+
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit from nvidia-smi, and the one before that the
 kernels' summary as JSON.
 """
+import bisect
+import builtins
 import collections
+import concurrent.futures
+import contextlib
 import json
 import math
 import os
@@ -283,6 +333,12 @@ RESNET_F32_BENCH_BATCH = 256
 RESNET_F32_BENCH_MORE_STEPS = 8
 # one-ulp draws of the GPU-vs-CPU gates' noise, on each side
 NOISE_DRAWS = 3
+# encoder layers (decoder layers too, for the transformer) of the programs
+# the whole-step GPU-vs-CPU gates of the BERT and transformer paths build:
+# the CPU side steps each program 1 + NOISE_DRAWS times, and at full depth
+# those gates took ~240 s of the script's time limit; the card's timed runs
+# keep the full depth
+GATE_LAYERS = 2
 # peak allocated bytes of each training phase's timed steps, by label
 PEAKS = {}
 # the same phases' peaks (GB) before the Executor freed each value after
@@ -325,14 +381,20 @@ TRANS_LR_STEPS = 3
 DECODE = dict(vocab=32000, d_model=512, n_head=8, n_layer=6, d_ff=2048,
               max_slots=32, max_cache_len=512, prompt_buckets=(64, 128, 256),
               eos_id=1)
-DECODE_REQUESTS = 64
-DECODE_MAX_NEW = 64
+DECODE_REQUESTS = 64       # prompts made; the int8 phases submit all of them
+# requests of the sequential and Poisson arms of the slot, block and
+# speculative phases, and new tokens a request in every decode phase
+# (bench's 64 and 64, cut for the script's time limit: a request served
+# alone takes a host-bound step a token; the int8 phases' 64 prompts still
+# fill the 64-slot tier)
+DECODE_SERVED = 12         # the beam arms' greedy traffic takes the 4th-11th
+DECODE_MAX_NEW = 32
 DECODE_RATE_X = 8          # Poisson load, x the measured sequential rate
 DECODE_BEAM = 3            # beam width and number of beam requests
 DECODE_GATE_PROMPTS = 4    # greedy transcripts compared GPU vs CPU
 DECODE_GATE_NEW = 16
 DECODE_TF_STEPS = 16       # teacher-forced steps compared GPU vs CPU
-DECODE_PROFILE_STEPS = 20  # full-occupancy steps timed and profiled
+DECODE_PROFILE_STEPS = 10  # full-occupancy steps timed and profiled
 # the same model in the block layout (bench.py:817-823, the block arm of
 # bench_decode_serving): block_size 16, the default pool of 32 * 32 + 1 =
 # 1025 blocks (12 x 1025 x 16 x 512 x 4 B = 403.0 MB), chunk sizes the
@@ -344,8 +406,8 @@ DECODE_PREFIX_REQUESTS = 32    # each the prefix and a suffix of 8-64 tokens
 DECODE_LONG_PROMPTS = 4        # 300-480 tokens, past the largest chunk
 DECODE_SUFFIX_LENS = (8, 65)   # randint ranges of the suffixes
 DECODE_LONG_LENS = (300, 481)  # and of the long prompts
-DECODE_SPEC_REQUESTS = 16      # n-gram speculative requests a layout
-DECODE_SELF_DRAFT_PROMPTS = 8
+DECODE_SPEC_REQUESTS = 8       # n-gram speculative requests a layout
+DECODE_SELF_DRAFT_PROMPTS = 4
 DECODE_MARGIN_TOL = 1e-3       # the serving gate's tolerance (margin rule)
 # the image-classification rows of bench.py (BENCHES, bench.py:1771-1790) as
 # _bench_image_train (:395-429) and bench_smallnet (:1079-1110) run them:
@@ -441,6 +503,78 @@ BN_CHECKS = _bn_checks(
 def check(cond, msg):
     if not cond:
         raise RuntimeError('check failed: ' + msg)
+
+
+# The CPU sides of the GPU-vs-CPU gates (the CPU's steps from the card's
+# initial state, the comparison and its checks) run on one worker thread
+# while the main thread drives the card's next phases: at the script's time
+# limit the CPU steps were a third of its seconds. The worker gets
+# CPU_WORKER_THREADS of torch's threads, half the host's CPUs, so that the
+# main thread's host-bound loops (decode, the batcher, DeepFM) keep cores
+# of their own. A failure raises at the next phase boundary
+# (_phase_seconds) or at the wait before the summary (_cpu_gates_done).
+CPU_WORKER_THREADS = max(1, (os.cpu_count() or 2) // 2)
+_CPU_WORKER = concurrent.futures.ThreadPoolExecutor(
+    1, thread_name_prefix='cpu-gates')
+_CPU_GATES = []          # (label, future) in the order submitted
+_PRINT_LOCK = threading.Lock()
+
+
+def print(*args, **kwargs):  # noqa: A001 (the worker prints too)
+    """builtins.print under a lock, so the worker's lines and the main
+    thread's never break into each other."""
+    with _PRINT_LOCK:
+        builtins.print(*args, **kwargs)
+
+
+def _on_cpu_worker(label, fn):
+    """Run fn() on the CPU worker after the work submitted before it."""
+    _CPU_GATES.append((label, _CPU_WORKER.submit(fn)))
+
+
+def _raise_cpu_failures(wait=False):
+    """Raise the first failure of the CPU worker's work (all of it done
+    first, with wait)."""
+    for label, fut in _CPU_GATES:
+        if wait or fut.done():
+            exc = fut.exception()
+            if exc is not None:
+                raise RuntimeError('%s (CPU side) failed' % label) from exc
+
+
+def _cpu_gates_done():
+    """Wait for every gate's CPU side; raise the first failure."""
+    _raise_cpu_failures(wait=True)
+    _CPU_WORKER.shutdown()
+    print('cpu worker: its %d jobs done' % len(_CPU_GATES))
+
+
+# the dropout keep masks a thread is given in place of its own draws
+# (the CPU sides of the gates take the card's): a function (ctx, shape, p)
+# -> keep, or None for the real draw
+_GIVEN_MASKS = threading.local()
+_real_draw_dropout_keep = tensor_ops.draw_dropout_keep
+
+
+def _draw_dropout_keep(ctx, shape, p):
+    given = getattr(_GIVEN_MASKS, 'fn', None)
+    if given is None:
+        return _real_draw_dropout_keep(ctx, shape, p)
+    return given(ctx, shape, p)
+
+
+tensor_ops.draw_dropout_keep = _draw_dropout_keep
+
+
+@contextlib.contextmanager
+def _masks_given(fn):
+    """In this thread, dropout draws its keep masks from fn (ctx, shape,
+    p); the real draw again after."""
+    _GIVEN_MASKS.fn = fn
+    try:
+        yield
+    finally:
+        _GIVEN_MASKS.fn = None
 
 
 def card_line():
@@ -759,15 +893,13 @@ def _time_ms(fn, inputs, spin_cycles=SPIN_CYCLES):
 def _busy_ms(fn, inputs):
     """Device busy ms per fn call: the CUDA kernels' own time under
     torch.profiler over KERNEL_REPS calls (gaps between kernels excluded)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for i in range(KERNEL_REPS):
             fn(inputs[i % len(inputs)])
         torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA)
+    busy_us = sum(us for us, _, _ in _device_rows(prof)[0])
     check(busy_us > 0, 'the profiler saw no device time')
     return busy_us * 1e-3 / KERNEL_REPS
 
@@ -840,19 +972,11 @@ def _profile(run_once, label, what, calls=3):
             run_once()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    from torch.autograd import DeviceType
-    rows = sorted(((e.self_device_time_total, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
+    rows, ops = _device_rows(prof)
     if not rows:
         print('profile %s: no device time in the trace (not measured)'
               % label)
         return None
-    ops = collections.defaultdict(collections.Counter)
-    for e in prof.events():
-        for k in e.kernels:
-            ops[k.name][e.name] += 1
     busy_s = sum(r[0] for r in rows) * 1e-6
     library = sum(r[0] for r in rows if any(
         t in r[2] for t in _LIBRARY_KERNELS)) * 1e-6
@@ -865,6 +989,70 @@ def _profile(run_once, label, what, calls=3):
               % (label, key[:160], count, dev_us * 1e-3,
                  dev_us * 1e-6 / busy_s, dict(ops[key])))
     return {key: dev_us * 1e-3 for dev_us, _, key in rows}
+
+
+def _device_rows(prof):
+    """From a finished torch.profiler trace: [(device us, count, name)] of
+    every device activity (kernels, copies, sets), the largest first, and
+    {name: Counter of the CPU ops that launched it}, read from the raw
+    Kineto events (the FunctionEvent tree that key_averages() builds took
+    1-3 s a trace on the card's host, ~45 s of the whole script)."""
+    return _kineto_rows(prof.profiler.kineto_results.events())
+
+
+def _launched_by(events):
+    """[(device event, the innermost CPU op event around the runtime call,
+    cudaLaunchKernel, cudaMemcpyAsync, ..., whose correlation id it
+    carries, or None)] of every device event among Kineto `events`."""
+    from torch.autograd import DeviceType
+    launch_of = {}                     # correlation id -> (thread, start)
+    cpu_ops = collections.defaultdict(list)
+    device = []
+    for e in events:
+        if e.device_type() == DeviceType.CUDA:
+            device.append(e)
+            continue
+        start = e.start_ns()
+        if e.name().startswith('cu'):  # a CUDA runtime or driver call
+            launch_of[e.correlation_id()] = (e.start_thread_id(), start)
+        else:
+            cpu_ops[e.start_thread_id()].append(
+                (start, start + e.duration_ns(), e))
+    starts = {}
+    for tid, lst in cpu_ops.items():
+        lst.sort(key=lambda op: (op[0], -op[1]))  # an op before its children
+        starts[tid] = [op[0] for op in lst]
+    out = []
+    for e in device:
+        launch = (launch_of.get(e.linked_correlation_id())
+                  or launch_of.get(e.correlation_id()))
+        op = None
+        if launch is not None and launch[0] in starts:
+            lst = cpu_ops[launch[0]]
+            i = bisect.bisect_right(starts[launch[0]], launch[1]) - 1
+            while i >= 0 and lst[i][1] < launch[1]:  # the innermost op
+                i -= 1                                # holding the launch
+            op = lst[i][2] if i >= 0 else None
+        out.append((e, op))
+    return out
+
+
+def _kineto_rows(events):
+    """_device_rows from Kineto events: a device event's time goes to its
+    name, and it is attributed to the op that launched it
+    (_launched_by)."""
+    dev_us = collections.Counter()
+    count = collections.Counter()
+    ops = collections.defaultdict(collections.Counter)
+    for e, op in _launched_by(events):
+        name = e.name()
+        dev_us[name] += e.duration_ns() * 1e-3
+        count[name] += 1
+        if op is not None:
+            ops[name][op.name()] += 1
+    rows = sorted(((us, count[n], n) for n, us in dev_us.items() if us > 0),
+                  reverse=True)
+    return rows, ops
 
 
 def _qkv(b, h, sq, sk, d, dtype, gen):
@@ -1215,17 +1403,19 @@ def _mark(main, amp):
     return main
 
 
-def build_bert_training(amp=False, checkpoints=None):
+def build_bert_training(amp=False, checkpoints=None,
+                        n_layer=BERT['n_layer']):
     """Full-width BERT-base pretraining at S=512: the masked-LM loss and
     Adam(lr 1e-4).minimize, dropout 0, seeded initialization; with amp,
     marked for bf16 by contrib.mixed_precision.enable_bf16; with
     `checkpoints` (True: each layer's output), remat segments
-    (passes/recompute.py)."""
+    (passes/recompute.py); `n_layer` encoder layers."""
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = SEED
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
         _, loss = build_bert_pretrain(dropout=0.0, lr=1e-4,
-                                      checkpoints=checkpoints, **BERT)
+                                      checkpoints=checkpoints,
+                                      **dict(BERT, n_layer=n_layer))
     return _mark(main, amp), startup, loss
 
 
@@ -1361,8 +1551,10 @@ def _bert_training_profile(exe, main, loss, scope, feed, amp):
               % (_precision(amp), k2 / 3, k2 / sum(per_kernel.values())))
 
 
-def phase_training_gpu_vs_cpu(main, startup, loss, amp=False):
-    """One training step at full width, batch 1, from one initial state
+def phase_training_gpu_vs_cpu(amp=False):
+    """One training step of the S=512 program at full width and
+    GATE_LAYERS layers (the script's time limit: the CPU steps it
+    1 + NOISE_DRAWS times), batch 1, from one initial state
     (the startup program run on the card, carried to a CPU scope with
     weights.py): the loss and the gradients of word_emb, the first layer's
     Q weight and the last layer_norm's scale, GPU against CPU.
@@ -1379,12 +1571,18 @@ def phase_training_gpu_vs_cpu(main, startup, loss, amp=False):
     moves by ~1e-6. A fixed tolerance would be either too loose for the
     one or too tight for the others."""
     label = 'bert_training%s_gpu_vs_cpu' % ('_bf16' if amp else '')
+    main, startup, loss = build_bert_training(amp, n_layer=GATE_LAYERS)
     names = [loss.name, 'word_emb@GRAD', 'fc_0.w_0@GRAD',
              _last_layer_norm_scale(main) + '@GRAD']
     gen = torch.Generator(device='cuda').manual_seed(SEED + 11)
-    worst = _gate_rows(label, 'batch=1', _gpu_vs_cpu_step(
-        main, startup, names, _train_feed(1, gen), SEED + 13, amp))
-    print('%s batch=1 worst err/tol=%.3f (%s)' % (label, worst[0], worst[1]))
+    rows = _gpu_vs_cpu_step(main, startup, names, _train_feed(1, gen),
+                            SEED + 13, amp)
+
+    def cpu_side():
+        worst = _gate_rows(label, 'batch=1 layers=%d' % GATE_LAYERS, rows())
+        print('%s batch=1 worst err/tol=%.3f (%s)' % (label, worst[0],
+                                                      worst[1]))
+    _on_cpu_worker(label, cpu_side)
 
 
 def _last_layer_norm_scale(main):
@@ -1413,34 +1611,34 @@ def _gate_rows(label, desc, rows):
 
 def _ulp_moved(a, rng, amp):
     """a moved by about one ulp of the path's compute dtype, at random:
-    f32 scaled by 1 + 1e-7·N(0, 1); with amp, one bf16 ulp at each
-    element's magnitude, up or down (a bf16 value lands on its neighbour,
-    an f32 parameter on a value whose bf16 cast does). numpy arrays and
-    torch tensors (bf16 ones too) alike; a tensor's draws are made where
-    it lies, by a torch generator seeded from rng, so a large one (VGG-19
-    has 144M parameters) never goes through numpy."""
-    if isinstance(a, torch.Tensor):
-        if not a.is_floating_point():
+    f32 scaled by 1 + 1e-7·N(0, 1) (computed in f32); with amp, one bf16
+    ulp at each element's magnitude, up or down (a bf16 value lands on its
+    neighbour, an f32 parameter on a value whose bf16 cast does). numpy
+    arrays and torch tensors (bf16 ones too) alike. The draws are made by
+    a torch generator seeded from rng, where a tensor lies, for a numpy
+    array on the card (the moved array comes back to the host): numpy's
+    float64 draws took ~8 s for each 186M-element state of the S=512 BERT
+    gate's program, torch's on the CPU 1-2 s a draw of the main thread. An
+    array of zeros (an Adam moment before the first step) stays as it is,
+    as the rule leaves it, and draws nothing."""
+    if isinstance(a, np.ndarray):
+        if a.dtype.kind != 'f' or not a.any():
             return a
-        gen = torch.Generator(device=a.device).manual_seed(
-            int(rng.randint(2 ** 31)))
-        x = a.float()
-        if amp:
-            m, e = torch.frexp(x)
-            step = torch.where(m == 0, 0.0, torch.ldexp(torch.ones_like(x),
-                                                        e - 8))
-            sign = torch.randint(0, 2, x.shape, generator=gen,
-                                 device=x.device) * 2 - 1
-            return (x + sign * step).to(a.dtype)
-        noise = torch.randn(x.shape, generator=gen, device=x.device)
-        return (x * (1 + 1e-7 * noise)).to(a.dtype)
-    if a.dtype.kind != 'f':
+        return _ulp_moved(torch.from_numpy(a).cuda(), rng, amp).cpu().numpy()
+    if not a.is_floating_point():
         return a
+    gen = torch.Generator(device=a.device).manual_seed(
+        int(rng.randint(2 ** 31)))
+    x = a.float()
     if amp:
-        m, e = np.frexp(a.astype(np.float64))
-        step = np.where(m == 0, 0.0, np.ldexp(1.0, e - 8))
-        return (a + rng.choice([-1.0, 1.0], a.shape) * step).astype(a.dtype)
-    return (a * (1 + 1e-7 * rng.randn(*a.shape))).astype(a.dtype)
+        m, e = torch.frexp(x)
+        step = torch.where(m == 0, 0.0, torch.ldexp(torch.ones_like(x),
+                                                    e - 8))
+        sign = torch.randint(0, 2, x.shape, generator=gen,
+                             device=x.device) * 2 - 1
+        return (x + sign * step).to(a.dtype)
+    noise = torch.randn(x.shape, generator=gen, device=x.device)
+    return (x * (1 + 1e-7 * noise)).to(a.dtype)
 
 
 def _perturbed(arrays, seed, amp=False, only=None):
@@ -1451,45 +1649,68 @@ def _perturbed(arrays, seed, amp=False, only=None):
             for n, a in arrays.items()}
 
 
+def _max_abs(a, b=None):
+    """max |a - b| (max |a| without b) of two numpy arrays, as a float: the
+    same float32 arithmetic as numpy's, on torch's threads (the gates
+    compare states of 10^7-10^8 elements)."""
+    a = torch.from_numpy(np.asarray(a))
+    d = a if b is None else a - torch.from_numpy(np.asarray(b))
+    return float(d.abs().max()) if d.numel() else 0.0
+
+
 def _gpu_vs_cpu_step(main, startup, names, feed, seed, amp=False,
                      only=None):
     """One training step from one initial state, the startup program run
     on the card and carried to CPU scopes with weights.py, fetching
     `names`: on the card and on the CPU, and on each again from the state
     moved by one ulp (_perturbed, f32 or with amp bf16; only the arrays
-    named in `only`, if given) in NOISE_DRAWS draws from `seed`.
-    Returns, for each name, (name, GPU value, CPU value, the largest
-    |GPU - CPU|, the largest |CPU|, the noise: the largest
-    move over the draws on the card plus the largest on the CPU, its
-    tolerance: max(1e-5 of the largest |CPU|, 4 times the noise))."""
+    named in `only`, if given) in NOISE_DRAWS draws from `seed`. The
+    card's steps run now; returns a function that takes the CPU's (on the
+    calling thread, in the masks that thread is given) and returns, for
+    each name, (name, GPU value, CPU value, the largest |GPU - CPU|, the
+    largest |CPU|, the noise: the largest move over the draws on the card
+    plus the largest on the CPU, its tolerance: max(1e-5 of the largest
+    |CPU|, 4 times the noise))."""
     gpu_scope = fluid.Scope()
     gpu = fluid.Executor(fluid.CUDAPlace(0))
-    cpu = fluid.Executor(fluid.CPUPlace())
     gpu.run(startup, scope=gpu_scope)
     state = fluid.weights.state_to_numpy(main, gpu_scope)
     del gpu_scope
     cpu_feed = {k: t.cpu() for k, t in feed.items()}
+    states = [state] + [_perturbed(state, seed + i, amp, only)
+                        for i in range(1, NOISE_DRAWS + 1)]
     runs = {}
     t0 = time.perf_counter()
-    for i in range(NOISE_DRAWS + 1):
-        st = state if i == 0 else _perturbed(state, seed + i, amp, only)
-        for exe, device, fd in ((gpu, 'cuda', feed), (cpu, 'cpu', cpu_feed)):
+    for i, st in enumerate(states):
+        scope = fluid.Scope()
+        fluid.weights.params_from_numpy(st, main, scope, device='cuda')
+        runs['cuda', i] = gpu.run(main, feed=feed, fetch_list=names,
+                                  scope=scope)
+    gpu_s = time.perf_counter() - t0
+
+    def cpu_rows():
+        cpu = fluid.Executor(fluid.CPUPlace())
+        t0 = time.perf_counter()
+        for i, st in enumerate(states):
             scope = fluid.Scope()
-            fluid.weights.params_from_numpy(st, main, scope, device=device)
-            runs[device, i] = exe.run(main, feed=fd, fetch_list=names,
-                                      scope=scope)
-    print('gpu_vs_cpu step %s: %d draws on each side, %.1f s' % (
-        _precision(amp), NOISE_DRAWS, time.perf_counter() - t0))
-    rows = []
-    for j, name in enumerate(names):
-        g, w = runs['cuda', 0][j], runs['cpu', 0][j]
-        noise = sum(max(float(np.abs(runs[d, i][j] - runs[d, 0][j]).max())
-                        for i in range(1, NOISE_DRAWS + 1))
-                    for d in ('cuda', 'cpu'))
-        err = float(np.abs(g - w).max())
-        top = float(np.abs(w).max())
-        rows.append((name, g, w, err, top, noise, max(1e-5 * top, 4 * noise)))
-    return rows
+            fluid.weights.params_from_numpy(st, main, scope, device='cpu')
+            runs['cpu', i] = cpu.run(main, feed=cpu_feed, fetch_list=names,
+                                     scope=scope)
+        print('gpu_vs_cpu step %s: %d draws on each side, card %.1f s, '
+              'cpu %.1f s' % (_precision(amp), NOISE_DRAWS, gpu_s,
+                              time.perf_counter() - t0))
+        rows = []
+        for j, name in enumerate(names):
+            g, w = runs['cuda', 0][j], runs['cpu', 0][j]
+            noise = sum(max(_max_abs(runs[d, i][j], runs[d, 0][j])
+                            for i in range(1, NOISE_DRAWS + 1))
+                        for d in ('cuda', 'cpu'))
+            err = _max_abs(g, w)
+            top = _max_abs(w)
+            rows.append((name, g, w, err, top, noise,
+                         max(1e-5 * top, 4 * noise)))
+        return rows
+    return cpu_rows
 
 
 def _dropout_program(amp, shape=DROPOUT_SHAPE):
@@ -1525,10 +1746,9 @@ def _microbatch_masks():
         fluid.optimizer.SGD(0.1).minimize(loss)
     gradient_merge.enable(BENCH_K, main)
     drawn = []
-    real = tensor_ops.draw_dropout_keep
 
     def record(ctx, shape, p):
-        keep = real(ctx, shape, p)
+        keep = _real_draw_dropout_keep(ctx, shape, p)
         if ctx.device.type == 'cuda':
             drawn.append((ctx.interp.step, ctx.interp.micro, keep))
         return keep
@@ -1539,12 +1759,9 @@ def _microbatch_masks():
     gen = torch.Generator(device='cuda').manual_seed(SEED + 21)
     feed = {'x': torch.randn(BENCH_K * 64, 768, device='cuda',
                              generator=gen)}
-    tensor_ops.draw_dropout_keep = record
-    try:
+    with _masks_given(record):
         for _ in range(2):
             exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
-    finally:
-        tensor_ops.draw_dropout_keep = real
     return drawn
 
 
@@ -1601,17 +1818,18 @@ def phase_dropout_on_card():
           '4 different masks' % BENCH_K)
 
 
-def build_bert_bench_training(amp=True, checkpoints=None):
+def build_bert_bench_training(amp=True, checkpoints=None,
+                              n_layer=BENCH_BERT['n_layer']):
     """bench.py:504-540's BERT-base program: build_bert_pretrain at S=128
     with its defaults (dropout 0.1, Adam lr 1e-4), seeded initialization,
     enable_bf16 (with amp) and gradient_merge.enable(2); `checkpoints` as
-    PTPU_BENCH_BERT_REMAT passes it (bench.py:512-521). Returns (main,
-    startup, loss, feeds)."""
+    PTPU_BENCH_BERT_REMAT passes it (bench.py:512-521); `n_layer`
+    encoder layers. Returns (main, startup, loss, feeds)."""
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = SEED
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
-        feeds, loss = build_bert_pretrain(checkpoints=checkpoints,
-                                          **BENCH_BERT)
+        feeds, loss = build_bert_pretrain(
+            checkpoints=checkpoints, **dict(BENCH_BERT, n_layer=n_layer))
     gradient_merge.enable(BENCH_K, _mark(main, amp))
     return main, startup, loss, feeds
 
@@ -1774,33 +1992,42 @@ def _gpu_vs_cpu_card_masks(label, main, startup, names, feed, seed, amp,
     parameters only: each dropout op's keep decision in each microbatch,
     drawn on the card in the first run, is given to every later run on the
     card and on the CPU (the two devices' generators give different
-    streams). Fails unless `n_masks` were drawn; returns the rows."""
+    streams). Fails unless `n_masks` were drawn; returns the function that
+    takes the CPU's steps, in the card's masks, and returns the rows."""
     masks = {}
-    real = tensor_ops.draw_dropout_keep
 
     def card_masks(ctx, shape, p):
         if ctx.device.type == 'meta':
-            return real(ctx, shape, p)
+            return _real_draw_dropout_keep(ctx, shape, p)
         key = (ctx.interp.micro, ctx.op.output('Mask')[0])
         if key not in masks:
-            check(ctx.device.type == 'cuda', 'the CPU ran before the card')
-            masks[key] = real(ctx, shape, p)
-        return masks[key].to(ctx.device)
+            masks[key] = _real_draw_dropout_keep(ctx, shape, p)
+        return masks[key]
 
-    tensor_ops.draw_dropout_keep = card_masks
-    try:
+    with _masks_given(card_masks):
         rows = _gpu_vs_cpu_step(main, startup, names, feed, seed, amp,
                                 {p.name for p in main.all_parameters()})
-    finally:
-        tensor_ops.draw_dropout_keep = real
     check(len(masks) == n_masks, '%s: %d masks recorded, not %d'
           % (label, len(masks), n_masks))
-    return rows
+    on_cpu = {k: m.cpu() for k, m in masks.items()}
+
+    def cpu_masks(ctx, shape, p):
+        if ctx.device.type == 'meta':
+            return _real_draw_dropout_keep(ctx, shape, p)
+        key = (ctx.interp.micro, ctx.op.output('Mask')[0])
+        check(key in on_cpu, '%s: the CPU drew a mask the card did not: %s'
+              % (label, key))
+        return on_cpu[key]
+
+    def cpu_rows():
+        with _masks_given(cpu_masks):
+            return rows()
+    return cpu_rows
 
 
 def phase_bench_gpu_vs_cpu(amp):
     """One step of bench_bert's program (k=2, dropout 0.1, f32 or with amp
-    bf16) at batch 2, GPU against CPU, from one initial state, with the
+    bf16) at GATE_LAYERS layers and batch 2, GPU against CPU, from one initial state, with the
     card's masks (_gpu_vs_cpu_card_masks): the loss and the merged
     gradients of word_emb, the first Q weight and the last layer_norm
     scale, each within 4 times the one-ulp noise over NOISE_DRAWS draws on
@@ -1808,30 +2035,35 @@ def phase_bench_gpu_vs_cpu(amp):
     Adam state, zeros and constants before the first step, enters no
     fetched value: the update runs after the gradients are merged)."""
     label = 'bert_bench_training%s_gpu_vs_cpu' % ('_bf16' if amp else '')
-    main, startup, loss, feeds = build_bert_bench_training(amp)
+    main, startup, loss, feeds = build_bert_bench_training(
+        amp, n_layer=GATE_LAYERS)
     names = [loss.name, 'word_emb@GRAD', 'fc_0.w_0@GRAD',
              _last_layer_norm_scale(main) + '@GRAD']
-    n_masks = BENCH_K * (1 + 3 * BENCH_BERT['n_layer'])
+    n_masks = BENCH_K * (1 + 3 * GATE_LAYERS)
     rows = _gpu_vs_cpu_card_masks(label, main, startup, names,
                                   _bench_feed(feeds, BENCH_GATE_BATCH),
                                   SEED + 17, amp, n_masks)
-    worst = _gate_rows(label, 'batch=%d k=%d' % (BENCH_GATE_BATCH, BENCH_K),
-                       rows)
-    print('%s worst err/tol=%.3f (%s); %d card masks given to the CPU'
-          % (label, worst[0], worst[1], n_masks))
+
+    def cpu_side():
+        worst = _gate_rows(label, 'batch=%d k=%d layers=%d' % (
+            BENCH_GATE_BATCH, BENCH_K, GATE_LAYERS), rows())
+        print('%s worst err/tol=%.3f (%s); %d card masks given to the CPU'
+              % (label, worst[0], worst[1], n_masks))
+    _on_cpu_worker(label, cpu_side)
 
 
-def build_transformer_bench_training(dropout=0.1, amp=True, k=1):
+def build_transformer_bench_training(dropout=0.1, amp=True, k=1,
+                                     n_layer=TRANS['n_layer']):
     """bench.py:448-501's Transformer-base program:
-    build_transformer_train at its settings with `dropout`, seeded
-    initialization, enable_bf16 (with amp) and, with k > 1,
-    gradient_merge.enable(k). Returns (main, startup, loss, feeds,
+    build_transformer_train at its settings with `dropout` and `n_layer`
+    encoder and decoder layers, seeded initialization, enable_bf16 (with
+    amp) and, with k > 1, gradient_merge.enable(k). Returns (main, startup, loss, feeds,
     flops_per_token, the learning-rate var's name)."""
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = SEED
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
-        feeds, loss, flops = build_transformer_train(dropout=dropout,
-                                                     **TRANS)
+        feeds, loss, flops = build_transformer_train(
+            dropout=dropout, **dict(TRANS, n_layer=n_layer))
     _mark(main, amp)
     if k > 1:
         gradient_merge.enable(k, main)
@@ -1866,13 +2098,13 @@ def _check_lr(label, rates, first_step=1):
     check(not bad, '%s: the learning rate is not noam\'s: %s' % (label, bad))
 
 
-def _trans_want(dropout):
+def _trans_want(dropout, n=TRANS['n_layer']):
     """(op census, K2 launches a step by dtype, K2 launches a step by
     causal flag) of the program at `dropout`: every attention composed at
     0.1 (no launch), fused at 0, where each of the 3·n_layer attentions
     launches the forward twice (the op and its grad's recompute) and each
-    backward kernel once, the n_layer decoder self-attentions causal."""
-    n = TRANS['n_layer']
+    backward kernel once, the n decoder self-attentions causal (the op
+    counts are those at bench's 6+6 layers)."""
     attn = 3 * n
     if dropout:
         return ({'ops': 1157, 'dropout': 2 + attn + 5 * n,
@@ -1952,7 +2184,8 @@ def phase_transformer_lr_under_gradient_merge():
 
 def phase_transformer_gpu_vs_cpu(dropout, amp):
     """One step of bench_transformer's program (dropout 0.1 or 0; f32 or
-    with amp bf16) at TRANS_GATE_BATCH, GPU against CPU, from one initial
+    with amp bf16) at GATE_LAYERS+GATE_LAYERS layers and TRANS_GATE_BATCH,
+    GPU against CPU, from one initial
     state: the loss and the gradients of both embeddings, the first Q
     weight and the last layer_norm scale, each within 4 times the one-ulp
     noise over NOISE_DRAWS draws on each side (_gpu_vs_cpu_step, the draws
@@ -1963,10 +2196,10 @@ def phase_transformer_gpu_vs_cpu(dropout, amp):
     label = 'transformer_bench_training%s%s_gpu_vs_cpu' % (
         '' if dropout else '_dropout0', '_bf16' if amp else '')
     main, startup, loss, feeds, _, _ = build_transformer_bench_training(
-        dropout, amp)
+        dropout, amp, n_layer=GATE_LAYERS)
     names = [loss.name, 'src_emb@GRAD', 'trg_emb@GRAD', 'fc_0.w_0@GRAD',
              _last_layer_norm_scale(main) + '@GRAD']
-    n_masks = _trans_want(dropout)[0]['dropout']
+    n_masks = _trans_want(dropout, GATE_LAYERS)[0]['dropout']
     reset_launches()
     rows = _gpu_vs_cpu_card_masks(label, main, startup, names,
                                   _trans_feed(feeds, TRANS_GATE_BATCH),
@@ -1974,10 +2207,14 @@ def phase_transformer_gpu_vs_cpu(dropout, amp):
     launched = read_launches()['flash_attn_fwd']
     check((launched > 0) == (dropout == 0), '%s: %d K2 launches'
           % (label, launched))
-    worst = _gate_rows(label, 'batch=%d' % TRANS_GATE_BATCH, rows)
-    print('%s worst err/tol=%.3f (%s); %d card masks given to the CPU; '
-          '%d K2 forward launches on the card' % (
-              label, worst[0], worst[1], n_masks, launched))
+
+    def cpu_side():
+        worst = _gate_rows(label, 'batch=%d layers=%d+%d' % (
+            TRANS_GATE_BATCH, GATE_LAYERS, GATE_LAYERS), rows())
+        print('%s worst err/tol=%.3f (%s); %d card masks given to the CPU; '
+              '%d K2 forward launches on the card' % (
+                  label, worst[0], worst[1], n_masks, launched))
+    _on_cpu_worker(label, cpu_side)
     torch.cuda.empty_cache()
 
 
@@ -2142,23 +2379,26 @@ def phase_resnet_training_gpu_vs_cpu(main, startup, loss, amp=False):
     shown = {loss.name, first_conv + '@GRAD', 'batch_norm_0.w_0@GRAD',
              'batch_norm_0.b_0@GRAD', 'batch_norm_52.w_0@GRAD',
              'batch_norm_52.b_0@GRAD', 'fc_0.w_0@GRAD'}
-    worst = (0.0, '')
-    failed = []
-    for name, g, w, err, top, noise, tol in rows:
-        if name in shown:
-            print('%s batch=%d %s shape=%s max_abs_err=%r max_abs=%r rel=%r '
-                  'one_ulp_noise=%r tolerance=%r' % (
-                      label, RESNET_GATE_BATCH, name, tuple(w.shape), err,
-                      top, err / top, noise, tol))
-        ok = g.shape == w.shape and np.isfinite(g).all() and err <= tol \
-            and (top > 0 or name == loss.name)
-        if not ok:
-            failed.append((name, err, tol, top))
-        worst = max(worst, (err / tol, name))
-    print('%s batch=%d tensors=%d worst err/tol=%.3f (%s)' % (
-        label, RESNET_GATE_BATCH, len(names), worst[0], worst[1]))
-    check(not failed, 'GPU and CPU ResNet-50 training step differ (name, '
-          'err, tolerance, largest value): %s' % failed[:10])
+
+    def cpu_side():
+        worst = (0.0, '')
+        failed = []
+        for name, g, w, err, top, noise, tol in rows():
+            if name in shown:
+                print('%s batch=%d %s shape=%s max_abs_err=%r max_abs=%r '
+                      'rel=%r one_ulp_noise=%r tolerance=%r' % (
+                          label, RESNET_GATE_BATCH, name, tuple(w.shape),
+                          err, top, err / top, noise, tol))
+            ok = g.shape == w.shape and np.isfinite(g).all() and err <= tol \
+                and (top > 0 or name == loss.name)
+            if not ok:
+                failed.append((name, err, tol, top))
+            worst = max(worst, (err / tol, name))
+        print('%s batch=%d tensors=%d worst err/tol=%.3f (%s)' % (
+            label, RESNET_GATE_BATCH, len(names), worst[0], worst[1]))
+        check(not failed, 'GPU and CPU ResNet-50 training step differ (name, '
+              'err, tolerance, largest value): %s' % failed[:10])
+    _on_cpu_worker(label, cpu_side)
 
 
 def _update_program(main):
@@ -2209,51 +2449,55 @@ def phase_resnet_backward_gpu_vs_cpu(main, startup, amp=False):
     for n, t in fed.items():
         block.var(n).dtype = fluid.convert_dtype(t.dtype)
     n_bf16 = sum(t.dtype == torch.bfloat16 for t in fed.values())
-    runs = {}
     dtype = 'bfloat16' if amp else 'float32'
-    for place, device in ((fluid.CUDAPlace(0), 'cuda'),
-                          (fluid.CPUPlace(), 'cpu')):
-        exe = fluid.Executor(place)
-        for i in range(NOISE_DRAWS + 1):
-            st, fd = state, fed
-            if i:
-                st = _perturbed(state, SEED + 19 + 2 * i, amp)
-                fd = _perturbed(fed, SEED + 20 + 2 * i, amp)
+    draws = [(state, fed)] + [
+        (_perturbed(state, SEED + 19 + 2 * i, amp),
+         _perturbed(fed, SEED + 20 + 2 * i, amp))
+        for i in range(1, NOISE_DRAWS + 1)]
+    runs = {}
+    for i, (st, fd) in enumerate(draws):
+        scope = fluid.Scope()
+        fluid.weights.params_from_numpy(st, main, scope, device='cuda')
+        before = read_launches_by_dtype()['bn_apply']
+        runs['cuda', i] = gpu.run(update, feed=fd, fetch_list=grads,
+                                  scope=scope)
+        after = read_launches_by_dtype()['bn_apply']
+        step = {k: after[k] - before[k] for k in after}
+        check(step[dtype] == 53 and sum(step.values()) == 53,
+              'the backward launched bn_apply %s, not 53 %s' % (step, dtype))
+    draws = [(st, {n: t.cpu() for n, t in fd.items()}) for st, fd in draws]
+
+    def cpu_side():
+        cpu = fluid.Executor(fluid.CPUPlace())
+        for i, (st, fd) in enumerate(draws):
             scope = fluid.Scope()
-            fluid.weights.params_from_numpy(st, main, scope, device=device)
-            before = read_launches_by_dtype()['bn_apply']
-            runs[device, i] = exe.run(
-                update, feed={n: t.to(device) for n, t in fd.items()},
-                fetch_list=grads, scope=scope)
-            if device == 'cuda':
-                after = read_launches_by_dtype()['bn_apply']
-                step = {k: after[k] - before[k] for k in after}
-                check(step[dtype] == 53 and sum(step.values()) == 53,
-                      'the backward launched bn_apply %s, not 53 %s'
-                      % (step, dtype))
-    failed, bn_rel = [], {}
-    worst = (0.0, '')
-    for j, name in enumerate(grads):
-        g, w = runs['cuda', 0][j], runs['cpu', 0][j]
-        noise = sum(max(float(np.abs(runs[d, i][j] - runs[d, 0][j]).max())
-                        for i in range(1, NOISE_DRAWS + 1))
-                    for d in ('cuda', 'cpu'))
-        err, top = float(np.abs(g - w).max()), float(np.abs(w).max())
-        tol = max(1e-5 * top, 4 * noise)
-        if name.startswith('batch_norm_'):
-            bn_rel[name[:-5]] = round(err / top, 9) if top > 0 else None
-        if not (g.shape == w.shape and np.isfinite(g).all() and top > 0
-                and err <= tol):
-            failed.append((name, err, tol, top))
-        worst = max(worst, (err / tol, name))
-    print('%s batch=%d fed the card\'s forward values (%d of %d bf16): '
-          'tensors=%d worst err/tol=%.3f (%s)' % (
-              label, RESNET_GATE_BATCH, n_bf16, len(fed), len(grads),
-              worst[0], worst[1]))
-    print('%s BN scale/bias gradients err/|max|: %s'
-          % (label, json.dumps(bn_rel)))
-    check(not failed, 'GPU and CPU ResNet-50 backward differ (name, err, '
-          'tolerance, largest value): %s' % failed[:10])
+            fluid.weights.params_from_numpy(st, main, scope, device='cpu')
+            runs['cpu', i] = cpu.run(update, feed=fd, fetch_list=grads,
+                                     scope=scope)
+        failed, bn_rel = [], {}
+        worst = (0.0, '')
+        for j, name in enumerate(grads):
+            g, w = runs['cuda', 0][j], runs['cpu', 0][j]
+            noise = sum(max(_max_abs(runs[d, i][j], runs[d, 0][j])
+                            for i in range(1, NOISE_DRAWS + 1))
+                        for d in ('cuda', 'cpu'))
+            err, top = _max_abs(g, w), _max_abs(w)
+            tol = max(1e-5 * top, 4 * noise)
+            if name.startswith('batch_norm_'):
+                bn_rel[name[:-5]] = round(err / top, 9) if top > 0 else None
+            if not (g.shape == w.shape and np.isfinite(g).all() and top > 0
+                    and err <= tol):
+                failed.append((name, err, tol, top))
+            worst = max(worst, (err / tol, name))
+        print('%s batch=%d fed the card\'s forward values (%d of %d bf16): '
+              'tensors=%d worst err/tol=%.3f (%s)' % (
+                  label, RESNET_GATE_BATCH, n_bf16, len(fed), len(grads),
+                  worst[0], worst[1]))
+        print('%s BN scale/bias gradients err/|max|: %s'
+              % (label, json.dumps(bn_rel)))
+        check(not failed, 'GPU and CPU ResNet-50 backward differ (name, err, '
+              'tolerance, largest value): %s' % failed[:10])
+    _on_cpu_worker(label, cpu_side)
 
 
 def phase_flash_bwd_times():
@@ -2422,12 +2666,13 @@ def phase_decode_serving(dirname, sig):
     bench_decode_serving drives it: a sequential arm (generate, one request
     at a time), then a Poisson arm at DECODE_RATE_X times the measured
     sequential request rate, whose transcripts must equal the sequential
-    ones; then DECODE_BEAM beam-3 requests beside greedy traffic, whose
-    hypotheses and scores must equal their solo runs. No kernel of the
+    ones (DECODE_SERVED requests in each arm); then DECODE_BEAM beam-3
+    requests beside greedy traffic, whose hypotheses and scores must equal
+    their solo runs. No kernel of the
     port launches on this path. Then DECODE_PROFILE_STEPS steps at full
     occupancy, timed on the host clock and profiled. Returns (the
-    predictor, the sequential transcripts, the prompts, the launches, the
-    sequential arm's seconds a request)."""
+    predictor, the sequential transcripts, the prompts served, the
+    launches, the sequential arm's seconds a request)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2436,7 +2681,7 @@ def phase_decode_serving(dirname, sig):
           % (pred.place,))
     pred.warmup()
     print('decode-base load_warmup_s=%.1f' % (time.perf_counter() - t0))
-    prompts = _decode_prompts()
+    prompts = _decode_prompts()[:DECODE_SERVED]
     reset_launches()
     seq, seq_req_s = [], []
     for p in prompts:
@@ -2833,8 +3078,8 @@ def _arm_line(label, snap, n_tok, wall):
 def phase_decode_block_serving(dirname, sig, slot_pred, seq, prompts):
     """decode-base in the block layout (block_size 16, the default pool of
     1025 blocks, chunk sizes 64/128/256) through DecodingPredictor, as
-    bench_decode_serving's block arm drives it: the 64 prompts one at a
-    time, then evict_all_prefixes() and reset_counters(), then as Poisson
+    bench_decode_serving's block arm drives it: the slot arm's
+    DECODE_SERVED prompts one at a time, then evict_all_prefixes() and reset_counters(), then as Poisson
     arrivals at DECODE_RATE_X times the measured sequential rate (its
     transcripts equal the sequential arm's); the sequential transcripts
     held against the slot layout's under the margin rule; then
@@ -3285,7 +3530,7 @@ def decode_paths():
             # bench_decode_serving_int8: the int8 cache at twice the slots
             params = {n: decode_pred._scope.get(n) for n in dsig['params']}
             int8_counts = phase_decode_int8(params, {'slot': d, 'block': bd},
-                                            decode_prompts)
+                                            _decode_prompts())
             del params
         decode_pred.close()
         del decode_pred
@@ -3297,8 +3542,47 @@ def decode_paths():
             'decode_int8': int8_counts}
 
 
+# (label, start, end) of every timed phase, in the order they ended
+_PHASE_LOG = []
+
+
 def _phase_seconds(label, t0):
-    print('phase %s seconds %.1f' % (label, time.perf_counter() - t0))
+    """Print and record the phase `label` that started at `t0` and ends
+    now. Phases may nest: _phase_summary counts each second once."""
+    t1 = time.perf_counter()
+    _PHASE_LOG.append((label, t0, t1))
+    print('phase %s seconds %.1f' % (label, t1 - t0))
+    _raise_cpu_failures()
+
+
+@contextlib.contextmanager
+def _phase(label):
+    """Time the body as phase `label` (_phase_seconds)."""
+    t0 = time.perf_counter()
+    yield
+    _phase_seconds(label, t0)
+
+
+def _phase_summary(t_start):
+    """The `phase_seconds` line: each phase's own seconds (its time less
+    that of the phases timed inside it), summed by label, from the largest
+    down; then the sum beside the whole run's seconds."""
+    total = time.perf_counter() - t_start
+    own = collections.Counter()
+    for i, (label, t0, t1) in enumerate(_PHASE_LOG):
+        inner = [(a, b) for j, (_, a, b) in enumerate(_PHASE_LOG)
+                 if j != i and t0 <= a and b <= t1 and (a, b) != (t0, t1)]
+        # only the outermost of the phases inside it
+        direct = [(a, b) for a, b in inner
+                  if not any(c <= a and b <= d and (c, d) != (a, b)
+                             for c, d in inner)]
+        own[label] += (t1 - t0) - sum(b - a for a, b in direct)
+    print('phase_seconds %s' % json.dumps(collections.OrderedDict(
+        (k, round(v, 1)) for k, v in own.most_common())))
+    covered = sum(own.values())
+    print('phase_seconds sum %.1f of total %.1f (%.1f%%)'
+          % (covered, total, 100.0 * covered / total))
+    return total
 
 
 def build_zoo_training(name, amp=True):
@@ -3363,15 +3647,15 @@ def _grouped_conv_ms(run_once, calls=3):
         for _ in range(calls):
             run_once()
         torch.cuda.synchronize()
+    def is_grouped(shapes):
+        return any(len(a) == 4 and len(w) == 4 and w[1] > 0 and w[0] == a[1]
+                   and a[1] % w[1] == 0 and a[1] // w[1] > 1
+                   for a, w in zip(shapes, shapes[1:]))
     grouped = total = 0.0
-    for e in prof.events():
-        us = sum(k.duration for k in e.kernels)
+    for e, op in _launched_by(prof.profiler.kineto_results.events()):
+        us = e.duration_ns() * 1e-3
         total += us
-        shapes = [s for s in (e.input_shapes or [])]
-        if us and any(
-                len(a) == 4 and len(w) == 4 and w[1] > 0 and w[0] == a[1]
-                and a[1] % w[1] == 0 and a[1] // w[1] > 1
-                for a, w in zip(shapes, shapes[1:])):
+        if op is not None and is_grouped(list(op.shapes() or [])):
             grouped += us
     if not total:
         return None
@@ -3541,7 +3825,6 @@ def phase_zoo_gpu_vs_cpu(name, amp):
     params = {p.name for p in main.all_parameters()}
     grads = sorted(n + '@GRAD' for n in params)
     gpu = fluid.Executor(fluid.CUDAPlace(0))
-    cpu = fluid.Executor(fluid.CPUPlace())
     scope = fluid.Scope()
     gpu.run(startup, scope=scope)
     state = {v.name: scope.get(v.name).clone() for v in main.list_vars()
@@ -3549,16 +3832,14 @@ def phase_zoo_gpu_vs_cpu(name, amp):
     gen = torch.Generator(device='cuda').manual_seed(SEED + 31)
     feed = _zoo_feed(ZOO[name], ZOO_GATE_BATCH, gen)
     masks = {}
-    real = tensor_ops.draw_dropout_keep
 
     def card_masks(ctx, shape, p):
         if ctx.device.type == 'meta':
-            return real(ctx, shape, p)
+            return _real_draw_dropout_keep(ctx, shape, p)
         key = ctx.op.output('Mask')[0]
         if key not in masks:
-            check(ctx.device.type == 'cuda', 'the CPU ran before the card')
-            masks[key] = real(ctx, shape, p)
-        return masks[key].to(ctx.device)
+            masks[key] = _real_draw_dropout_keep(ctx, shape, p)
+        return masks[key]
 
     def launched(fn):
         before = read_launches_by_dtype()['bn_apply']
@@ -3570,8 +3851,17 @@ def phase_zoo_gpu_vs_cpu(name, amp):
                                                        dtype))
         return out
 
-    tensor_ops.draw_dropout_keep = card_masks
-    try:
+    def step(exe, st, fd, fwd_feed, count=lambda fn: fn()):
+        sc = fluid.Scope()
+        for n, t in st.items():
+            sc.set(n, t)
+        return count(lambda: exe.run(forward, feed=fwd_feed,
+                                     fetch_list=[loss.name], scope=sc)) + \
+            count(lambda: exe.run(update, feed=fd, fetch_list=grads,
+                                  scope=sc))
+
+    runs = {}
+    with _masks_given(card_masks):
         fed = dict(zip(fed_names, gpu.run(main, feed=feed,
                                           fetch_list=fed_names, scope=scope,
                                           return_numpy=False)))
@@ -3579,64 +3869,65 @@ def phase_zoo_gpu_vs_cpu(name, amp):
         block = update.global_block()
         for n, t in fed.items():
             block.var(n).dtype = fluid.convert_dtype(t.dtype)
-        runs = {}
-        for exe, device in ((gpu, 'cuda'), (cpu, 'cpu')):
-            for i in range(NOISE_DRAWS + 1):
-                st, fd = state, fed
-                if i:
-                    st = _perturbed(state, SEED + 40 + 2 * i, amp, params)
-                    fd = _perturbed(fed, SEED + 41 + 2 * i, amp)
-                sc = fluid.Scope()
-                for n, t in st.items():
-                    sc.set(n, t.to(device))
-
-                def fwd():
-                    return exe.run(forward, feed={n: t.to(device) for n, t
-                                                  in feed.items()},
-                                   fetch_list=[loss.name], scope=sc)
-
-                def bwd():
-                    return exe.run(update, feed={n: t.to(device) for n, t
-                                                 in fd.items()},
-                                   fetch_list=grads, scope=sc)
-                runs[device, i] = (launched(fwd) if device == 'cuda'
-                                   else fwd()) + (
-                    launched(bwd) if device == 'cuda' else bwd())
-                del sc
-    finally:
-        tensor_ops.draw_dropout_keep = real
-    n_dropout = sum(op.type == 'dropout' for op in forward.global_block().ops)
+        draws = [(state, fed)] + [
+            (_perturbed(state, SEED + 40 + 2 * i, amp, params),
+             _perturbed(fed, SEED + 41 + 2 * i, amp))
+            for i in range(1, NOISE_DRAWS + 1)]
+        for i, (st, fd) in enumerate(draws):
+            runs['cuda', i] = step(gpu, st, fd, feed, launched)
+    forward_ops = forward.global_block().ops
+    n_dropout = sum(op.type == 'dropout' for op in forward_ops)
     check(len(masks) == n_dropout, '%s: %d masks drawn, not %d'
           % (label, len(masks), n_dropout))
-    worst, failed = (0.0, ''), []
-    first_conv = next(op.input('Filter')[0] for op in forward.global_block().ops
+    n_fed_bf16 = sum(t.dtype == torch.bfloat16 for t in fed.values())
+    on_cpu = {k: m.cpu() for k, m in masks.items()}
+    cpu_feed = {n: t.cpu() for n, t in feed.items()}
+    draws = [({n: t.cpu() for n, t in st.items()},
+              {n: t.cpu() for n, t in fd.items()}) for st, fd in draws]
+    del fed, state
+    first_conv = next(op.input('Filter')[0] for op in forward_ops
                       if op.type == 'conv2d')
     shown = {loss.name, first_conv + '@GRAD', 'batch_norm_0.w_0@GRAD',
              main.all_parameters()[-1].name + '@GRAD'}
-    for j, name_j in enumerate([loss.name] + grads):
-        g, w = runs['cuda', 0][j], runs['cpu', 0][j]
-        noise = sum(max(float(np.abs(runs[d, i][j] - runs[d, 0][j]).max())
-                        for i in range(1, NOISE_DRAWS + 1))
-                    for d in ('cuda', 'cpu'))
-        err, top = float(np.abs(g - w).max()), float(np.abs(w).max())
-        tol = max(1e-5 * top, 4 * noise)
-        if name_j in shown:
-            print('%s batch=%d %s shape=%s max_abs_err=%r max_abs=%r '
-                  'one_ulp_noise=%r tolerance=%r' % (
-                      label, ZOO_GATE_BATCH, name_j, tuple(w.shape), err, top,
-                      noise, tol))
-        if not (g.shape == w.shape and np.isfinite(g).all() and err <= tol
-                and (top > 0 or name_j == loss.name)):
-            failed.append((name_j, err, tol, top))
-        worst = max(worst, (err / tol, name_j))
-    print('%s batch=%d: the loss and %d gradients (the backward fed the '
-          'card\'s forward values, %d of them bf16; %d card masks given to '
-          'the CPU) worst err/tol=%.3f (%s)' % (
-              label, ZOO_GATE_BATCH, len(grads),
-              sum(t.dtype == torch.bfloat16 for t in fed.values()),
-              len(masks), worst[0], worst[1]))
-    check(not failed, 'GPU and CPU %s differ (name, err, tolerance, largest '
-          'value): %s' % (label, failed[:10]))
+
+    def cpu_masks(ctx, shape, p):
+        if ctx.device.type == 'meta':
+            return _real_draw_dropout_keep(ctx, shape, p)
+        key = ctx.op.output('Mask')[0]
+        check(key in on_cpu, '%s: the CPU drew a mask the card did not: %s'
+              % (label, key))
+        return on_cpu[key]
+
+    def cpu_side():
+        cpu = fluid.Executor(fluid.CPUPlace())
+        with _masks_given(cpu_masks):
+            for i, (st, fd) in enumerate(draws):
+                runs['cpu', i] = step(cpu, st, fd, cpu_feed)
+        worst, failed = (0.0, ''), []
+        for j, name_j in enumerate([loss.name] + grads):
+            g, w = runs['cuda', 0][j], runs['cpu', 0][j]
+            noise = sum(max(_max_abs(runs[d, i][j], runs[d, 0][j])
+                            for i in range(1, NOISE_DRAWS + 1))
+                        for d in ('cuda', 'cpu'))
+            err, top = _max_abs(g, w), _max_abs(w)
+            tol = max(1e-5 * top, 4 * noise)
+            if name_j in shown:
+                print('%s batch=%d %s shape=%s max_abs_err=%r max_abs=%r '
+                      'one_ulp_noise=%r tolerance=%r' % (
+                          label, ZOO_GATE_BATCH, name_j, tuple(w.shape), err,
+                          top, noise, tol))
+            if not (g.shape == w.shape and np.isfinite(g).all()
+                    and err <= tol and (top > 0 or name_j == loss.name)):
+                failed.append((name_j, err, tol, top))
+            worst = max(worst, (err / tol, name_j))
+        print('%s batch=%d: the loss and %d gradients (the backward fed the '
+              'card\'s forward values, %d of them bf16; %d card masks given '
+              'to the CPU) worst err/tol=%.3f (%s)' % (
+                  label, ZOO_GATE_BATCH, len(grads), n_fed_bf16, len(on_cpu),
+                  worst[0], worst[1]))
+        check(not failed, 'GPU and CPU %s differ (name, err, tolerance, '
+              'largest value): %s' % (label, failed[:10]))
+    _on_cpu_worker(label, cpu_side)
     _phase_seconds(label, t0)
 
 
@@ -4312,7 +4603,7 @@ def _remat_gate(label, plain, remat, startup, names, feed, seed, amp,
             scope = scope_of(_perturbed(state, seed + i, amp))
             out = fluid.Executor(fluid.CUDAPlace(0)).run(
                 prog, feed=feed, fetch_list=names, scope=scope)
-            moves.append([float(np.abs(a - b).max())
+            moves.append([_max_abs(a, b)
                           for a, b in zip(out, first[arm])])
             del scope
         noise[arm] = [max(m[j] for m in moves) for j in range(len(names))]
@@ -4320,7 +4611,7 @@ def _remat_gate(label, plain, remat, startup, names, feed, seed, amp,
     rows = []
     for j, name in enumerate(names):
         g, w = first['remat'][j], first['plain'][j]
-        err, top = float(np.abs(g - w).max()), float(np.abs(w).max())
+        err, top = _max_abs(g, w), _max_abs(w)
         nz = noise['plain'][j] + noise['remat'][j]
         rows.append((name, g, w, err, top, nz, max(1e-5 * top, 4 * nz)))
         print('%s %s equal_bit_for_bit=%s' % (label, name,
@@ -5150,7 +5441,8 @@ def phase_decode_int8(params, fp_dirs, prompts):
                     pred.warmup()
                     sm = _Margins(pred)
                     sp, sp_streams, sp_wall = _served(
-                        pred, prompts[:INT8_SPEC_PROMPTS], DECODE_MAX_NEW)
+                        pred, prompts[:INT8_SPEC_PROMPTS],
+                        DECODE_MAX_NEW)
                     ssnap = pred.stats.snapshot()
                 finally:
                     pred.close()
@@ -5190,6 +5482,539 @@ def phase_decode_int8(params, fp_dirs, prompts):
     return counts
 
 
+# bench.py:1114-1248's stacked-LSTM rows (bench_stacked_lstm,
+# bench_stacked_lstm_multistep): build_stacked_lstm_train(64) at its
+# defaults (vocab 30000, emb 256, hidden 256, 2 layers, seq 100, Adam 1e-3)
+# -> enable_bf16, on bench's feed; 3 warm-up and 30 timed steps, and
+# run_steps(8) in 6 timed dispatches after 2 warm-up ones
+LSTM_BATCH = 64
+LSTM_SEQ = 100
+LSTM_VOCAB = 30000
+LSTM_HIDDEN = 256
+LSTM_LAYERS = 2
+LSTM_WARMUP = 3
+LSTM_STEPS = 30
+LSTM_K = 8
+LSTM_DISPATCHES = 6
+LSTM_GATE_BATCH = 2
+# cuDNN's LSTM against the plain version at the row's shape, f32 (the
+# dtype the reference computes the LSTM in under enable_bf16): within this
+# share of each tensor's largest value (sums of 512-long f32 products in
+# other orders, carried over 100 steps each way)
+LSTM_ROUTE_REL = 1e-4
+LSTM_ROUTE_DROPOUT = 0.2
+# bench.py:1457-1506's CTR row (bench_ctr): build_deepfm_train() at its
+# defaults (26 fields, 13 dense, vocab 100000, embed 16, DNN 400x3, Adam
+# lazy_mode) at batch 4096 on bench's feed, 3 warm-up and 100 timed steps
+CTR_BATCH = 4096
+CTR_WARMUP = 3
+CTR_STEPS = 100
+CTR_GATE_BATCH = 64
+CTR_TABLES = ('fm_v', 'fm_w1')
+
+
+def _lstm_route_inputs(gen):
+    """The row's LSTM operands on the card: x [100, 64, 256], zero-mean
+    states, weights at the Xavier scale of [256, 1024], and cotangents of
+    Out, LastH and LastC; each a leaf that requires grad."""
+    s, b, h, n = LSTM_SEQ, LSTM_BATCH, LSTM_HIDDEN, LSTM_LAYERS
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, device='cuda', generator=gen)
+                * scale).requires_grad_()
+    w = (6.0 / (h + 4 * h)) ** 0.5 / 3 ** 0.5
+    flat = [r(s, b, h), r(n, b, h, scale=0.1), r(n, b, h, scale=0.1)]
+    flat += [r(h, 4 * h, scale=w) for _ in range(n)]        # WeightX
+    flat += [r(h, 4 * h, scale=w) for _ in range(n)]        # WeightH
+    flat += [r(4 * h, scale=0.1) for _ in range(n)]         # Bias
+    cots = [torch.randn(s, b, h, device='cuda', generator=gen),
+            torch.randn(n, b, h, device='cuda', generator=gen),
+            torch.randn(n, b, h, device='cuda', generator=gen)]
+    return flat, cots
+
+
+def _lstm_route(route, flat, cots, keeps):
+    """Out, LastH, LastC and the gradient of every operand through `route`
+    (rnn_ops.lstm_cudnn or lstm_plain)."""
+    n = LSTM_LAYERS
+    outs = route(flat[0], flat[1], flat[2], flat[3:3 + n],
+                 flat[3 + n:3 + 2 * n], flat[3 + 2 * n:], n, 1, keeps,
+                 LSTM_ROUTE_DROPOUT)
+    grads = torch.autograd.grad(list(outs), flat, cots)
+    return [o.detach() for o in outs] + list(grads)
+
+
+def _events_ms(fn, reps=5):
+    """CUDA-event ms a call of fn, the best of `reps` after one untimed
+    call."""
+    fn()
+    best = None
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        best = a.elapsed_time(b) if best is None else min(best,
+                                                          a.elapsed_time(b))
+    return best
+
+
+def phase_lstm_route_vs_plain():
+    """cudnn_lstm's cuDNN route (rnn_ops.lstm_cudnn, torch._VF.lstm)
+    against its plain version (rnn_ops.lstm_plain) on the card at the
+    stacked-LSTM row's shape, [100, 64, 256], 2 layers, H 256, f32: Out,
+    LastH, LastC and the gradient of the input, both states and every
+    weight and bias, without dropout (one cuDNN call) and with dropout
+    0.2 (a call a layer, the same keep mask between), each within
+    LSTM_ROUTE_REL of the plain tensor's largest value. Times the forward
+    (inference, CUDA events) of both routes, forward and backward of both,
+    with the bound: the f32 GEMM operations over the CUDA cores' rate, or
+    the bytes, the larger. Returns the summary."""
+    from paddle_tpu_torch.ops import rnn_ops
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 61)
+    flat, cots = _lstm_route_inputs(gen)
+    keep = (torch.rand(LSTM_SEQ, LSTM_BATCH, LSTM_HIDDEN, device='cuda',
+                       generator=gen) < 1.0 - LSTM_ROUTE_DROPOUT)
+    names = ['Out', 'LastH', 'LastC', 'dInput', 'dInitH', 'dInitC'] + [
+        'd%s%d' % (w, i) for w in ('WeightX', 'WeightH', 'Bias')
+        for i in range(LSTM_LAYERS)]
+    worst = (0.0, '')
+    errs = {}
+    for label, keeps in (('no_dropout', None), ('dropout', [keep])):
+        rnn_ops.reset_calls()
+        got = _lstm_route(rnn_ops.lstm_cudnn, flat, cots, keeps)
+        calls = rnn_ops.cudnn_lstm_calls()
+        check(calls == (1 if keeps is None else LSTM_LAYERS),
+              'lstm route %s: %d cuDNN calls' % (label, calls))
+        want = _lstm_route(rnn_ops.lstm_plain, flat, cots, keeps)
+        for name, g, w in zip(names, got, want):
+            top = float(w.abs().max())
+            err = float((g - w).abs().max())
+            tol = LSTM_ROUTE_REL * top
+            check(g.shape == w.shape and g.dtype == w.dtype
+                  and bool(torch.isfinite(g).all()) and err <= tol,
+                  'cuDNN LSTM %s %s differs from the plain version: %r > %r'
+                  % (label, name, err, tol))
+            errs['%s/%s' % (label, name)] = err
+            worst = max(worst, (err / tol, '%s %s' % (label, name)))
+    print('lstm_route_vs_plain [%d, %d, %d] layers=%d f32: cuDNN against the '
+          'plain version, Out/LastH/LastC and %d gradients, without and with '
+          'dropout %g; tolerance %g of each tensor\'s largest value; worst '
+          'err/tol=%.3f (%s); max_abs_err=%r' % (
+              LSTM_SEQ, LSTM_BATCH, LSTM_HIDDEN, LSTM_LAYERS, len(names) - 3,
+              LSTM_ROUTE_DROPOUT, LSTM_ROUTE_REL, worst[0], worst[1],
+              max(errs.values())))
+
+    x, h0, c0 = (t.detach() for t in flat[:3])
+    ws = [t.detach() for t in flat[3:]]
+    n = LSTM_LAYERS
+
+    def fwd(route):
+        with torch.no_grad():
+            route(x, h0, c0, ws[:n], ws[n:2 * n], ws[2 * n:], n, 1, None,
+                  0.0)
+
+    def fwd_bwd(route):
+        _lstm_route(route, flat, cots, None)
+    ms = {'fwd_cudnn': _events_ms(lambda: fwd(rnn_ops.lstm_cudnn)),
+          'fwd_plain': _events_ms(lambda: fwd(rnn_ops.lstm_plain)),
+          'fwd_bwd_cudnn': _events_ms(lambda: fwd_bwd(rnn_ops.lstm_cudnn)),
+          'fwd_bwd_plain': _events_ms(lambda: fwd_bwd(rnn_ops.lstm_plain))}
+    s, b, h = LSTM_SEQ, LSTM_BATCH, LSTM_HIDDEN
+    flops = n * s * b * 2 * 4 * h * (h + h)
+    # each input read once (x, both states, the weights), each output
+    # written once (Out, LastH, LastC)
+    nbytes = 4 * (x.numel() + 4 * h0.numel() + sum(w.numel() for w in ws)
+                  + s * b * h)
+    bound = max(flops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    summary = dict(ms, forward_flops=flops,
+                   forward_bound_ms=bound,
+                   forward_bound_by='operations'
+                   if flops / F32_OPS_PER_S > nbytes / HBM_BYTES_PER_S
+                   else 'bytes',
+                   worst_err_over_tol=worst[0], max_abs_err=max(
+                       errs.values()), tolerance_rel=LSTM_ROUTE_REL)
+    print('lstm_route_vs_plain times (CUDA events, best of 5): %s'
+          % json.dumps(summary))
+    del flat, cots
+    torch.cuda.empty_cache()
+    return summary
+
+
+def build_stacked_lstm(batch=LSTM_BATCH, amp=True):
+    """bench.py's stacked-LSTM program: build_stacked_lstm_train(batch) at
+    its defaults, seeded initialization, enable_bf16 (with amp). Returns
+    (main, startup, loss, flops_per_batch)."""
+    from paddle_tpu_torch.models.stacked_lstm import build_stacked_lstm_train
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, _, loss, flops = build_stacked_lstm_train(batch)
+    return _mark(main, amp), startup, loss, flops
+
+
+def _lstm_feed(batch):
+    """bench.py:1134-1138's feed: RandomState(0), ids in [1, 30000) over
+    [batch, 100], labels in {0, 1}; on the card."""
+    rng = np.random.RandomState(0)
+    return {'ids': torch.from_numpy(rng.randint(
+        1, LSTM_VOCAB, (batch, LSTM_SEQ)).astype(np.int32)).cuda(),
+        'label': torch.from_numpy(rng.randint(
+            0, 2, (batch, 1)).astype(np.int32)).cuda()}
+
+
+def _device_busy(label, run_once):
+    """Device ms a call from a 3-call profile (_profile); None where the
+    trace holds no device time. The busy share is this over the host
+    clock's ms a step of the timed loop."""
+    per_kernel = _profile(run_once, label, 'steps')
+    return sum(per_kernel.values()) / 3 if per_kernel else None
+
+
+def _lstm_state(exe, main, loss, start, feed=None, stacked=None):
+    """LSTM_K steps from `start` on a fresh Executor and Scope: LSTM_K
+    run() calls on `feed`, or one run_steps(LSTM_K) on `stacked`. Returns
+    (the losses, the persistables after)."""
+    sc = fluid.Scope()
+    for n, t in start.items():
+        sc.set(n, t.clone())
+    if stacked is None:
+        ls = torch.stack([exe.run(main, feed=feed, fetch_list=[loss],
+                                  scope=sc, return_numpy=False)[0]
+                          for _ in range(LSTM_K)])
+    else:
+        ls, = exe.run_steps(main, feed=stacked, fetch_list=[loss], scope=sc,
+                            fetch_policy='stack', return_numpy=False)
+    return ls.reshape(-1), {n: sc.get(n) for n in start}
+
+
+def _lstm_run_steps_exactness(main, loss, feed, stacked, start):
+    """run_steps(LSTM_K) against LSTM_K run() calls from one state, each on
+    a fresh Executor (the same step counter), with
+    torch.backends.cudnn.deterministic and deterministic algorithms (warn
+    only) set for this comparison alone: run() must equal run(), and
+    run_steps must equal them, bit for bit (losses and every
+    persistable)."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = [_lstm_state(fluid.Executor(fluid.CUDAPlace(0)), main, loss,
+                            start, feed=feed) for _ in range(2)]
+        steps = _lstm_state(fluid.Executor(fluid.CUDAPlace(0)), main, loss,
+                            start, stacked=stacked)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = prev
+    (la, sa), (lc, sc) = runs
+    lb, sb = steps
+    names = sorted(start)
+    run_differ = [n for n in names if not torch.equal(sa[n], sc[n])]
+    check(torch.equal(la, lc) and not run_differ, 'stacked-LSTM: %d run() '
+          'calls differ from themselves: losses %s vs %s, state %s'
+          % (LSTM_K, la.tolist(), lc.tolist(), run_differ[:5]))
+    differ = [n for n in names if not torch.equal(sa[n], sb[n])]
+    check(torch.equal(la, lb) and not differ, 'stacked-LSTM run_steps(%d)'
+          ' differs from %d run() calls: losses %s vs %s, state %s'
+          % (LSTM_K, LSTM_K, la.tolist(), lb.tolist(), differ[:5]))
+    changed = sum(not torch.equal(sa[n], start[n]) for n in names)
+    print('stacked_lstm_multistep: run_steps(%d) equals %d run() calls '
+          'bit for bit, and run() equals run() (losses and %d persistables, '
+          '%d of them moved)' % (LSTM_K, LSTM_K, len(names), changed))
+    return 'bit for bit'
+
+
+def phase_stacked_lstm():
+    """bench_stacked_lstm and bench_stacked_lstm_multistep on the card:
+    the 29-op program (one cudnn_lstm and its grad), startup, LSTM_WARMUP
+    steps, then LSTM_STEPS steps timed as bench.py times them (host clock,
+    one sync at the end): ms/batch, MFU (flops_per_batch over 989
+    TFLOP/s), peak allocated memory, two cuDNN LSTM calls a step (the op,
+    and its grad's recomputed forward) and no launch of the port's
+    kernels, the LSTM's output in f32 as the reference computes it, a
+    falling loss; the device's busy share from a 3-step profile; then
+    run_steps(LSTM_K) in LSTM_DISPATCHES timed dispatches (ms/batch), and
+    run_steps(LSTM_K) against LSTM_K run() calls from one state
+    (_lstm_run_steps_exactness). Returns (the launches of each path, the
+    summary)."""
+    from paddle_tpu_torch.ops import rnn_ops
+    t0 = time.perf_counter()
+    main, startup, loss, flops = build_stacked_lstm()
+    ops = collections.Counter(op.type for op in main.global_block().ops)
+    check(sum(ops.values()) == 29 and ops['cudnn_lstm'] == 1
+          and ops['cudnn_lstm_grad'] == 1 and ops['reduce_mean'] == 1
+          and ops['adam'] == 9, 'stacked-LSTM ops %s' % dict(ops))
+    lstm_op = next(op for op in main.global_block().ops
+                   if op.type == 'cudnn_lstm')
+    out_name = lstm_op.output('Out')[0]
+    print('model stacked_lstm_text_cls (build_stacked_lstm_train(%d)) '
+          'vocab=%d emb=%d hidden=%d layers=%d seq=%d bf16 (enable_bf16) '
+          'ops=%d %s flops_per_batch=%d build_s=%.1f' % (
+              LSTM_BATCH, LSTM_VOCAB, LSTM_HIDDEN, LSTM_HIDDEN, LSTM_LAYERS,
+              LSTM_SEQ, sum(ops.values()), json.dumps(dict(ops)), flops,
+              time.perf_counter() - t0))
+    feed = _lstm_feed(LSTM_BATCH)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    persist = [v.name for v in main.list_vars() if v.persistable]
+    start = {n: scope.get(n).clone() for n in persist
+             if scope.get(n) is not None}
+
+    def step(fetch=(loss,)):
+        return exe.run(main, feed=feed, fetch_list=list(fetch), scope=scope,
+                       return_numpy=False)
+    losses = []
+    for _ in range(LSTM_WARMUP):
+        out = step((loss, out_name))
+        losses.append(float(out[0].reshape(-1)[0]))
+    check(out[1].dtype == torch.float32 and out[1].is_cuda,
+          'cudnn_lstm Out %s on %s' % (out[1].dtype, out[1].device))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rnn_ops.reset_calls()
+    t0 = time.perf_counter()
+    outs = [step()[0] for _ in range(LSTM_STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    calls = rnn_ops.cudnn_lstm_calls()
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated() - base
+    losses += [float(o.reshape(-1)[0]) for o in outs]
+    check(calls == 2 * LSTM_STEPS, 'stacked-LSTM: %d cuDNN LSTM calls in %d '
+          'steps, not 2 a step' % (calls, LSTM_STEPS))
+    check(not any(counts.values()), 'stacked-LSTM launched %s' % counts)
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          'stacked-LSTM losses %s' % losses)
+    ms_batch = dt / LSTM_STEPS * 1e3
+    mfu = flops / (ms_batch / 1e3) / BF16_OPS_PER_S
+    busy = _device_busy('stacked_lstm_text_cls batch=%d bf16' % LSTM_BATCH,
+                        step)
+    print('stacked_lstm_text_cls losses=%s' % json.dumps(
+        [round(x, 5) for x in losses]))
+    print('stacked_lstm_text_cls ms_per_batch=%r (%d steps, host clock, one '
+          'sync at the end, as bench.py times it) mfu=%.5f (flops_per_batch '
+          '%d at %g bf16 dense FLOP/s) peak_allocated_gb=%.3f (above what '
+          'the card held before the program) device_busy_ms_per_step=%r '
+          'busy_share=%s cudnn_lstm_calls=%d '
+          'launches=%s' % (ms_batch, LSTM_STEPS, mfu, flops, BF16_OPS_PER_S,
+                           peak / 2 ** 30, busy,
+                           'not measured' if busy is None
+                           else '%.3f' % (busy / ms_batch),
+                           calls, json.dumps(counts)))
+
+    # bench_stacked_lstm_multistep: run_steps(8), 2 warm-up dispatches and
+    # 6 timed ones, one sync at the end
+    stacked = {n: torch.stack([t] * LSTM_K) for n, t in feed.items()}
+
+    def dispatch():
+        return exe.run_steps(main, feed=stacked, fetch_list=[loss],
+                             steps=LSTM_K, scope=scope, return_numpy=False)
+    for _ in range(2):
+        dispatch()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(LSTM_DISPATCHES):
+        last = dispatch()
+    torch.cuda.synchronize()
+    multi_ms = (time.perf_counter() - t0) / (LSTM_DISPATCHES * LSTM_K) * 1e3
+    multi_counts = read_launches()
+    check(not any(multi_counts.values()) and math.isfinite(
+        float(last[0].reshape(-1)[0])), 'stacked-LSTM run_steps launched %s'
+        % multi_counts)
+    print('stacked_lstm_multistep run_steps(%d) x %d dispatches: '
+          'ms_per_batch=%r (single-step %r, speed-up %.3f)' % (
+              LSTM_K, LSTM_DISPATCHES, multi_ms, ms_batch,
+              ms_batch / multi_ms))
+    del scope
+
+    exact = _lstm_run_steps_exactness(main, loss, feed, stacked, start)
+    del start
+    torch.cuda.empty_cache()
+    summary = {'ms_per_batch': ms_batch, 'mfu': mfu,
+               'peak_allocated_gb': peak / 2 ** 30,
+               'device_busy_ms_per_step': busy,
+               'busy_share': None if busy is None else busy / ms_batch,
+               'multistep_ms_per_batch': multi_ms,
+               'cudnn_lstm_calls_per_step': calls // LSTM_STEPS,
+               'run_steps_vs_run': exact}
+    return {'stacked_lstm_text_cls': counts,
+            'stacked_lstm_multistep': multi_counts}, summary
+
+
+def phase_stacked_lstm_gpu_vs_cpu(amp):
+    """One step of the stacked-LSTM program at LSTM_GATE_BATCH (bf16 with
+    amp, else f32), GPU (cuDNN) against CPU (the plain version), from one
+    initial state, by the _gpu_vs_cpu_step rule: the loss and every
+    parameter's gradient within 4 times the one-ulp noise of NOISE_DRAWS
+    draws a side, never less than 1e-5 of the largest value. The
+    gradients of the embedding, the first layer's WeightX, the last
+    layer's WeightH and the fc weight (the fc bias's, [g, -g] with g a
+    near-cancelled sum at random initialization, is rounding noise on
+    both sides)."""
+    label = 'stacked_lstm_gpu_vs_cpu_%s' % _precision(amp)
+    main, startup, loss, _ = build_stacked_lstm(LSTM_GATE_BATCH, amp)
+    params = [p.name for p in main.all_parameters()]
+    lstm = [n for n in params if n.startswith('cudnn_lstm_')]
+    names = [loss.name] + [n + '@GRAD' for n in (
+        'embedding_0.w_0', lstm[0], lstm[-2], 'fc_0.w_0')]
+    rows = _gpu_vs_cpu_step(main, startup, names,
+                            _lstm_feed(LSTM_GATE_BATCH), SEED + 63, amp)
+
+    def cpu_side():
+        worst = _gate_rows(label, 'batch=%d' % LSTM_GATE_BATCH, rows())
+        print('%s worst err/tol=%.3f (%s)' % (label, worst[0], worst[1]))
+    _on_cpu_worker(label, cpu_side)
+    torch.cuda.empty_cache()
+
+
+def build_ctr():
+    """bench.py's DeepFM program: build_deepfm_train() at its defaults,
+    seeded initialization. Returns (main, startup, loss, feeds)."""
+    from paddle_tpu_torch.models.deepfm import build_deepfm_train
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        feeds, loss = build_deepfm_train()
+    return main, startup, loss, feeds
+
+
+def _ctr_feed(feeds, batch):
+    """bench.py:1475-1485's feed: RandomState(0), in feed order, ids in
+    [0, vocab), the click a coin, the dense features standard normal; on
+    the card."""
+    rng = np.random.RandomState(0)
+    out = {}
+    for name, shape, dtype, vocab in feeds:
+        full = (batch,) + tuple(shape)
+        if dtype.startswith('int'):
+            arr = rng.randint(0, vocab, full).astype(np.int32)
+        elif vocab == 2:
+            arr = (rng.rand(*full) < 0.5).astype(np.float32)
+        else:
+            arr = rng.randn(*full).astype(np.float32)
+        out[name] = torch.from_numpy(arr).cuda()
+    return out
+
+
+def _table_state(scope):
+    """Both embedding tables and their Adam moments, by name."""
+    return {n: scope.get(n).clone() for t in CTR_TABLES
+            for n in (t, t + '_moment1_0', t + '_moment2_0')}
+
+
+def phase_ctr_deepfm():
+    """bench_ctr on the card: build_deepfm_train() (26 fields, vocab
+    100000, embed 16, DNN 400x3, is_sparse embeddings, lazy Adam) at batch
+    CTR_BATCH on bench's feed. The first step from the initial state:
+    every row of fm_v and fm_w1 and of their two moments that no id of the
+    batch touched is bit for bit unchanged, every touched row moved. Then
+    CTR_WARMUP - 1 more warm-up steps and CTR_STEPS timed as bench.py
+    times them (host clock, one sync at the end): samples/s; no launch of
+    the port's kernels; finite losses; the device's busy share from a
+    3-step profile and the peak allocated memory. Returns (the launches,
+    the summary)."""
+    t0 = time.perf_counter()
+    main, startup, loss, feeds = build_ctr()
+    ops = collections.Counter(op.type for op in main.global_block().ops)
+    sparse = [op for op in main.global_block().ops
+              if op.type == 'lookup_table_grad']
+    lazy = [op for op in main.global_block().ops if op.type == 'adam'
+            and op.attr('lazy_mode')]
+    check(len(sparse) == 2 and all(op.attr('is_sparse') for op in sparse)
+          and len(lazy) == ops['adam'], 'DeepFM ops %s' % dict(ops))
+    print('model ctr_deepfm (build_deepfm_train()) fields=26 dense=13 '
+          'vocab=100000 embed=16 dnn=400x3 f32 batch=%d ops=%d %s '
+          'build_s=%.1f' % (CTR_BATCH, sum(ops.values()),
+                            json.dumps(dict(ops)), time.perf_counter() - t0))
+    feed = _ctr_feed(feeds, CTR_BATCH)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    before = _table_state(scope)
+    check(len(before) == 6, 'DeepFM table state %s' % sorted(before))
+    reset_launches()
+
+    def step():
+        return exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)
+    losses = [float(step()[0].reshape(-1)[0])]
+    after = _table_state(scope)
+    touched = torch.zeros(before['fm_v'].shape[0], dtype=torch.bool,
+                          device='cuda')
+    touched[feed['field_ids'].reshape(-1).long()] = True
+    for n, t in before.items():
+        same = (t == after[n]).reshape(t.shape[0], -1).all(1)
+        check(bool(same[~touched].all()) and not bool(same[touched].any()),
+              'DeepFM %s after one lazy-Adam step: %d untouched rows moved, '
+              '%d touched rows did not' % (
+                  n, int((~same[~touched]).sum()), int(same[touched].sum())))
+    print('ctr_deepfm first step: of %d rows, %d touched; untouched rows of '
+          '%s bit for bit unchanged, every touched row moved'
+          % (touched.numel(), int(touched.sum()), sorted(before)))
+    del before, after
+    for _ in range(CTR_WARMUP - 1):
+        losses.append(float(step()[0].reshape(-1)[0]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = [step()[0] for _ in range(CTR_STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = read_launches()
+    losses += [float(o.reshape(-1)[0]) for o in outs]
+    check(all(math.isfinite(x) for x in losses), 'DeepFM losses %s' % losses)
+    check(not any(counts.values()), 'DeepFM launched %s' % counts)
+    samples_s = CTR_BATCH * CTR_STEPS / dt
+    busy = _device_busy('ctr_deepfm batch=%d f32' % CTR_BATCH, step)
+    ms_step = dt / CTR_STEPS * 1e3
+    print('ctr_deepfm losses first=%r last=%r' % (losses[0], losses[-1]))
+    print('ctr_deepfm samples_per_s=%r ms_per_step=%r (%d steps, host clock, '
+          'one sync at the end, as bench.py times it) peak_allocated_gb=%.3f '
+          '(above what the card held before the program) '
+          'device_busy_ms_per_step=%r busy_share=%s launches=%s' % (
+              samples_s, ms_step, CTR_STEPS, peak / 2 ** 30, busy,
+              'not measured' if busy is None else '%.3f' % (busy / ms_step),
+              json.dumps(counts)))
+    del scope, feed
+    torch.cuda.empty_cache()
+    return {'ctr_deepfm': counts}, {
+        'samples_per_s': samples_s, 'ms_per_step': ms_step,
+        'peak_allocated_gb': peak / 2 ** 30,
+        'device_busy_ms_per_step': busy,
+        'busy_share': None if busy is None else busy / ms_step,
+        'rows_touched_first_step': int(touched.sum())}
+
+
+def phase_ctr_gpu_vs_cpu():
+    """One lazy-Adam step of the DeepFM program at CTR_GATE_BATCH, f32, GPU
+    against CPU, from one initial state, by the _gpu_vs_cpu_step rule: the
+    loss, both tables after the update (only the rows the batch touches
+    can differ: the rest keep the shared initial bits) and their first
+    moments."""
+    label = 'ctr_deepfm_gpu_vs_cpu_f32'
+    main, startup, loss, feeds = build_ctr()
+    names = [loss.name] + [n for t in CTR_TABLES
+                           for n in (t, t + '_moment1_0')]
+    rows = _gpu_vs_cpu_step(main, startup, names,
+                            _ctr_feed(feeds, CTR_GATE_BATCH), SEED + 65)
+
+    def cpu_side():
+        worst = _gate_rows(label, 'batch=%d' % CTR_GATE_BATCH, rows())
+        print('%s worst err/tol=%.3f (%s)' % (label, worst[0], worst[1]))
+    _on_cpu_worker(label, cpu_side)
+    torch.cuda.empty_cache()
+
+
 def _se_bn_shapes():
     """The (C, H, W) of SE-ResNeXt-50's 53 batch_norm inputs at 224x224,
     with counts, from its program."""
@@ -5225,156 +6050,200 @@ def main():
     print('host %s | CPU f32 matmul precision %s' % (
         host_line(), torch.get_float32_matmul_precision()))
 
-    t0 = time.perf_counter()
-    report = kernels.build()
-    for name, (secs, log) in report.items():
-        print('build %s %.1fs\n%s' % (name, secs, log.strip()))
-    print('build all kernels %.1fs' % (time.perf_counter() - t0))
+    with _phase('cuda_init'):
+        torch.ones(1, device='cuda').sum().item()
+    # the kernels build on the CPU worker (one nvcc process each) while the
+    # card runs bench_bert's path, which launches none of them
+    _on_cpu_worker('worker threads',
+                   lambda: torch.set_num_threads(CPU_WORKER_THREADS))
+    built = _CPU_WORKER.submit(kernels.build)
+    try:
+        return _main(t_start, built)
+    finally:
+        _CPU_WORKER.shutdown(wait=False, cancel_futures=True)
 
-    phase_verify_hook()
-    max_abs = phase_kernel_vs_plain()
-    bn_bwd_abs, bn_bwd_worst = phase_kernel_bwd_vs_plain()
-    k2_abs = phase_flash_vs_plain()
-    bwd_abs = phase_flash_bwd_vs_plain()
+
+def _main(t_start, built):
+    # bench.py's bench_bert: S=128, batch 64, dropout 0.1 (the composed
+    # attention), bf16, gradient merge k=2
+    with _phase('dropout_on_card'):
+        phase_dropout_on_card()
+    with _phase('bert_bench_training'):
+        t0 = time.perf_counter()
+        bb_main, bb_startup, bb_loss, bb_feeds = build_bert_bench_training()
+        print('model bert-base bench training S=%d bf16 k=%d dropout=0.1 '
+              'ops=%d build_s=%.1f' % (BENCH_BERT['max_len'], BENCH_K,
+                                       len(bb_main.global_block().ops),
+                                       time.perf_counter() - t0))
+        bench_counts = phase_bert_bench_training(bb_main, bb_startup,
+                                                 bb_loss, bb_feeds)
+        torch.cuda.empty_cache()
+    with _phase('bert_bench_training_remat'):
+        bbr_main, bbr_startup, bbr_loss, bbr_feeds = \
+            build_bert_bench_training(checkpoints=True)
+        bench_remat_counts = phase_bert_bench_remat(bbr_main, bb_main,
+                                                    bbr_startup, bbr_loss,
+                                                    bbr_feeds)
+        del bbr_main, bbr_startup
+        torch.cuda.empty_cache()
+    with _phase('bert_bench_gpu_vs_cpu_f32'):
+        phase_bench_gpu_vs_cpu(amp=False)
+    with _phase('bert_bench_gpu_vs_cpu_bf16'):
+        phase_bench_gpu_vs_cpu(amp=True)
+        torch.cuda.empty_cache()
+
+    with _phase('build'):
+        report = built.result()
+        for name, (secs, log) in report.items():
+            print('build %s %.1fs\n%s' % (name, secs, log.strip()))
+    print('build all kernels %.1fs (beside the bench_bert path)'
+          % max([secs for secs, _ in report.values()] or [0.0]))
+
+    with _phase('verify_hook'):
+        phase_verify_hook()
+    with _phase('kernel_vs_plain'):
+        max_abs = phase_kernel_vs_plain()
+    with _phase('kernel_bwd_vs_plain'):
+        bn_bwd_abs, bn_bwd_worst = phase_kernel_bwd_vs_plain()
+    with _phase('flash_vs_plain'):
+        k2_abs = phase_flash_vs_plain()
+    with _phase('flash_bwd_vs_plain'):
+        bwd_abs = phase_flash_bwd_vs_plain()
     with tempfile.TemporaryDirectory() as d:
-        n_bn, n_params = build_and_save(d)
-        print('model resnet50 224x224 classes=1000 f32 batch_norm_ops=%d '
-              'persistable_elements=%d' % (n_bn, n_params))
-        pred, images, resnet_counts = phase_serving(d, n_bn)
-        phase_cpu_agreement(d, pred, images)
+        with _phase('resnet50_serving'):
+            n_bn, n_params = build_and_save(d)
+            print('model resnet50 224x224 classes=1000 f32 batch_norm_ops=%d '
+                  'persistable_elements=%d' % (n_bn, n_params))
+            pred, images, resnet_counts = phase_serving(d, n_bn)
+        with _phase('resnet50_cpu_agreement'):
+            phase_cpu_agreement(d, pred, images)
         # bench.py's resnet50_serving: the same directory exported and
         # served by the batcher
         artifact_counts = phase_resnet_artifact_serving(d, n_bn)
         # bench.py's resnet50_serving_int8: the same directory with both
         # tiers, and the int8 ops at the shapes this model gives them
-        t0 = time.perf_counter()
-        int8_counts, int8_summary, raw_prog = phase_resnet_int8_serving(
-            d, n_bn)
-        int8_ops = phase_int8_ops(raw_prog)
-        del raw_prog
-        _phase_seconds('resnet50_int8', t0)
+        with _phase('resnet50_int8'):
+            int8_counts, int8_summary, raw_prog = phase_resnet_int8_serving(
+                d, n_bn)
+            int8_ops = phase_int8_ops(raw_prog)
+            del raw_prog
     with tempfile.TemporaryDirectory() as d:
+        with _phase('bert_serving'):
+            t0 = time.perf_counter()
+            n_ops, n_fused, n_params = build_and_save_bert(d)
+            print('model bert-base S=%d vocab=%d layers=%d f32 ops=%d '
+                  'fused_multihead_attention_ops=%d persistable_elements=%d '
+                  'build_init_save_s=%.1f' % (
+                      BERT['max_len'], BERT['vocab'], BERT['n_layer'], n_ops,
+                      n_fused, n_params, time.perf_counter() - t0))
+            bert_pred, bert_feeds, bert_counts = phase_bert_serving(d,
+                                                                    n_fused)
+        with _phase('bert_cpu_agreement'):
+            phase_bert_cpu_agreement(d, bert_pred, bert_feeds)
+    with _phase('bert_training'):
         t0 = time.perf_counter()
-        n_ops, n_fused, n_params = build_and_save_bert(d)
-        print('model bert-base S=%d vocab=%d layers=%d f32 ops=%d '
-              'fused_multihead_attention_ops=%d persistable_elements=%d '
-              'build_init_save_s=%.1f' % (
-                  BERT['max_len'], BERT['vocab'], BERT['n_layer'], n_ops,
-                  n_fused, n_params, time.perf_counter() - t0))
-        bert_pred, bert_feeds, bert_counts = phase_bert_serving(d, n_fused)
-        phase_bert_cpu_agreement(d, bert_pred, bert_feeds)
-    t0 = time.perf_counter()
-    train_main, train_startup, train_loss = build_bert_training()
-    print('model bert-base training S=%d vocab=%d layers=%d f32 ops=%d '
-          'persistable_vars=%d build_s=%.1f' % (
-              BERT['max_len'], BERT['vocab'], BERT['n_layer'],
-              len(train_main.global_block().ops),
-              sum(v.persistable for v in train_main.list_vars()),
-              time.perf_counter() - t0))
-    train_exe, train_scope, train_feed, train_counts = phase_bert_training(
-        train_main, train_startup, train_loss)
-    _bert_training_profile(train_exe, train_main, train_loss, train_scope,
-                           train_feed, False)
-    del train_scope, train_feed  # the trained parameters and Adam state
-    phase_training_gpu_vs_cpu(train_main, train_startup, train_loss)
-    torch.cuda.empty_cache()
+        train_main, train_startup, train_loss = build_bert_training()
+        print('model bert-base training S=%d vocab=%d layers=%d f32 ops=%d '
+              'persistable_vars=%d build_s=%.1f' % (
+                  BERT['max_len'], BERT['vocab'], BERT['n_layer'],
+                  len(train_main.global_block().ops),
+                  sum(v.persistable for v in train_main.list_vars()),
+                  time.perf_counter() - t0))
+        train_exe, train_scope, train_feed, train_counts = \
+            phase_bert_training(train_main, train_startup, train_loss)
+        _bert_training_profile(train_exe, train_main, train_loss,
+                               train_scope, train_feed, False)
+        del train_scope, train_feed  # the trained parameters and Adam state
+    with _phase('bert_training_gpu_vs_cpu'):
+        phase_training_gpu_vs_cpu()
+        torch.cuda.empty_cache()
     # the same program with checkpoints=True: K2 inside the remat segments
-    rm_main, rm_startup, rm_loss = build_bert_training(checkpoints=True)
-    remat_counts = phase_bert_remat_training(rm_main, train_main, rm_startup,
-                                             rm_loss)
-    del rm_main, rm_startup
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    r_main, r_startup, r_loss, r_acc = build_resnet_training()
-    print('model resnet50 training 224x224 classes=%d s2d_stem f32 ops=%d '
-          'parameters=%d persistable_vars=%d build_s=%.1f' % (
-              RESNET_TRAIN['class_dim'], len(r_main.global_block().ops),
-              len(r_main.all_parameters()),
-              sum(v.persistable for v in r_main.list_vars()),
-              time.perf_counter() - t0))
-    r_exe, r_scope, r_feed, resnet_train_counts = phase_resnet_training(
-        r_main, r_startup, r_loss, r_acc)
-    k1_training = phase_resnet_training_profile(r_exe, r_main, r_loss,
-                                                r_acc, r_scope, r_feed)
-    del r_scope, r_feed  # the trained parameters and velocities
-    torch.cuda.empty_cache()
-    phase_resnet_training_gpu_vs_cpu(r_main, r_startup, r_loss)
-    torch.cuda.empty_cache()
-    phase_resnet_backward_gpu_vs_cpu(r_main, r_startup)
-    torch.cuda.empty_cache()
+    with _phase('bert_training_remat'):
+        rm_main, rm_startup, rm_loss = build_bert_training(checkpoints=True)
+        remat_counts = phase_bert_remat_training(rm_main, train_main,
+                                                 rm_startup, rm_loss)
+        del rm_main, rm_startup
+        torch.cuda.empty_cache()
+    with _phase('resnet_training'):
+        t0 = time.perf_counter()
+        r_main, r_startup, r_loss, r_acc = build_resnet_training()
+        print('model resnet50 training 224x224 classes=%d s2d_stem f32 ops=%d '
+              'parameters=%d persistable_vars=%d build_s=%.1f' % (
+                  RESNET_TRAIN['class_dim'], len(r_main.global_block().ops),
+                  len(r_main.all_parameters()),
+                  sum(v.persistable for v in r_main.list_vars()),
+                  time.perf_counter() - t0))
+        r_exe, r_scope, r_feed, resnet_train_counts = phase_resnet_training(
+            r_main, r_startup, r_loss, r_acc)
+        k1_training = phase_resnet_training_profile(r_exe, r_main, r_loss,
+                                                    r_acc, r_scope, r_feed)
+        del r_scope, r_feed  # the trained parameters and velocities
+        torch.cuda.empty_cache()
+    with _phase('resnet_training_gpu_vs_cpu'):
+        phase_resnet_training_gpu_vs_cpu(r_main, r_startup, r_loss)
+        torch.cuda.empty_cache()
+    with _phase('resnet_backward_gpu_vs_cpu'):
+        phase_resnet_backward_gpu_vs_cpu(r_main, r_startup)
+        torch.cuda.empty_cache()
     # bench_resnet's f32 batch, which fits once dead values are freed
     resnet_b256_counts = phase_resnet_f32_bench_batch(r_main, r_startup,
                                                       r_loss, r_acc)
 
     # bf16 mixed precision: the same two programs marked by enable_bf16
-    t0 = time.perf_counter()
-    amp_main, amp_startup, amp_loss = build_bert_training(amp=True)
-    print('model bert-base training S=%d bf16 (enable_bf16) ops=%d '
-          'build_s=%.1f' % (BERT['max_len'], len(amp_main.global_block().ops),
-                            time.perf_counter() - t0))
-    amp_exe, amp_scope, amp_feed, bert_amp_counts = phase_bert_training(
-        amp_main, amp_startup, amp_loss, amp=True)
-    _bert_training_profile(amp_exe, amp_main, amp_loss, amp_scope, amp_feed,
-                           True)
-    del amp_scope, amp_feed
-    phase_training_gpu_vs_cpu(amp_main, amp_startup, amp_loss, amp=True)
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ra_main, ra_startup, ra_loss, ra_acc = build_resnet_training(amp=True)
-    print('model resnet50 training 224x224 s2d_stem bf16 (enable_bf16) '
-          'ops=%d build_s=%.1f' % (len(ra_main.global_block().ops),
-                                   time.perf_counter() - t0))
-    ra_exe, ra_scope, ra_feed, resnet_amp_counts = phase_resnet_training(
-        ra_main, ra_startup, ra_loss, ra_acc, RESNET_AMP_BATCH, amp=True)
-    k1_amp = phase_resnet_training_profile(
-        ra_exe, ra_main, ra_loss, ra_acc, ra_scope, ra_feed,
-        RESNET_AMP_BATCH, amp=True)
-    del ra_scope, ra_feed
-    torch.cuda.empty_cache()
-    phase_resnet_training_gpu_vs_cpu(ra_main, ra_startup, ra_loss, amp=True)
-    torch.cuda.empty_cache()
-    phase_resnet_backward_gpu_vs_cpu(ra_main, ra_startup, amp=True)
-    torch.cuda.empty_cache()
-    phase_memory_summary(r_main, r_loss, r_acc)
+    with _phase('bert_training_bf16'):
+        t0 = time.perf_counter()
+        amp_main, amp_startup, amp_loss = build_bert_training(amp=True)
+        print('model bert-base training S=%d bf16 (enable_bf16) ops=%d '
+              'build_s=%.1f' % (BERT['max_len'],
+                                len(amp_main.global_block().ops),
+                                time.perf_counter() - t0))
+        amp_exe, amp_scope, amp_feed, bert_amp_counts = phase_bert_training(
+            amp_main, amp_startup, amp_loss, amp=True)
+        _bert_training_profile(amp_exe, amp_main, amp_loss, amp_scope,
+                               amp_feed, True)
+        del amp_scope, amp_feed
+    with _phase('bert_training_bf16_gpu_vs_cpu'):
+        phase_training_gpu_vs_cpu(amp=True)
+        torch.cuda.empty_cache()
+    with _phase('resnet_training_bf16'):
+        t0 = time.perf_counter()
+        ra_main, ra_startup, ra_loss, ra_acc = build_resnet_training(amp=True)
+        print('model resnet50 training 224x224 s2d_stem bf16 (enable_bf16) '
+              'ops=%d build_s=%.1f' % (len(ra_main.global_block().ops),
+                                       time.perf_counter() - t0))
+        ra_exe, ra_scope, ra_feed, resnet_amp_counts = phase_resnet_training(
+            ra_main, ra_startup, ra_loss, ra_acc, RESNET_AMP_BATCH, amp=True)
+        k1_amp = phase_resnet_training_profile(
+            ra_exe, ra_main, ra_loss, ra_acc, ra_scope, ra_feed,
+            RESNET_AMP_BATCH, amp=True)
+        del ra_scope, ra_feed
+        torch.cuda.empty_cache()
+    with _phase('resnet_training_bf16_gpu_vs_cpu'):
+        phase_resnet_training_gpu_vs_cpu(ra_main, ra_startup, ra_loss,
+                                         amp=True)
+        torch.cuda.empty_cache()
+    with _phase('resnet_backward_bf16_gpu_vs_cpu'):
+        phase_resnet_backward_gpu_vs_cpu(ra_main, ra_startup, amp=True)
+        torch.cuda.empty_cache()
+    with _phase('memory_summary'):
+        phase_memory_summary(r_main, r_loss, r_acc)
     # the same bf16 program trained from an export_train_step artifact
     trainer_counts = phase_compiled_trainer()
-
-    # bench.py's bench_bert: S=128, batch 64, dropout 0.1 (the composed
-    # attention), bf16, gradient merge k=2
-    phase_dropout_on_card()
-    t0 = time.perf_counter()
-    bb_main, bb_startup, bb_loss, bb_feeds = build_bert_bench_training()
-    print('model bert-base bench training S=%d bf16 k=%d dropout=0.1 ops=%d '
-          'build_s=%.1f' % (BENCH_BERT['max_len'], BENCH_K,
-                            len(bb_main.global_block().ops),
-                            time.perf_counter() - t0))
-    bench_counts = phase_bert_bench_training(bb_main, bb_startup, bb_loss,
-                                             bb_feeds)
-    torch.cuda.empty_cache()
-    bbr_main, bbr_startup, bbr_loss, bbr_feeds = build_bert_bench_training(
-        checkpoints=True)
-    bench_remat_counts = phase_bert_bench_remat(bbr_main, bb_main,
-                                                bbr_startup, bbr_loss,
-                                                bbr_feeds)
-    del bbr_main, bbr_startup
-    torch.cuda.empty_cache()
-    phase_bench_gpu_vs_cpu(amp=False)
-    phase_bench_gpu_vs_cpu(amp=True)
-    torch.cuda.empty_cache()
 
     # bench.py's bench_transformer: 6+6 layers, S=256, batch 64, bf16,
     # dropout 0.1 (the composed attention) and 0 (K2, causal in the
     # decoder's self-attention)
-    trans_counts, _ = phase_transformer_bench_training(0.1)
-    trans0_counts, trans0_causal = phase_transformer_bench_training(0.0)
-    phase_transformer_lr_under_gradient_merge()
-    phase_transformer_gpu_vs_cpu(0.1, amp=False)
-    phase_transformer_gpu_vs_cpu(0.1, amp=True)
-    phase_transformer_gpu_vs_cpu(0.0, amp=True)
+    with _phase('transformer_bench_training'):
+        trans_counts, _ = phase_transformer_bench_training(0.1)
+    with _phase('transformer_bench_training_dropout0'):
+        trans0_counts, trans0_causal = phase_transformer_bench_training(0.0)
+    with _phase('transformer_lr_under_gradient_merge'):
+        phase_transformer_lr_under_gradient_merge()
+    for dropout, amp in ((0.1, False), (0.1, True), (0.0, True)):
+        with _phase('transformer_gpu_vs_cpu%s_%s' % (
+                '' if dropout else '_dropout0', _precision(amp))):
+            phase_transformer_gpu_vs_cpu(dropout, amp=amp)
     torch.cuda.empty_cache()
-
-    # continuous decode serving at Transformer-base widths (decode-base)
-    decode_counts = decode_paths()
 
     # the image-classification zoo at bench.py's settings: SmallNet,
     # AlexNet, VGG-19, GoogLeNet and SE-ResNeXt-50 trained in bf16, the
@@ -5389,23 +6258,52 @@ def main():
             phase_zoo_gpu_vs_cpu(name, amp=False)
         torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        n_ops = build_googlenet_serving(d)
-        print('model googlenet inference 224x224 classes=1000 f32 ops=%d '
-              'build_init_save_s=%.1f' % (n_ops, time.perf_counter() - t0))
+        with _phase('googlenet_serving_build'):
+            t0 = time.perf_counter()
+            n_ops = build_googlenet_serving(d)
+            print('model googlenet inference 224x224 classes=1000 f32 ops=%d '
+                  'build_init_save_s=%.1f' % (n_ops,
+                                              time.perf_counter() - t0))
         gnet_pred, gnet_counts = phase_googlenet_serving(d)
         gnet_art_counts = phase_googlenet_artifact(d, gnet_pred)
         phase_run_steps_exactness(gnet_pred)
     del gnet_pred
     torch.cuda.empty_cache()
-    zoo_k1, zoo_k1_abs = phase_zoo_kernel(_se_bn_shapes())
+    with _phase('zoo_kernel'):
+        zoo_k1, zoo_k1_abs = phase_zoo_kernel(_se_bn_shapes())
 
-    totals = phase_kernel_times()
-    totals_amp = phase_kernel_times(RESNET_AMP_BATCH, torch.bfloat16)
-    k2_rows = phase_flash_times()
-    bwd_rows = phase_flash_bwd_times()
-    phase_profile(pred, images)
-    phase_bert_profile(bert_pred, bert_feeds)
+    # continuous decode serving at Transformer-base widths (decode-base)
+    with _phase('decode_paths'):
+        decode_counts = decode_paths()
+
+    # bench.py's stacked-LSTM rows (cudnn_lstm on cuDNN) and CTR row
+    # (SelectedRows, lazy Adam)
+    with _phase('lstm_route_vs_plain'):
+        lstm_route = phase_lstm_route_vs_plain()
+    with _phase('stacked_lstm_text_cls'):
+        lstm_counts, lstm_summary = phase_stacked_lstm()
+    with _phase('ctr_deepfm'):
+        ctr_counts, ctr_summary = phase_ctr_deepfm()
+    # the gates after the timed runs: their CPU sides, on the worker, share
+    # the host with the kernels' timings (CUDA events), not with these rows
+    with _phase('stacked_lstm_gpu_vs_cpu'):
+        phase_stacked_lstm_gpu_vs_cpu(amp=True)
+        phase_stacked_lstm_gpu_vs_cpu(amp=False)
+    with _phase('ctr_deepfm_gpu_vs_cpu'):
+        phase_ctr_gpu_vs_cpu()
+
+    with _phase('kernel_times'):
+        totals = phase_kernel_times()
+        totals_amp = phase_kernel_times(RESNET_AMP_BATCH, torch.bfloat16)
+    with _phase('flash_times'):
+        k2_rows = phase_flash_times()
+    with _phase('flash_bwd_times'):
+        bwd_rows = phase_flash_bwd_times()
+    with _phase('profiles'):
+        phase_profile(pred, images)
+        phase_bert_profile(bert_pred, bert_feeds)
+    with _phase('cpu_gates_wait'):
+        _cpu_gates_done()
 
     paths = {'resnet50_serving': resnet_counts, 'bert_serving': bert_counts,
              'bert_training': train_counts,
@@ -5426,6 +6324,8 @@ def main():
              'resnet50_int8_serving': int8_counts}
     paths.update(decode_counts)
     paths.update(zoo_counts)
+    paths.update(lstm_counts)
+    paths.update(ctr_counts)
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}
@@ -5467,7 +6367,10 @@ def main():
                         if key[0] == name}})
     print('int8 tier summary: %s' % json.dumps({
         'resnet50_serving_int8': int8_summary, 'int8_ops': int8_ops}))
-    print('total seconds %.1f' % (time.perf_counter() - t_start))
+    print('stacked-LSTM and CTR summary: %s' % json.dumps({
+        'lstm_route_vs_plain': lstm_route,
+        'stacked_lstm_text_cls': lstm_summary, 'ctr_deepfm': ctr_summary}))
+    print('total seconds %.1f' % _phase_summary(t_start))
     print(json.dumps({'kernels': [{
         'name': 'bn_apply', 'route': 'cuda',
         'source': 'paddle_tpu_torch/csrc/bn_apply.cu',

@@ -56,6 +56,7 @@ from .framework import (CUDAPlace, Variable, default_main_program,
 from .core import amp
 from .core.lowering import Interpreter, TraceError, free_plan
 from .core.scope import global_scope
+from .core.selected_rows import SelectedRowsVal
 
 
 _verify_cache = {}   # uid -> (build_epoch, {(feeds, fetches): errors})
@@ -93,6 +94,8 @@ def _fetch_name(f):
 
 
 def _to_numpy(t):
+    if isinstance(t, SelectedRowsVal):  # rows and values as numpy arrays
+        return t.numpy()
     if t.dtype == torch.bfloat16:
         raise TypeError("numpy has no bfloat16: fetch %s tensors with "
                         "return_numpy=False" % t.dtype)

@@ -8,6 +8,7 @@ from .learning_rate_scheduler import *  # noqa: F401,F403
 from .metric_op import accuracy  # noqa: F401
 from .nn import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403
+from .sequence import lstm  # noqa: F401
 from .tensor import create_parameter, fill_constant, range  # noqa: F401
 
 math_op_patch.monkey_patch_variable()

@@ -21,8 +21,11 @@ __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
            'elementwise_mul', 'elementwise_div', 'elementwise_max',
            'elementwise_min', 'elementwise_pow', 'reshape', 'transpose',
            'fused_multihead_attention', 'matmul',
-           'softmax_with_cross_entropy', 'reduce_sum', 'mean', 'softmax',
+           'softmax_with_cross_entropy', 'reduce_sum', 'reduce_mean',
+           'reduce_max', 'reduce_min', 'reduce_prod', 'mean', 'softmax',
            'topk', 'pad', 'cast', 'concat', 'square_error_cost',
+           'sigmoid_cross_entropy_with_logits', 'merge_selected_rows',
+           'get_tensor_from_selected_rows',
            'add_position_encoding', 'scale', 'slice', 'gather', 'clip',
            'kv_cache_write', 'kv_cache_prefill_write', 'kv_cache_attention',
            'kv_block_write', 'kv_block_attention', 'kv_block_chunk_write',
@@ -309,16 +312,28 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     return loss
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper('reduce_sum', name=name)
-    out = helper.create_variable_for_type_inference(input.dtype)
-    if dim is not None and not isinstance(dim, (list, tuple)):
-        dim = [dim]
-    helper.append_op(
-        type='reduce_sum', inputs={'X': input}, outputs={'Out': out},
-        attrs={'dim': dim if dim is not None else [0],
-               'keep_dim': keep_dim, 'reduce_all': dim is None})
-    return out
+def _reduce_layer(op_type):
+    """The reduce_* layers (paddle_tpu/layers/nn.py:827-847): `dim` an int
+    or a list; None reduces every dim (reduce_all)."""
+    def layer(input, dim=None, keep_dim=False, name=None):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(input.dtype)
+        if dim is not None and not isinstance(dim, (list, tuple)):
+            dim = [dim]
+        helper.append_op(
+            type=op_type, inputs={'X': input}, outputs={'Out': out},
+            attrs={'dim': dim if dim is not None else [0],
+                   'keep_dim': keep_dim, 'reduce_all': dim is None})
+        return out
+    layer.__name__ = op_type
+    return layer
+
+
+reduce_sum = _reduce_layer('reduce_sum')
+reduce_mean = _reduce_layer('reduce_mean')
+reduce_max = _reduce_layer('reduce_max')
+reduce_min = _reduce_layer('reduce_min')
+reduce_prod = _reduce_layer('reduce_prod')
 
 
 def mean(x, name=None):
@@ -363,6 +378,37 @@ def square_error_cost(input, label):
     helper.append_op(type='square_error_cost',
                      inputs={'X': input, 'Y': label}, outputs={'Out': out},
                      attrs={})
+    return out
+
+
+def merge_selected_rows(x, name=None):
+    """Deduplicate a SelectedRows' rows, summing values
+    (ref merge_selected_rows_op.cc)."""
+    helper = LayerHelper('merge_selected_rows', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type='merge_selected_rows', inputs={'X': x},
+                     outputs={'Out': out})
+    return out
+
+
+def get_tensor_from_selected_rows(x, name=None):
+    """The dense values tensor of a SelectedRows
+    (ref get_tensor_from_selected_rows_op.cc)."""
+    helper = LayerHelper('get_tensor_from_selected_rows', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type='get_tensor_from_selected_rows', inputs={'X': x},
+                     outputs={'Out': out})
+    return out
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None,
+                                      normalize=False):
+    helper = LayerHelper('sigmoid_cross_entropy_with_logits', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type='sigmoid_cross_entropy_with_logits',
+        inputs={'X': x, 'Label': label}, outputs={'Out': out},
+        attrs={'ignore_index': ignore_index, 'normalize': normalize})
     return out
 
 

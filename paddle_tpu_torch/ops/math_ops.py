@@ -3,9 +3,10 @@ softmax, loss, compare and gradient-norm op lowerings (ref:
 operators/elementwise/, activation_op.cc, clip_op.cc, clip_by_norm_op.cc,
 mul_op.cc, matmul_op.cc, reduce_ops/, mean_op.cc, scale_op.cc, sum_op.cc,
 cast_op.cc, softmax_op.cc, softmax_with_cross_entropy_op.cc,
-square_error_cost (nn.py), controlflow/compare_op.cc, squared_l2_norm_op.cc;
-paddle_tpu/ops/math_ops.py:27,55-56,70-160,195,200,216,228,262,287,294,306,
-325,335,368,385,520,550,556).
+square_error_cost (nn.py), sigmoid_cross_entropy_with_logits_op.cc,
+controlflow/compare_op.cc, squared_l2_norm_op.cc;
+paddle_tpu/ops/math_ops.py:27,55-56,70-160,195,200,216,228,265-284,287,294,
+306,325,335,368,385,463,520,550,556).
 
 Under the amp scope (core/amp.py) they follow the reference's dtypes:
 `mul` and `matmul` run in bf16, an elementwise op resolves a bf16/f32
@@ -19,6 +20,7 @@ import torch
 
 from ..core import amp
 from ..core.registry import register
+from ..core.selected_rows import SelectedRowsVal, concat_rows
 from ..framework import to_torch_dtype
 
 
@@ -210,19 +212,63 @@ def _matmul(ctx, ins):
     return {'Out': [out]}
 
 
-@register('reduce_sum')
-def _reduce_sum(ctx, ins):
-    """Sum over `dim` (negative dims count from the end), or over every dim
-    with reduce_all, keeping the reduced dims with keep_dim."""
-    x = X(ins)
-    keep = bool(ctx.attr('keep_dim', False))
-    if ctx.attr('reduce_all', False):
-        dims = tuple(range(x.ndim))
-    else:
-        dims = ctx.attr('dim', [0])
-        dims = tuple(d % x.ndim for d in
-                     ([dims] if isinstance(dims, int) else dims))
-    return {'Out': [torch.sum(x, dim=dims, keepdim=keep)]}
+def _acc_dtype(x):
+    """f32 for a bf16 or f16 x (jnp.sum, mean and prod compute in f32 and
+    round the result once), else x's own dtype."""
+    return torch.float32 if x.dtype in (torch.bfloat16, torch.float16) \
+        else x.dtype
+
+
+def _prod(x, dims, keep, dtype):
+    for d in sorted(dims, reverse=True):  # later dims first: indices hold
+        x = torch.prod(x, d, keepdim=keep, dtype=dtype)
+    return x
+
+
+# reduce op -> (fn(x, dims, keep, accumulation dtype), how jnp types an
+# integer or bool x: 'int' sums bools as int32, 'float' averages in f32,
+# None keeps the dtype)
+_REDUCE = {
+    'reduce_sum': (lambda x, d, k, acc: torch.sum(x, d, k, dtype=acc), 'int'),
+    'reduce_mean': (lambda x, d, k, acc: torch.mean(x, d, k, dtype=acc),
+                    'float'),
+    'reduce_max': (lambda x, d, k, acc: torch.amax(x, d, k), None),
+    'reduce_min': (lambda x, d, k, acc: torch.amin(x, d, k), None),
+    'reduce_prod': (_prod, 'int'),
+}
+
+
+def _reduce(name):
+    fn, integer = _REDUCE[name]
+
+    @register(name)
+    def _lower(ctx, ins):
+        """paddle_tpu/ops/math_ops.py:265-284: reduce over `dim` (negative
+        dims count from the end), or over every dim with reduce_all,
+        keeping the reduced dims with keep_dim; the result in x's dtype
+        (bools summed as int32, integers averaged in f32, as jnp does).
+        No dims reduce nothing. reduce_max/min give tied elements equal
+        shares of the gradient (torch.amax/amin), as jnp.max/min do."""
+        x = X(ins)
+        keep = bool(ctx.attr('keep_dim', False))
+        if ctx.attr('reduce_all', False):
+            dims = tuple(range(x.ndim))
+        else:
+            dims = ctx.attr('dim', [0])
+            dims = tuple(sorted({d % x.ndim for d in
+                                 ([dims] if isinstance(dims, int)
+                                  else dims)}))
+        if not dims:
+            return {'Out': [x]}
+        if not x.is_floating_point() and integer == 'float':
+            x = x.float()
+        elif x.dtype == torch.bool and integer == 'int':
+            x = x.int()
+        return {'Out': [fn(x, dims, keep, _acc_dtype(x)).to(x.dtype)]}
+
+
+for _name in _REDUCE:
+    _reduce(_name)
 
 
 @register('mean')
@@ -254,8 +300,16 @@ def _scale(ctx, ins):
 @register('sum')
 def _sum(ctx, ins):
     """The sum of the X inputs: how append_backward adds the gradients of
-    a var read by several ops. Dense tensors only (no SelectedRows yet)."""
+    a var read by several ops (paddle_tpu/ops/math_ops.py:306-320). All
+    SelectedRows: their rows concatenated (addition, for the scatters that
+    read them); a mix: the SelectedRows densified first."""
     xs = [x for x in ins['X'] if x is not None]
+    sparse = [x for x in xs if isinstance(x, SelectedRowsVal)]
+    if sparse:
+        if len(sparse) == len(xs):
+            return {'Out': [concat_rows(xs)]}
+        xs = [x.to_dense() if isinstance(x, SelectedRowsVal) else x
+              for x in xs]
     out = xs[0]
     for x in xs[1:]:
         out = out + x
@@ -290,6 +344,25 @@ def _softmax_with_cross_entropy(ctx, ins):
     loss = torch.where(ignore[..., None], 0.0, -picked)
     return {'Softmax': [amp.restore(torch.exp(logp), logits)],
             'Loss': [loss]}
+
+
+@register('sigmoid_cross_entropy_with_logits')
+def _sigmoid_cross_entropy_with_logits(ctx, ins):
+    """max(x, 0) - x·label + log1p(exp(-|x|)) elementwise
+    (paddle_tpu/ops/math_ops.py:463), 0 where label == ignore_index; with
+    normalize, divided by the count of labels not ignored (at least 1).
+    torch.maximum gives a tie at x == 0 half the gradient, as
+    jnp.maximum does."""
+    x = X(ins)
+    label = ins['Label'][0]
+    ignore = ctx.attr('ignore_index', -100)
+    loss = (torch.maximum(x, torch.zeros_like(x)) - x * label
+            + torch.log1p(torch.exp(-torch.abs(x))))
+    loss = torch.where(label == ignore, torch.zeros_like(loss), loss)
+    if ctx.attr('normalize', False):
+        cnt = torch.clamp(torch.sum(label != ignore), min=1)
+        loss = loss / cnt
+    return {'Out': [loss]}
 
 
 @register('square_error_cost')

@@ -1,7 +1,10 @@
 """NN op lowerings: conv2d, pool2d, batch_norm, layer_norm, lookup_table
-and its explicit grad, fused_multihead_attention (ref: operators/conv_op.cc,
-pool_op.cc, batch_norm_op.cc, layer_norm_op.cc, lookup_table_op.cc;
-paddle_tpu/ops/nn_ops.py:29,186,334,388,480,502,684).
+and its explicit grad (dense or SelectedRows), merge_selected_rows,
+get_tensor_from_selected_rows, fused_multihead_attention (ref:
+operators/conv_op.cc, pool_op.cc, batch_norm_op.cc, layer_norm_op.cc,
+lookup_table_op.cc, merge_selected_rows_op.cc,
+get_tensor_from_selected_rows_op.cc; paddle_tpu/ops/nn_ops.py:29,186,334,
+388,480,502,542,552,684).
 
 conv2d maps to torch.nn.functional.conv2d (cuDNN on the card), as the JAX
 package leaves it to XLA, through core/amp.py: bf16 operands and result
@@ -19,6 +22,7 @@ import torch.nn.functional as F
 
 from ..core import amp
 from ..core.registry import register
+from ..core.selected_rows import SelectedRowsVal
 from .bn_apply import bn_apply
 from .flash_attention import FlashAttention, flash_attn_fwd
 from .math_ops import X
@@ -180,16 +184,14 @@ def _lookup_table(ctx, ins):
 
 @register('lookup_table_grad', no_grad=True)
 def _lookup_table_grad(ctx, ins):
-    """The explicit grad of lookup_table (paddle_tpu/ops/nn_ops.py:502),
-    dense branch: W@GRAD is a zero [V, D] table with each id's output
-    gradient row added at that id (ids in [-V, 0) count from the end, ids
-    outside [-V, V) add nothing), and nothing added for padding_idx.
-    is_sparse (a SelectedRows gradient) raises: SelectedRows is not ported
-    yet."""
-    if ctx.attr('is_sparse', False):
-        raise NotImplementedError(
-            "lookup_table_grad: is_sparse=True needs SelectedRows, which the "
-            "port does not have yet")
+    """The explicit grad of lookup_table (paddle_tpu/ops/nn_ops.py:502).
+    Each id's output gradient row goes to that id (ids in [-V, 0) count
+    from the end, ids outside [-V, V) add nothing), and padding_idx's rows
+    get zeros. Dense: W@GRAD is a zero [V, D] table with the rows added.
+    is_sparse: W@GRAD is a SelectedRowsVal of the batch's ids and their
+    rows (the reference's SelectedRows path, lookup_table_op.cc), a
+    padding id keeping its slot with a zero row, an id out of range
+    parked at row V."""
     a = ctx.attrs
     w_name = a['_fwd_inputs']['W'][0]
     gname = a['_in_grad_map'].get(w_name, '')
@@ -201,17 +203,47 @@ def _lookup_table_grad(ctx, ins):
     flat = interp.read(a['_fwd_inputs']['Ids'][0], op).reshape(-1).long()
     g_out = interp.cotangent(
         a['_out_grad_map'].get(a['_fwd_outputs']['Out'][0], ''), op)
-    dense = torch.zeros_like(w)
-    if g_out is None:
-        return {'IN@GRAD': [dense]}
     idx = torch.where(flat < 0, flat + n, flat)
     keep = (idx >= 0) & (idx < n)
     pad = ctx.attr('padding_idx', -1)
+    not_pad = torch.ones_like(keep)
     if pad is not None and pad != -1:
-        keep &= flat != (pad + n if pad < 0 else pad)
-    gv = g_out.reshape(flat.shape[0], w.shape[1]).to(w.dtype)
+        not_pad = flat != (pad + n if pad < 0 else pad)
+    if g_out is None:
+        gv = w.new_zeros((flat.shape[0], w.shape[1]))
+    else:
+        gv = g_out.reshape(flat.shape[0], w.shape[1]).to(w.dtype)
+    if ctx.attr('is_sparse', False):
+        gv = torch.where(not_pad[:, None], gv, torch.zeros_like(gv))
+        rows = torch.where(keep, idx, torch.full_like(idx, n))
+        return {'IN@GRAD': [SelectedRowsVal(rows, gv, n)]}
+    dense = torch.zeros_like(w)
+    if g_out is None:
+        return {'IN@GRAD': [dense]}
+    keep &= not_pad
     dense.index_add_(0, idx[keep], gv[keep])
     return {'IN@GRAD': [dense]}
+
+
+@register('merge_selected_rows', no_grad=True)
+def _merge_selected_rows(ctx, ins):
+    """A SelectedRows with its duplicate rows summed (SelectedRowsVal.merged:
+    N kept, freed slots parked at row == height)."""
+    x = ins['X'][0]
+    if not isinstance(x, SelectedRowsVal):
+        raise TypeError("merge_selected_rows expects SelectedRows input "
+                        "(a sparse embedding gradient), got %r" % (x,))
+    return {'Out': [x.merged()]}
+
+
+@register('get_tensor_from_selected_rows', no_grad=True)
+def _get_tensor_from_selected_rows(ctx, ins):
+    """A SelectedRows' values, [N, *tail]."""
+    x = ins['X'][0]
+    if not isinstance(x, SelectedRowsVal):
+        raise TypeError("get_tensor_from_selected_rows expects SelectedRows "
+                        "input, got %r" % (x,))
+    return {'Out': [x.values]}
 
 
 @register('fused_multihead_attention', diff_inputs=('Q', 'K', 'V'))

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .core.scope import global_scope
+from .core.selected_rows import SelectedRowsVal
 
 
 def params_from_numpy(params, program, scope=None, device=None):
@@ -58,16 +59,28 @@ def params_from_numpy(params, program, scope=None, device=None):
                                 want))
         arrays[name] = arr
     for name, arr in arrays.items():
-        scope.set(name, torch.from_numpy(np.array(arr)).to(device))
+        # a copy the caller's array does not alias: on the CPU a fresh
+        # array, elsewhere the device's own
+        t = torch.from_numpy(np.array(arr) if device.type == 'cpu'
+                             else np.ascontiguousarray(arr))
+        scope.set(name, t.to(device))
+
+
+def _host(t):
+    """A tensor, or a SelectedRowsVal (rows and values), copied to numpy."""
+    if isinstance(t, SelectedRowsVal):
+        return t.numpy()
+    return t.detach().cpu().numpy()
 
 
 def state_to_numpy(program, scope=None):
     """{name: np.ndarray} of every persistable var of `program` that
-    `scope` (default: the global scope) holds, copied to the host."""
+    `scope` (default: the global scope) holds, copied to the host (a
+    SelectedRows value as a SelectedRowsVal of numpy arrays)."""
     scope = scope if scope is not None else global_scope()
     out = {}
     for v in program.list_vars():
         t = scope.get(v.name) if v.persistable else None
         if t is not None:
-            out[v.name] = t.detach().cpu().numpy()
+            out[v.name] = _host(t)
     return out

@@ -219,8 +219,8 @@ def test_submit_validation(artifact):
 
 def test_warmup_drain_and_load_decoding(artifact):
     """warmup() leaves a zero cache and zero counters; drain() lets the
-    active stream finish and sheds what comes after it; load_decoding is
-    the constructor."""
+    active stream (admitted: its prefill counted) finish and sheds what
+    comes after it; load_decoding is the constructor."""
     prompt = _prompts(19, 1)[0]
     with load_decoding(artifact, place=CPU) as pred:
         want = pred.generate(prompt, max_new_tokens=6)
@@ -230,7 +230,11 @@ def test_warmup_drain_and_load_decoding(artifact):
         for e in pred._sig['state']:
             assert not pred._scope.get(e['name']).any()
         s = pred.submit(prompt, max_new_tokens=6)
-        time.sleep(0.01)
+        # drain() sheds a request still queued: wait until it is admitted
+        deadline = time.monotonic() + 60
+        while pred.stats.snapshot()['prefills'] < 1:
+            assert time.monotonic() < deadline, 'request never admitted'
+            time.sleep(0.001)
         assert pred.drain(60)
         assert s.result(10) == want
         with pytest.raises(ServerOverloaded):

@@ -630,19 +630,33 @@ def test_grad_op_outputs_take_forward_shapes():
 
 
 def test_sparse_and_lazy_branches_raise():
-    case = _lookup_grad_case(_ids(2, 3), -1)
-    case['attrs']['is_sparse'] = True
+    """The branches that raised before SelectedRows was ported now run as
+    the reference's do: lookup_table_grad with is_sparse gives a
+    SelectedRowsVal whose densified table is the dense branch's, and
+    adam's lazy_mode on a dense gradient is the dense update
+    (paddle_tpu/ops/optimizer_ops.py:79; tests/test_torch_ctr.py holds
+    the sparse branches against the reference)."""
+    from paddle_tpu_torch.core.selected_rows import SelectedRowsVal
     cots = {'out': _r(2, 3, 4)}
-    main, _, feed, fetch = _build(ptt, case, cots)
-    with pytest.raises(NotImplementedError, match='SelectedRows'):
-        ptt.Executor(ptt.CPUPlace()).run(main, feed=feed, fetch_list=fetch,
-                                         scope=ptt.Scope())
-    case = _adam_case()
-    case['attrs']['lazy_mode'] = True
-    main, _, feed, fetch = _build(ptt, case, {})
-    with pytest.raises(NotImplementedError, match='lazy_mode'):
-        ptt.Executor(ptt.CPUPlace()).run(main, feed=feed, fetch_list=fetch,
-                                         scope=ptt.Scope())
+    grads = []
+    for sparse in (True, False):
+        case = _lookup_grad_case(_ids(2, 3), -1)
+        case['attrs']['is_sparse'] = sparse
+        main, _, feed, fetch = _build(ptt, case, cots)
+        grads.append(ptt.Executor(ptt.CPUPlace()).run(
+            main, feed=feed, fetch_list=fetch[-1:], scope=ptt.Scope(),
+            return_numpy=False)[0])
+    assert isinstance(grads[0], SelectedRowsVal)
+    assert torch.equal(grads[0].to_dense(), grads[1])
+    outs = []
+    for lazy in (True, False):
+        case = _adam_case()
+        case['attrs']['lazy_mode'] = lazy
+        main, _, feed, fetch = _build(ptt, case, {})
+        outs.append(ptt.Executor(ptt.CPUPlace()).run(
+            main, feed=feed, fetch_list=fetch, scope=ptt.Scope()))
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_grad_op_rng_follows_forward_op():
