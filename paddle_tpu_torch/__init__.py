@@ -35,4 +35,6 @@ from .passes import ProgramVerifyError  # noqa: F401
 from .transpiler import (memory_optimize, release_memory,  # noqa: F401
                          InferenceTranspiler)
 from .param_attr import ParamAttr  # noqa: F401
+from .lod_tensor import (LoDTensor, create_lod_tensor,  # noqa: F401
+                         create_random_int_lodtensor)
 from .initializer import Constant, Uniform, Normal, Xavier, MSRA  # noqa

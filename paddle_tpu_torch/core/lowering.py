@@ -28,6 +28,15 @@ with the TraceError below, never silently; a grad op's cotangent is read
 through `Interpreter.cotangent`, which tells a gradient no op wrote (a
 zero cotangent) from one that was dropped (the TraceError).
 
+LoD (core/lod.py): a value may be a LoDArray, a tensor and its host
+offsets. Each op's registered `lod` mode says what it sees, as
+paddle_tpu/core/lowering.py:156-207 has it: 'pass' (the default) unwraps
+the inputs and rewraps every output whose rows match the first LoD
+input's with that input's offsets (the reference's ShareLoD); 'aware'
+hands the lowering the LoDArrays; 'none' unwraps and drops the LoD. A
+generic grad hands an 'aware' forward its LoD inputs, the differentiated
+ones rewrapped around their leaves, and writes dense gradients.
+
 Sub-blocks: `OpCtx.run_block` runs a sub-block on an environment of its
 own (the reference's ctx.run_block, paddle_tpu/ops/control_ops.py:
 125-165); `remat_segment` (ops/control_ops.py) runs its segment that
@@ -39,6 +48,7 @@ from __future__ import annotations
 import torch
 
 from . import config, registry
+from .lod import LoDArray, unwrap
 
 
 class TraceError(RuntimeError):
@@ -226,9 +236,20 @@ class Interpreter(object):
             return self._lower_generic_grad(op, block, fwd)
         ins = {slot: [self.read(n, op) if n else None for n in names]
                for slot, names in op.inputs.items()}
+        src = None
+        if d.lod_mode != 'aware':
+            src = next((v for vals in ins.values() for v in vals
+                        if isinstance(v, LoDArray)), None)
+            if src is not None:
+                ins = {slot: [unwrap(v) for v in vals]
+                       for slot, vals in ins.items()}
         outs = d.lower(OpCtx(self, op, block), ins) or {}
         if op.attrs.get('fuse_act'):
             outs = self._apply_fused_act(op, block, outs)
+        if d.lod_mode == 'pass' and src is not None:
+            outs = {slot: [_share_lod(v, src) for v in vals]
+                    if vals is not None else None
+                    for slot, vals in outs.items()}
         for slot, names in op.outputs.items():
             vals = outs.get(slot)
             if vals is None:
@@ -256,7 +277,8 @@ class Interpreter(object):
                 "op %s carries fuse_act=%r but produced no value in slot "
                 "%r to activate" % (op, act, slot))
         shadow = _FusedActOp(act, op.attrs.get('fuse_act_attrs', {}), op)
-        acted = d.lower(OpCtx(self, shadow, block), {'X': [vals[0]]})['Out'][0]
+        acted = d.lower(OpCtx(self, shadow, block),
+                        {'X': [unwrap(vals[0])]})['Out'][0]
         outs = dict(outs)
         outs[slot] = [acted] + list(vals[1:])
         return outs
@@ -278,20 +300,27 @@ class Interpreter(object):
                     diff_names.append(n)
         if not diff_names:
             return
+        aware = fwd_def.lod_mode == 'aware'
         env = {n: self.read(n, op) for names in fwd_inputs.values()
                for n in names if n}
+        if not aware:
+            env = {n: unwrap(v) for n, v in env.items()}
 
         with torch.enable_grad():
-            leaves = [env[n].detach().requires_grad_() for n in diff_names]
-            env.update(zip(diff_names, leaves))
+            leaves = [unwrap(env[n]).detach().requires_grad_()
+                      for n in diff_names]
+            for n, leaf in zip(diff_names, leaves):
+                env[n] = (env[n].with_lod_of(leaf)
+                          if isinstance(env[n], LoDArray) else leaf)
             ins = {slot: [env[n] if n else None for n in names]
                    for slot, names in fwd_inputs.items()}
             outs = fwd_def.lower(OpCtx(self, op, block), ins) or {}
             primals, cots = [], []
             for slot, names in fwd_outputs.items():
                 for n, p in zip(names, outs.get(slot) or ()):
-                    g = self.cotangent(out_grad_map.get(n, '') if n else '',
-                                       op)
+                    g = unwrap(self.cotangent(
+                        out_grad_map.get(n, '') if n else '', op))
+                    p = unwrap(p)
                     if p is None or g is None or not p.requires_grad:
                         continue  # a zero cotangent adds nothing
                     g = g.to(p.dtype)
@@ -308,3 +337,12 @@ class Interpreter(object):
             self.env[in_grad_map[n]] = (torch.zeros_like(leaf) if g is None
                                         else g)
             self.written.add(in_grad_map[n])
+
+
+def _share_lod(v, src):
+    """ShareLoD: `v` with `src`'s offsets where its rows are src's rows
+    (paddle_tpu/core/lowering.py:202-209)."""
+    if (isinstance(v, torch.Tensor) and v.ndim >= 1 and src.data.ndim >= 1
+            and v.shape[0] == src.data.shape[0]):
+        return src.with_lod_of(v)
+    return v

@@ -159,6 +159,8 @@ def _generic_infer_shape(op, block, d):
                 continue
             v.shape = tuple(_unprobe_dim(s, had_probe) for s in t.shape)
             v.dtype = convert_dtype(t.dtype)
+    if d.infer_lod is not None:  # an op's own rule for its outputs' lod_level
+        d.infer_lod(op, block)
 
 
 def _infer_grad_shape(op, block):

@@ -15,6 +15,12 @@ step function, this one interprets it eagerly (core/lowering.py):
 5. return the fetches as numpy arrays, or as device tensors with
    return_numpy=False (a serving loop then syncs once, not per request).
 
+LoD feeds and fetches (paddle_tpu/executor.py:951-975): a LoDTensor feed
+(core/lod.py LoDArray, or any value with the reference's `lod()` method)
+goes in as a LoDArray whose data is moved to the device and the declared
+dtype, its host offsets as they are; a LoD fetch comes back as its data's
+numpy array, or as the LoDArray itself with return_numpy=False.
+
 Each Executor counts its runs of each program (by `Program._uid`, as
 paddle_tpu/executor.py:270-282 does); the count seeds the ops' random
 draws, so dropout draws fresh masks at every step.
@@ -54,6 +60,7 @@ from .backward import OP_ROLE_BACKWARD, OP_ROLE_OPTIMIZE
 from .framework import (CUDAPlace, Variable, default_main_program,
                         to_torch_dtype)
 from .core import amp
+from .core.lod import LoDArray, unwrap
 from .core.lowering import Interpreter, TraceError, free_plan
 from .core.scope import global_scope
 from .core.selected_rows import SelectedRowsVal
@@ -94,6 +101,7 @@ def _fetch_name(f):
 
 
 def _to_numpy(t):
+    t = unwrap(t)
     if isinstance(t, SelectedRowsVal):  # rows and values as numpy arrays
         return t.numpy()
     if t.dtype == torch.bfloat16:
@@ -112,6 +120,11 @@ class Executor(object):
         self._step_counters = {}
 
     def _feed_tensor(self, value, var):
+        if isinstance(value, LoDArray):
+            return value.with_lod_of(self._feed_tensor(value.data, var))
+        if callable(getattr(value, 'lod', None)):  # the reference's API
+            return LoDArray(self._feed_tensor(np.asarray(value), var),
+                            value.lod())
         dtype = to_torch_dtype(var.dtype) if var is not None else None
         if not isinstance(value, torch.Tensor):
             value = torch.as_tensor(np.asarray(value))
@@ -186,8 +199,14 @@ class Executor(object):
         the two interleave freely: run_steps(K) is K `run` calls bit for
         bit.
 
+        A LoD feed's K steps are a list of K LoDTensors, or one LoDTensor
+        whose data stacks the K steps' data on a leading axis under the
+        one LoD they share (the reference's static form,
+        paddle_tpu/executor.py:635-670).
+
         fetch_policy: 'final' returns the last step's fetches; 'stack'
-        returns each fetch stacked over a leading K axis.
+        returns each fetch stacked over a leading K axis (a LoD fetch's
+        data, under the first step's LoD).
 
         Not ported yet: the `reader=` feed source and `checkpoint=`
         (their modules, reader/ and core/checkpoint.py, are not in the
@@ -212,15 +231,18 @@ class Executor(object):
         k = _step_count(feed, steps)
         outs = []
         for i in range(k):
-            outs.append(self.run(program, feed={n: v[i]
+            outs.append(self.run(program, feed={n: _step_value(v, i)
                                                 for n, v in feed.items()},
                                  fetch_list=fetch_list, scope=scope,
                                  return_numpy=False))
         if fetch_policy == 'final':
             fetches = outs[-1]
         else:
-            fetches = [torch.stack([o[j] for o in outs])
-                       for j in range(len(outs[0]))]
+            fetches = []
+            for j, first in enumerate(outs[0]):
+                t = torch.stack([unwrap(o[j]) for o in outs])
+                fetches.append(first.with_lod_of(t)
+                               if isinstance(first, LoDArray) else t)
         if return_numpy:
             return [_to_numpy(t) for t in fetches]
         return fetches
@@ -334,6 +356,14 @@ class Executor(object):
                 "loop and is not a carried output; fetch the loss or a "
                 "persistable instead" % (missing,))
         return outer
+
+
+def _step_value(value, i):
+    """Step i of a run_steps feed: the i-th entry of a list or of a stacked
+    value; of a stacked LoDTensor, its i-th data under its LoD."""
+    if isinstance(value, LoDArray):
+        return value.with_lod_of(value.data[i])
+    return value[i]
 
 
 def _step_count(feed, steps):

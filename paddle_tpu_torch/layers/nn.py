@@ -36,7 +36,8 @@ __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
            'kv_block_write_quant', 'kv_block_attention_quant',
            'kv_block_chunk_write_quant', 'kv_block_chunk_attention_quant',
            'kv_cache_verify_write_quant', 'kv_cache_verify_attention_quant',
-           'kv_block_verify_write_quant', 'kv_block_verify_attention_quant']
+           'kv_block_verify_write_quant', 'kv_block_verify_attention_quant',
+           'warpctc', 'ctc_greedy_decoder', 'edit_distance']
 
 
 def _single(v, n):
@@ -727,3 +728,40 @@ def kv_block_verify_attention_quant(query, k_cache, k_scale, v_cache,
                          dict(_quant_caches(k_cache, k_scale, v_cache,
                                             v_scale), Pos=pos,
                               BlockTable=block_table), n_head, scale)
+
+
+# -- CTC and edit distance (paddle_tpu/layers/nn.py:1198-1230; the ops in
+# ops/decode_ops.py) ----------------------------------------------------------
+def warpctc(input, label, blank=0, norm_by_times=False, use_cudnn=False):
+    helper = LayerHelper('warpctc')
+    loss = helper.create_variable_for_type_inference(input.dtype)
+    grad = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type='warpctc', inputs={'Logits': input, 'Label': label},
+        outputs={'Loss': loss, 'WarpCTCGrad': grad},
+        attrs={'blank': blank, 'norm_by_times': norm_by_times})
+    return loss
+
+
+def ctc_greedy_decoder(input, blank, name=None):
+    helper = LayerHelper('ctc_greedy_decoder', name=name)
+    out = helper.create_variable_for_type_inference('int64')
+    out.lod_level = 1
+    helper.append_op(type='ctc_greedy_decoder', inputs={'Input': input},
+                     outputs={'Output': out}, attrs={'blank': blank})
+    out.stop_gradient = True
+    return out
+
+
+def edit_distance(input, label, normalized=True, ignored_tokens=None):
+    helper = LayerHelper('edit_distance')
+    out = helper.create_variable_for_type_inference('float32')
+    seq_num = helper.create_variable_for_type_inference('int64')
+    helper.append_op(type='edit_distance',
+                     inputs={'Hyps': input, 'Refs': label},
+                     outputs={'Out': out, 'SequenceNum': seq_num},
+                     attrs={'normalized': normalized,
+                            'ignored_tokens': tuple(ignored_tokens or ())})
+    out.stop_gradient = True
+    seq_num.stop_gradient = True
+    return out, seq_num

@@ -1,6 +1,8 @@
-"""Recurrent layers (ref: python/paddle/fluid/layers/nn.py lstm; the port's
-copy of what the dense path of paddle_tpu/layers/sequence.py needs: `lstm`,
-:371). The LoD sequence layers come with the port's LoD tensors."""
+"""Sequence (LoD) and recurrent layers (ref: python/paddle/fluid/layers/nn.py
+lstm, dynamic_lstm, dynamic_gru, im2sequence; the port's copy of
+paddle_tpu/layers/sequence.py's `im2sequence` :208, `dynamic_lstm` :243,
+`dynamic_gru` :295 and the dense `lstm` :371). The other sequence layers
+wait for their ops (ROADMAP.md queue 1 item 8)."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
@@ -51,3 +53,90 @@ def lstm(input, init_h, init_c, max_len, hidden_size, num_layers,
                'seed': 0 if seed is None or seed < 0 else int(seed),
                'fuse_layers': bool(fuse_layers)})
     return out, last_h, last_c
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0,
+                input_image_size=None, out_stride=1, name=None):
+    """Each image's patches as one sequence: [N, C, H, W] -> LoD rows
+    [N*oh*ow, C*kh*kw], one sequence of oh*ow rows an image."""
+    helper = LayerHelper('im2sequence', name=name)
+
+    def _pair(v, n):
+        return list(v) if isinstance(v, (list, tuple)) else [v] * n
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.lod_level = 1
+    padding = _pair(padding, 4) if isinstance(padding, (list, tuple)) and \
+        len(padding) == 4 else _pair(padding, 2) * 2
+    helper.append_op(type='im2sequence', inputs={'X': input},
+                     outputs={'Out': out},
+                     attrs={'kernels': _pair(filter_size, 2),
+                            'strides': _pair(stride, 2),
+                            'paddings': padding})
+    return out
+
+
+def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None,
+                 bias_attr=None, use_peepholes=True, is_reverse=False,
+                 gate_activation='sigmoid', cell_activation='tanh',
+                 candidate_activation='tanh', dtype='float32', name=None):
+    """LSTM over LoD sequences (the lstm op): input [T, 4*size/4] rows of
+    gate pre-activations {c, i, f, o}; returns (hidden, cell), LoD rows."""
+    helper = LayerHelper('lstm', param_attr=param_attr, bias_attr=bias_attr,
+                         name=name)
+    size = size // 4
+    weight = helper.create_parameter(attr=helper.param_attr,
+                                     shape=[size, 4 * size], dtype=dtype)
+    bias_size = [1, 7 * size] if use_peepholes else [1, 4 * size]
+    bias = helper.create_parameter(attr=helper.bias_attr, shape=bias_size,
+                                   dtype=dtype, is_bias=True)
+    hidden = helper.create_variable_for_type_inference(dtype)
+    hidden.lod_level = input.lod_level
+    cell = helper.create_variable_for_type_inference(dtype)
+    cell.lod_level = input.lod_level
+    batch_gate = helper.create_variable_for_type_inference(dtype, True)
+    batch_cell_pre_act = helper.create_variable_for_type_inference(dtype, True)
+    inputs = {'Input': input, 'Weight': weight, 'Bias': bias}
+    if h_0 is not None:
+        inputs['H0'] = h_0
+    if c_0 is not None:
+        inputs['C0'] = c_0
+    helper.append_op(
+        type='lstm', inputs=inputs,
+        outputs={'Hidden': hidden, 'Cell': cell, 'BatchGate': batch_gate,
+                 'BatchCellPreAct': batch_cell_pre_act},
+        attrs={'use_peepholes': use_peepholes, 'is_reverse': is_reverse,
+               'gate_activation': gate_activation,
+               'cell_activation': cell_activation,
+               'candidate_activation': candidate_activation})
+    return hidden, cell
+
+
+def dynamic_gru(input, size, param_attr=None, bias_attr=None,
+                is_reverse=False, gate_activation='sigmoid',
+                candidate_activation='tanh', h_0=None, origin_mode=False):
+    """GRU over LoD sequences (the gru op): input [T, 3*size] rows of
+    pre-activations {u, r, c}; returns hidden, LoD rows [T, size]."""
+    helper = LayerHelper('gru', param_attr=param_attr, bias_attr=bias_attr)
+    dtype = input.dtype
+    weight = helper.create_parameter(attr=helper.param_attr,
+                                     shape=[size, 3 * size], dtype=dtype)
+    bias = helper.create_parameter(attr=helper.bias_attr, shape=[1, 3 * size],
+                                   dtype=dtype, is_bias=True)
+    hidden = helper.create_variable_for_type_inference(dtype)
+    hidden.lod_level = input.lod_level
+    batch_gate = helper.create_variable_for_type_inference(dtype, True)
+    batch_reset = helper.create_variable_for_type_inference(dtype, True)
+    batch_hidden = helper.create_variable_for_type_inference(dtype, True)
+    inputs = {'Input': input, 'Weight': weight, 'Bias': bias}
+    if h_0 is not None:
+        inputs['H0'] = h_0
+    helper.append_op(
+        type='gru', inputs=inputs,
+        outputs={'Hidden': hidden, 'BatchGate': batch_gate,
+                 'BatchResetHiddenPrev': batch_reset,
+                 'BatchHidden': batch_hidden},
+        attrs={'is_reverse': is_reverse,
+               'gate_activation': gate_activation,
+               'activation': candidate_activation,
+               'origin_mode': origin_mode})
+    return hidden

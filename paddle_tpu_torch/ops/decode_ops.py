@@ -6,7 +6,10 @@ kv_block_chunk_write and kv_block_chunk_attention; and the speculative
 verify ops of both layouts, kv_cache_verify_write,
 kv_cache_verify_attention, kv_block_verify_write and
 kv_block_verify_attention; and the int8 (`*_quant`) variant of each of
-those eleven ops (ref: :523-617, 777-860, 955-988, 1030-1074).
+those eleven ops (ref: :523-617, 777-860, 955-988, 1030-1074). And
+the LoD decode ops of CRNN+CTC training (ref: :53-205): warpctc,
+ctc_greedy_decoder, ctc_align and edit_distance (the section at the end
+of this file says how).
 
 The decode-serving tier (inference/decoding.py) runs a decoder-only LM as
 fixed-shape programs over a preallocated KV cache held as persistable
@@ -58,8 +61,14 @@ program scores R = draft_k + 1 rows per slot in one dispatch.
 """
 from __future__ import annotations
 
-import torch
+import math
 
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..core.lod import (LoDArray, device_index, pad_from_lod,
+                        segment_ids_from_offsets, unwrap)
 from ..core.registry import register
 
 
@@ -541,3 +550,208 @@ def _kv_block_verify_attention_quant(ctx, ins):
         _block_view_quant(ins['KCache'][0], ins['KScale'][0], table),
         _block_view_quant(ins['VCache'][0], ins['VScale'][0], table),
         ins['Pos'][0].long())]}
+
+
+# -- CTC, best-path decoding and edit distance over LoD rows -----------------
+# (paddle_tpu/ops/decode_ops.py:53-205). The reference's decoders keep
+# static shapes: a decoded sequence is left-aligned in its input row span
+# and padded with -1, never compacted to a data-dependent LoD, and
+# edit_distance skips the -1 entries. The port keeps those shapes. Every
+# index these ops build from offsets is built on the host and cached on
+# the device (core/lod.py device_index).
+_LOG_EPS = -1e5   # optax.ctc_loss's log_epsilon, the reference's log(+0)
+
+
+def _lod_offsets(x, what):
+    if not (isinstance(x, LoDArray) and x.lod):
+        raise TypeError("%s requires a LoD input" % what)
+    return tuple(x.lod[-1])
+
+
+def _pad_batch(x, what):
+    """LoDArray -> (padded [B, T, ...], valid mask [B, T], offsets)."""
+    off = _lod_offsets(x, what)
+    padded, mask = pad_from_lod(unwrap(x), off)
+    if mask is None:
+        mask = torch.ones(padded.shape[:2], dtype=torch.bool,
+                          device=padded.device)
+    return padded, mask, off
+
+
+def _logaddexp_tail(phi, added):
+    """phi with phi[:, 1:] log-added to `added` (optax's update_phi_score):
+    column 0 log-added to -inf, which leaves it as it is, exactly."""
+    return torch.logaddexp(phi, F.pad(added, (1, 0), value=-math.inf))
+
+
+def ctc_loss(logits, logit_pad, labels, label_pad, blank):
+    """The CTC loss of each sequence, -log p(labels | logits): optax's
+    ctc_loss_with_forward_probs (the reference's warpctc calls it) in
+    torch, one loop over time. logits [B, T, K], logit_pad [B, T] (1.0 at
+    padding), labels [B, N] int, label_pad [B, N]; the log-softmax in the
+    logits' dtype and the recursion in f32, as optax computes them."""
+    b, t_max, _ = logits.shape
+    n = labels.shape[1]
+    logprobs = torch.log_softmax(logits, dim=-1)
+    labellens = n - label_pad.sum(1).to(torch.int64)
+    repeat = (labels[:, :-1] == labels[:, 1:]).float()
+    repeat = torch.cat([repeat, repeat.new_zeros(b, 1)], dim=1)
+    lp_phi = logprobs[:, :, blank:blank + 1].transpose(0, 1).unbind(0)
+    lp_emit = torch.gather(
+        logprobs, 2, labels[:, None, :].expand(b, t_max, n).long()
+    ).float().transpose(0, 1).unbind(0)            # T of [B, 1] and [B, N]
+    dev = logits.device
+    phi = torch.full((b, n + 1), _LOG_EPS, device=dev)
+    phi[:, 0] = 0.0
+    emit = torch.full((b, n), _LOG_EPS, device=dev)
+    # a padded frame keeps the state: where(pad, old, new), the value of
+    # optax's pad·old + (1 - pad)·new for pad in {0, 1}
+    pads = (logit_pad != 0).transpose(0, 1).reshape(t_max, b, 1).unbind(0)
+    eps_repeat = _LOG_EPS * repeat
+    eps_single = _LOG_EPS * (1.0 - repeat)
+    for t in range(t_max):
+        phi_orig = phi
+        phi = _logaddexp_tail(phi, emit + eps_repeat)
+        next_emit = torch.logaddexp(phi[:, :-1] + lp_emit[t],
+                                    emit + lp_emit[t])
+        next_phi = _logaddexp_tail(phi + lp_phi[t],
+                                   emit + lp_phi[t] + eps_single)
+        emit = torch.where(pads[t], emit, next_emit)
+        phi = torch.where(pads[t], phi_orig, next_phi)
+    last = _logaddexp_tail(phi, emit)
+    return -torch.gather(last, 1, labellens[:, None]).reshape(-1)
+
+
+@register('warpctc', lod='aware')
+def _warpctc(ctx, ins):
+    """Logits LoD rows [T, K], Label LoD int rows -> Loss [B, 1]. With
+    norm_by_times the gradient is scaled by 1/T of each sequence while
+    the reported loss stays unnormalized (the reference's
+    WarpCTCGradKernel, decode_ops.py:75-81)."""
+    logits, label = ins['Logits'][0], ins['Label'][0]
+    blank = int(ctx.attr('blank', 0))
+    lg, lg_mask, lg_off = _pad_batch(logits, 'warpctc Logits')
+    lb, lb_mask, _ = _pad_batch(label, 'warpctc Label')
+    lb = lb.reshape(lb.shape[0], -1)
+    logit_pad = 1.0 - lg_mask.to(lg.dtype)
+    label_pad = 1.0 - lb_mask.to(lg.dtype)
+    loss = ctc_loss(lg, logit_pad, lb, label_pad, blank)
+    if ctx.attr('norm_by_times', False):
+        lens = device_index('lens', lg_off, 0, loss.device,
+                            lambda: np.diff(np.asarray(lg_off)),
+                            torch.float32)
+        scaled = loss / lens
+        loss = scaled + (loss - scaled).detach()
+    return {'Loss': [loss.reshape(-1, 1)], 'WarpCTCGrad': None}
+
+
+def _align_flat(best, off, blank, merge_repeated=True):
+    """Merge repeats (optionally) and drop blanks over a flat LoD token
+    stream [T]: each kept token moves to its rank within its sequence's
+    row span, -1 elsewhere. A frame is kept if it is not blank and (when
+    merging) differs from the previous frame of the same sequence."""
+    t_len = best.shape[0]
+    o = np.asarray(off, np.int64)
+    dev = best.device
+    # each row's sequence start
+    start = device_index('start', off, t_len, dev,
+                         lambda: o[segment_ids_from_offsets(o)])
+    keep = best != blank
+    if merge_repeated:
+        first = device_index('first', off, t_len, dev,
+                             lambda: np.isin(np.arange(t_len), o[:-1]),
+                             torch.bool)
+        prev = torch.cat([best.new_full((1,), -1), best[:-1]])
+        keep = keep & (first | (best != prev))
+    csum = torch.cumsum(keep.to(torch.int64), 0)
+    base = torch.cat([csum.new_zeros(1), csum])[start]
+    tgt = torch.where(keep, start + csum - 1 - base,
+                      torch.full_like(csum, t_len))
+    out = best.new_full((t_len + 1,), -1)
+    out.index_put_((tgt,), best)
+    return out[:t_len]
+
+
+@register('ctc_greedy_decoder', no_grad=True, lod='aware')
+def _ctc_greedy_decoder(ctx, ins):
+    """Best path: argmax of each frame, repeats merged, blanks dropped;
+    Output [T, 1] int64 with the input's LoD, -1 after each sequence's
+    kept tokens."""
+    x = ins['Input'][0]
+    off = _lod_offsets(x, 'ctc_greedy_decoder')
+    best = torch.argmax(unwrap(x), dim=-1)
+    out = _align_flat(best, off, int(ctx.attr('blank', 0)))
+    return {'Output': [LoDArray(out.reshape(-1, 1), x.lod)]}
+
+
+@register('ctc_align', no_grad=True, lod='aware')
+def _ctc_align(ctx, ins):
+    """Already-decoded tokens aligned: repeats merged (merge_repeated),
+    blanks dropped, the input's LoD kept with -1 padding."""
+    x = ins['Input'][0]
+    off = _lod_offsets(x, 'ctc_align')
+    toks = unwrap(x).reshape(-1).to(torch.int64)
+    out = _align_flat(toks, off, int(ctx.attr('blank', 0)),
+                      merge_repeated=bool(ctx.attr('merge_repeated', True)))
+    return {'Output': [LoDArray(out.reshape(-1, 1), x.lod)]}
+
+
+def _compact(seq, ignored):
+    """Each row's tokens (>= 0, not ignored) left-aligned, -1 after."""
+    keep = seq >= 0
+    for tok in ignored:
+        keep = keep & (seq != tok)
+    rows, width = seq.shape
+    pos = torch.cumsum(keep.to(torch.int64), 1) - 1
+    flat = torch.arange(rows, device=seq.device)[:, None] * (width + 1)
+    tgt = torch.where(keep, flat + pos, flat + width).reshape(-1)
+    out = seq.new_full((rows * (width + 1),), -1)
+    out.index_put_((tgt,), seq.reshape(-1))
+    return out.reshape(rows, width + 1)[:, :width]
+
+
+def edit_distances(hseq, rseq):
+    """The Levenshtein distance of each row pair of -1-padded, left-aligned
+    token rows hseq [B, H] and rseq [B, R], as f32 [B]. One loop over the
+    hypothesis tokens; each DP row at once, by
+    new[j] = min(a[j], new[j-1] + 1) = j + cummin_k<=j (a[k] - k), with
+    a[0] = row[0] + 1 and a[j] = min(row[j] + 1, row[j-1] + cost)."""
+    b, r = rseq.shape
+    cols = torch.arange(r + 1, device=rseq.device)
+    row = cols.expand(b, r + 1)
+    rows = [row]
+    for i in range(hseq.shape[1]):
+        cost = (hseq[:, i:i + 1] != rseq).to(torch.int64)
+        a = torch.cat([row[:, :1] + 1,
+                       torch.minimum(row[:, 1:] + 1, row[:, :-1] + cost)], 1)
+        row = torch.cummin(a - cols, dim=1).values + cols
+        rows.append(row)
+    hlen = (hseq >= 0).sum(1)
+    rlen = (rseq >= 0).sum(1)
+    table = torch.stack(rows, 1)                        # [B, H + 1, R + 1]
+    ar = torch.arange(b, device=rseq.device)
+    return table[ar, hlen, rlen].to(torch.float32), rlen
+
+
+@register('edit_distance', no_grad=True, lod='aware')
+def _edit_distance(ctx, ins):
+    """Hyps and Refs LoD rows (-1 entries and ignored_tokens skipped) ->
+    Out [B, 1] f32 (divided by each reference's length with normalized),
+    SequenceNum [1] int64."""
+    hyps, refs = ins['Hyps'][0], ins['Refs'][0]
+    ignored = tuple(ctx.attr('ignored_tokens', ()) or ())
+    seqs = []
+    for x, what in ((hyps, 'edit_distance Hyps'),
+                    (refs, 'edit_distance Refs')):
+        off = _lod_offsets(x, what)
+        p, m = pad_from_lod(unwrap(x).reshape(-1).to(torch.int64), off)
+        if m is not None:
+            p = torch.where(m, p, torch.full_like(p, -1))
+        seqs.append(_compact(p, ignored))
+    d, rlen = edit_distances(*seqs)
+    if ctx.attr('normalized', True):
+        d = d / torch.clamp(rlen, min=1).to(torch.float32)
+    n = len(_lod_offsets(hyps, 'edit_distance Hyps')) - 1
+    return {'Out': [d.reshape(-1, 1)],
+            'SequenceNum': [torch.tensor([n], dtype=torch.int64,
+                                         device=d.device)]}

@@ -1,6 +1,26 @@
-"""cudnn_lstm, the stacked dense LSTM (ref: operators/cudnn_lstm_op.cc:1;
-the port's copy of paddle_tpu/ops/rnn_ops.py:211 `_cudnn_lstm` with
-lod='none', and of `_fused_layer_stack`, :287).
+"""Recurrent ops: `lstm` and `gru` over LoD sequences, and cudnn_lstm, the
+stacked dense LSTM (ref: operators/lstm_op.cc, gru_op.cc,
+cudnn_lstm_op.cc:1; the port's copy of paddle_tpu/ops/rnn_ops.py: the
+pad, unpad and reverse helpers :40-80, `_lstm` :82, `_gru` :155,
+`_cudnn_lstm` :211 with lod='none', and `_fused_layer_stack`, :287).
+
+lstm and gru (lod='aware'): the LoD rows padded to [N, L, ...] from the
+host offsets, one Python loop over time of the reference's step, the
+carry masked where a sequence has ended, and the outputs unpadded back
+to LoD rows; `is_reverse` reverses each sequence's rows before and after.
+The gathers' index tensors are built on the host from the offsets and
+cached on the device, and where every sequence has the length L (as
+im2sequence makes them) padding and unpadding are reshapes and the mask
+is skipped: nothing reads the card to learn the offsets. The carry keeps
+its initial dtype and each product runs in the dtype numpy's promotion
+gives its operands (under bf16 AMP a bf16 carry against f32 weights
+computes in f32 and rounds the carry each step), as jnp's `@` and
+`.astype(h_prev.dtype)` do (rnn_ops.py:132-137, :192). The reference's
+GRU candidate is act(x_c + (r ⊙ h_prev)·W_c + b_c); cuDNN's GRU and
+torch.nn.GRU compute r ⊙ (h·W_hn + b_hn), another function, so the same
+loop of torch ops runs on the card as on the CPU.
+
+cudnn_lstm:
 
 Four gates packed {i, f, c, o}, no peepholes, separate weights for each
 (layer, direction): WeightX [in, 4H], WeightH [H, 4H], Bias [4H]:
@@ -39,6 +59,9 @@ from __future__ import annotations
 
 import torch
 
+from ..core import registry as _registry
+from ..core.lod import (LoDArray, pad_from_lod, reverse_lod_rows,
+                        unpad_to_lod, unwrap)
 from ..core.registry import register
 
 
@@ -69,8 +92,10 @@ def draw_lstm_keep(ctx, shape, p, n):
 def _mm(a, b):
     """a @ b in the dtype numpy's promotion gives the pair, as jnp's `@`
     computes a bf16 operand against an f32 one."""
-    common = torch.promote_types(a.dtype, b.dtype)
-    return torch.matmul(a.to(common), b.to(common))
+    if a.dtype != b.dtype:
+        common = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(common), b.to(common)
+    return torch.matmul(a, b)
 
 
 def _dropped(cur, keep, p):
@@ -234,3 +259,190 @@ def _cudnn_lstm(ctx, ins):
             x, h0, c0, wx, wh, bias, nlayers, ndir, keeps, p,
             fuse_layers=bool(ctx.attr('fuse_layers', False)))
     return {'Out': [out], 'LastH': [last_h], 'LastC': [last_c]}
+
+
+def _require_lod(x, op_name):
+    if not (isinstance(x, LoDArray) and x.lod):
+        raise TypeError(
+            "%s requires a LoD (variable-length) input: feed it as a "
+            "LoDTensor (fluid.create_lod_tensor) or declare it with "
+            "lod_level=1; got a dense tensor" % op_name)
+    return x
+
+
+_ACT = {'sigmoid': torch.sigmoid, 'tanh': torch.tanh, 'relu': torch.relu,
+        'identity': lambda x: x}
+
+
+def _opt(ins, slot):
+    v = ins.get(slot)
+    return unwrap(v[0]) if v and v[0] is not None else None
+
+
+def _masked(m_t, new, prev):
+    """The carry after a step: `new` where the sequence goes on, `prev`
+    where it has ended, in prev's dtype."""
+    if m_t is not None:
+        new = torch.where(m_t[:, None], new, prev)
+    return new if new.dtype == prev.dtype else new.to(prev.dtype)
+
+
+def _time_major(x, off, reverse, widths):
+    """LoD rows -> (for each column block of `widths`, its L time steps
+    [N, width] as views, one unbind a block, so that autograd gathers the
+    steps' gradients once; the masks of the L steps, [N] each, or None)."""
+    if reverse:
+        x = reverse_lod_rows(x, off)
+    xp, mask = pad_from_lod(x, off)
+    xs = xp.transpose(0, 1)
+    blocks = [b.unbind(0) for b in xs.split(list(widths), dim=2)]
+    return blocks, None if mask is None else mask.t().unbind(0)
+
+
+def _back_to_lod(steps, off, reverse):
+    """Per-step [N, ...] outputs, or their stack [N, L, ...] -> LoD rows
+    (reversed back with `reverse`)."""
+    y = torch.stack(steps, dim=1) if isinstance(steps, list) else steps
+    y = unpad_to_lod(y, off)
+    return reverse_lod_rows(y, off) if reverse else y
+
+
+@register('lstm', lod='aware')
+def _lstm(ctx, ins):
+    """Input [T, 4D] LoD rows of gate pre-activations {c, i, f, o}, Weight
+    [D, 4D], Bias [1, 4D] or, with peepholes, [1, 7D] = {b_c, b_i, b_f,
+    b_o, W_ic, W_fc, W_oc}."""
+    x = _require_lod(ins['Input'][0], 'dynamic_lstm')
+    w = unwrap(ins['Weight'][0])
+    bias = unwrap(ins['Bias'][0]).reshape(-1)
+    peep = ctx.attr('use_peepholes', True)
+    reverse = ctx.attr('is_reverse', False)
+    act_gate = _ACT[ctx.attr('gate_activation', 'sigmoid')]
+    act_cell = _ACT[ctx.attr('cell_activation', 'tanh')]
+    act_cand = _ACT[ctx.attr('candidate_activation', 'tanh')]
+    off = x.lod[0]
+    d = w.shape[0]
+    (xs,), ms = _time_major(x.data, off, reverse, [4 * d])
+    n = xs[0].shape[0]
+    b = bias[:4 * d]
+    if peep:
+        w_ic, w_fc, w_oc = (bias[4 * d:5 * d], bias[5 * d:6 * d],
+                            bias[6 * d:7 * d])
+    h = _opt(ins, 'H0')
+    c = _opt(ins, 'C0')
+    zeros = torch.zeros((n, d), dtype=xs[0].dtype, device=xs[0].device)
+    h = zeros if h is None else h
+    c = zeros if c is None else c
+    hs, cs, gs = [], [], []
+    for t in range(len(xs)):
+        gates = xs[t] + _mm(h, w) + b
+        g_c, g_i, g_f, g_o = torch.chunk(gates, 4, dim=1)
+        cand = act_cand(g_c)
+        if peep:
+            i = act_gate(g_i + c * w_ic)
+            f = act_gate(g_f + c * w_fc)
+        else:
+            i, f = act_gate(g_i), act_gate(g_f)
+        c_new = cand * i + c * f
+        o = act_gate(g_o + c_new * w_oc) if peep else act_gate(g_o)
+        h_new = o * act_cell(c_new)
+        m_t = None if ms is None else ms[t]
+        h, c = _masked(m_t, h_new, h), _masked(m_t, c_new, c)
+        hs.append(h)
+        cs.append(c)
+        gs.append(torch.cat([cand, i, f, o], dim=1))
+    lod = x.lod
+    cell = LoDArray(_back_to_lod(cs, off, reverse), lod)
+    return {'Hidden': [LoDArray(_back_to_lod(hs, off, reverse), lod)],
+            'Cell': [cell],
+            'BatchGate': [LoDArray(_back_to_lod(gs, off, reverse), lod)],
+            'BatchCellPreAct': [cell]}
+
+
+@register('gru', lod='aware')
+def _gru(ctx, ins):
+    """Input [T, 3D] LoD rows of pre-activations {u, r, c}, Weight [D, 3D]
+    ([:, :2D] the gates', [:, 2D:] the candidate's), Bias [1, 3D]:
+    u, r = act_gate(x_ur + h·W_ur + b_ur); c = act(x_c + (r ⊙ h)·W_c + b_c);
+    h' = (1 - u) ⊙ h + u ⊙ c, or u ⊙ h + (1 - u) ⊙ c with origin_mode. The
+    sums run in another order than the reference's (the bias first, the
+    products fused into addmm, h' as a lerp): the same values to a few
+    ulps, in about half the kernel launches a step."""
+    x = _require_lod(ins['Input'][0], 'dynamic_gru')
+    w = unwrap(ins['Weight'][0])
+    d = w.shape[0]
+    bias = _opt(ins, 'Bias')
+    bias = (torch.zeros(3 * d, dtype=w.dtype, device=w.device)
+            if bias is None else bias.reshape(-1))
+    reverse = ctx.attr('is_reverse', False)
+    act_gate = _ACT[ctx.attr('gate_activation', 'sigmoid')]
+    act_node = _ACT[ctx.attr('activation', 'tanh')]
+    origin_mode = ctx.attr('origin_mode', False)
+    off = x.lod[0]
+    h = _opt(ins, 'H0')
+    if h is None:
+        h = torch.zeros((len(off) - 1, d), dtype=x.data.dtype,
+                        device=x.data.device)
+    # the bias goes onto every row once, and each step's products go onto
+    # the rows in one addmm, in the dtype the reference's step computes in
+    xb = x.data + bias
+    common = torch.promote_types(torch.promote_types(xb.dtype, w.dtype),
+                                 h.dtype)
+    (x_ur, x_c), ms = _time_major(xb.to(common), off, reverse, [2 * d, d])
+    w_g, w_c = w.to(common).split([2 * d, d], dim=1)
+    us, rs, cs, rhs, hs = [], [], [], [], []
+    for t in range(len(x_ur)):
+        hc = h if h.dtype == common else h.to(common)
+        u, r = act_gate(torch.addmm(x_ur[t], hc, w_g)).chunk(2, dim=1)
+        rh = r * hc
+        c = act_node(torch.addmm(x_c[t], rh, w_c))
+        # (1 - u)·h + u·c, or u·h + (1 - u)·c in origin_mode
+        h_new = torch.lerp(c, hc, u) if origin_mode else \
+            torch.lerp(hc, c, u)
+        h = _masked(None if ms is None else ms[t], h_new, h)
+        for out, v in ((us, u), (rs, r), (cs, c), (rhs, rh), (hs, h)):
+            out.append(v)
+    lod = x.lod
+    gates = torch.cat([torch.stack(v, dim=1) for v in (us, rs, cs)], dim=2)
+    hidden = LoDArray(_back_to_lod(hs, off, reverse), lod)
+    return {'Hidden': [hidden],
+            'BatchGate': [LoDArray(_back_to_lod(gates, off, reverse), lod)],
+            'BatchResetHiddenPrev': [LoDArray(_back_to_lod(rhs, off, reverse),
+                                              lod)],
+            'BatchHidden': [hidden]}
+
+
+# build-time shapes of the LoD ops' outputs (rnn_ops.py:396-419): the
+# lowerings need LoD values, which the meta device cannot give them
+def _set_out(op, block, slot, shape, dtype=None):
+    for n in op.outputs.get(slot, []):
+        v = block._find_var_recursive(n)
+        if v is not None:
+            v.shape = tuple(shape)
+            if dtype is not None:
+                v.dtype = dtype
+
+
+def _weight_width(op, block):
+    w = block._find_var_recursive(op.inputs['Weight'][0])
+    return None if w is None or w.shape is None else w.shape[0]
+
+
+def _lstm_infer(op, block):
+    d = _weight_width(op, block)
+    if d is not None:
+        for slot, width in (('Hidden', d), ('Cell', d), ('BatchGate', 4 * d),
+                            ('BatchCellPreAct', d)):
+            _set_out(op, block, slot, (-1, width))
+
+
+def _gru_infer(op, block):
+    d = _weight_width(op, block)
+    if d is not None:
+        for slot, width in (('Hidden', d), ('BatchGate', 3 * d),
+                            ('BatchResetHiddenPrev', d), ('BatchHidden', d)):
+            _set_out(op, block, slot, (-1, width))
+
+
+_registry.get('lstm').infer_shape = _lstm_infer
+_registry.get('gru').infer_shape = _gru_infer

@@ -10,8 +10,8 @@ nondeterministic sums?
 
     python3 scripts/resnet_f32_trajectories.py [RUNS_PER_MODE]
 
-Each run takes the phase's 20 steps (TRAIN_WARMUP_STEPS, TRAIN_STEPS and
-RESNET_F32_BENCH_MORE_STEPS). It prints the card's name and power limit
+Each run takes 20 steps (the phase's warm-up, timed and untimed steps
+before it checked a deterministic retake). It prints the card's name and power limit
 first; about a minute on an H100 after the kernels' build.
 """
 import json
@@ -20,6 +20,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+STEPS = 20  # the warm-up, timed and untimed steps the phase once took
 
 
 def trajectory(cs, fluid, main, startup, loss, feed, steps):
@@ -48,8 +49,7 @@ def main(runs):
     main_prog, startup, loss, _ = cs.build_resnet_training()
     gen = torch.Generator(device='cuda').manual_seed(cs.SEED + 15)
     feed = cs._resnet_feed(cs.RESNET_F32_BENCH_BATCH, gen)
-    steps = (cs.TRAIN_WARMUP_STEPS + cs.TRAIN_STEPS
-             + cs.RESNET_F32_BENCH_MORE_STEPS)
+    steps = STEPS
     for mode in ('default', 'deterministic'):
         det = mode == 'deterministic'
         torch.backends.cudnn.deterministic = det

@@ -223,10 +223,16 @@ def _f32(a):
     return a.astype(np.float32) if a.dtype.name == 'bfloat16' else a
 
 
-def _jax_run(main, state, feeds, fetch):
-    """paddle_tpu's steps from `state`: [fetches of each step], state."""
+def _jax_run(main, state, feeds, fetch, exe=None):
+    """paddle_tpu's steps from `state`: [fetches of each step], state.
+    Given `exe`, the steps run on it from its step 0 of `main` (the
+    counter that seeds the random draws is reset), so runs of one program
+    share the Executor's compiled step: paddle_tpu compiles a step once
+    for each Executor, program and feed and fetch signature."""
     scope = fluid.Scope()
-    exe = fluid.Executor(fluid.CPUPlace())
+    if exe is None:
+        exe = fluid.Executor(fluid.CPUPlace())
+    exe._step_counters[getattr(main, '_ptpu_counter_uid', main._uid)] = 0
     with fluid.scope_guard(scope):
         for n, a in state.items():
             scope.var(n).get_tensor().set(a)
@@ -249,11 +255,13 @@ def _params(main):
 def _jax_steps(out, main, startup, feeds, fetch):
     """Initialize, then record the state, each step's `fetch`, the state
     after the steps, and the same from the state with its parameters moved
-    by one bf16 ulp in NOISE_DRAWS draws (draw d under 'd<d>/')."""
+    by one bf16 ulp in NOISE_DRAWS draws (draw d under 'd<d>/'), every
+    draw on one Executor from its step 0."""
     state = _jax_init(main, startup)
+    exe = fluid.Executor(fluid.CPUPlace())
     for d in range(NOISE_DRAWS + 1):
         st = state if d == 0 else _bf16_moved(state, 100 + d, _params(main))
-        steps, final = _jax_run(main, st, feeds, fetch)
+        steps, final = _jax_run(main, st, feeds, fetch, exe)
         pre = 'd%d/' % d
         for i, outs in enumerate(steps):
             for n, o in zip(fetch, outs):
@@ -305,12 +313,13 @@ def _jax_reference(root):
     fed_names = _update_feeds(main)
     fetch = [loss.name, acc.name, probs] + grads + fed_names
     state = _jax_init(main, startup)
+    exe = fluid.Executor(fluid.CPUPlace())
     for i in range(R20_STEPS):
         feed = _r20_feed(i)
         for d in range(NOISE_DRAWS + 1):
             st = state if d == 0 else _bf16_moved(state, 200 + 10 * i + d,
                                                   _params(main))
-            (outs,), after = _jax_run(main, st, [feed], fetch)
+            (outs,), after = _jax_run(main, st, [feed], fetch, exe)
             vals = dict(zip(fetch, outs))
             pre = 'd%d/step%d/' % (d, i)
             for n in [loss.name, acc.name, probs] + grads:
@@ -326,13 +335,14 @@ def _jax_reference(root):
                 state_after = after
                 if i == 0:
                     names = _step_vars(main)
-                    (allv,), _ = _jax_run(main, state, [feed], names)
+                    (allv,), _ = _jax_run(main, state, [feed], names,
+                                          exe)
                     for n, o in zip(names, allv):
                         out.put('vars/' + n, o)
             # the backward and Momentum fed the step's forward values
             fd = fed if d == 0 else _bf16_moved(
                 {n: _f32(a) for n, a in fed.items()}, 300 + 10 * i + d)
-            (g,), upd_state = _jax_run(update, st, [fd], grads)
+            (g,), upd_state = _jax_run(update, st, [fd], grads, exe)
             for n, a in zip(grads, g):
                 out.put(pre + 'update/' + n, a)
             for n, a in upd_state.items():
@@ -477,6 +487,9 @@ def _check_steps(jax, main, feeds, fetch, losses_only=()):
 
 
 # -- the surface --------------------------------------------------------------
+from _torch_threads import one_thread  # noqa: E402,F401 (autouse)
+
+
 def test_decorate_enable_disable_mark_the_program():
     main, _, _ = _build_mlp(ptt)
     assert main._amp_bf16 is True

@@ -168,6 +168,9 @@ def _reference_masks(arrays, names, draw=0):
             for i in range(STEPS) for n in names}
 
 
+from _torch_threads import one_thread  # noqa: E402,F401 (autouse)
+
+
 def test_same_program_in_both_packages(jax_run):
     main, _, _ = _build(ptt, ptt_bert)
     ops = jax_run['program']['ops']

@@ -25,6 +25,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as fluid
 from paddle_tpu.inference import Config as JaxConfig
@@ -144,6 +145,9 @@ def jax_saved(tmp_path_factory):
 def _ops(dirname):
     with open(os.path.join(dirname, '__model__')) as f:
         return json.load(f)['blocks'][0]['ops']
+
+
+from _torch_threads import one_thread  # noqa: E402,F401 (autouse)
 
 
 def test_pruned_program_ops(jax_saved):

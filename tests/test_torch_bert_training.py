@@ -33,6 +33,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as fluid
 from models import bert as jax_bert
@@ -139,6 +140,9 @@ def jax_run(tmp_path_factory):
     return dict(ops=program['ops'], feeds=program['feeds'],
                 state=part['state'], steps=steps, final=part['final'],
                 mid=mid)
+
+
+from _torch_threads import one_thread  # noqa: E402,F401 (autouse)
 
 
 def test_same_program_in_both_packages(jax_run):

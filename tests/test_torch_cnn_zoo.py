@@ -578,6 +578,9 @@ def _held(root, name):
     return report['rows']
 
 
+from _torch_threads import one_thread  # noqa: E402,F401 (autouse)
+
+
 @pytest.mark.parametrize('model', MODELS)
 def test_same_full_size_program_in_both_packages(model, jax_run):
     with open(os.path.join(jax_run, model + '_program.json')) as f:
@@ -635,4 +638,5 @@ def test_googlenet_served_from_the_jax_directory(jax_run):
 
 
 if __name__ == '__main__':
+    torch.set_num_threads(1)  # the port's side of the job (one_thread)
     _jax_reference(sys.argv[1], sys.argv[2])

@@ -28,6 +28,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as fluid
 import paddle_tpu_torch as ptt
@@ -170,6 +171,9 @@ def amp_reference(tmp_path_factory):
         return {case_id: [(dt, f['%s/%d' % (case_id, j)])
                           for j, dt in enumerate(dts)]
                 for case_id, dts in dtypes.items()}
+
+
+from _torch_threads import one_thread  # noqa: E402,F401 (autouse)
 
 
 @pytest.mark.parametrize('name', sorted(CASES))

@@ -35,6 +35,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch.inference import DecodingPredictor, export_decode
@@ -239,6 +240,9 @@ def _close(got, want):
     assert got.shape == want.shape and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=TOL * np.abs(want).max())
+
+
+from _torch_threads import one_thread  # noqa: E402,F401 (autouse)
 
 
 @pytest.mark.parametrize('which', ['startup', 'step', 'prefill4',

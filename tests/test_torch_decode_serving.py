@@ -60,6 +60,9 @@ def _pred(artifact, **kw):
     return DecodingPredictor(artifact, place=CPU, **kw)
 
 
+from _torch_threads import one_thread  # noqa: E402,F401 (autouse)
+
+
 def test_artifact_layout(artifact):
     with open(os.path.join(artifact, decoding._DECODE_SIGNATURE)) as f:
         sig = json.load(f)

@@ -28,6 +28,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch.inference import (CompiledPredictor, Config,
@@ -149,6 +150,9 @@ def fc_dir(tmp_path_factory):
 
 def _predictor(d):
     return create_predictor(Config(d).disable_gpu())
+
+
+from _torch_threads import one_thread  # noqa: E402,F401 (autouse)
 
 
 def test_single_and_multibucket_layouts(fc_dir, tmp_path):

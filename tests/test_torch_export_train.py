@@ -20,6 +20,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch.contrib import gradient_merge
@@ -64,6 +65,9 @@ def _port_setup(tmp, dropout=0.3, steps=STEPS):
     losses = np.stack([exe.run(main, feed=_feed(), fetch_list=[loss],
                                scope=scope)[0] for _ in range(steps)])
     return art, losses, ptt.weights.state_to_numpy(main, scope)
+
+
+from _torch_threads import one_thread  # noqa: E402,F401 (autouse)
 
 
 def test_trainer_equals_executor_bit_for_bit(tmp_path):

@@ -72,6 +72,9 @@ _TPU_CASES = [(1, 2, 256, 64, False), (1, 2, 256, 64, True),
               (2, 2, 256, 32, True)]
 
 
+from _torch_threads import one_thread  # noqa: E402,F401 (autouse)
+
+
 @pytest.mark.parametrize('b,h,s,d,causal,dtype', [
     pytest.param(*case, dtype, id='-'.join(
         [str(x) for x in case] + ([] if dtype == 'float32' else [dtype])))

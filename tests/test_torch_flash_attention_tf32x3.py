@@ -97,6 +97,9 @@ def _inputs(causal, seed=0, b=1, h=12, s=512, d=64):
     return q, k, v, do, lse, di, scale
 
 
+from _torch_threads import one_thread  # noqa: E402,F401 (autouse)
+
+
 @pytest.mark.parametrize('causal', [False, True])
 def test_3xtf32_backward_holds_the_f32_tolerance(causal):
     q, k, v, do, lse, di, scale = _inputs(causal)

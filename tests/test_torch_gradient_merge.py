@@ -35,6 +35,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as fluid
 from models import bert as jax_bert
@@ -131,6 +132,9 @@ def _port_steps(main, state, feeds, fetch):
     steps = [dict(zip(fetch, exe.run(main, feed=f, fetch_list=fetch,
                                      scope=scope))) for f in feeds]
     return steps, ptt.weights.state_to_numpy(main, scope)
+
+
+from _torch_threads import one_thread  # noqa: E402,F401 (autouse)
 
 
 def test_merged_steps_match_jax_f32(jax_ga):

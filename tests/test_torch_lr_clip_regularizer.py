@@ -35,6 +35,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as fluid
 import paddle_tpu_torch as ptt
@@ -211,6 +212,9 @@ def _close(got, want, name, rtol=0.0):
                                atol=0 if rtol else
                                1e-5 * float(np.abs(want).max()),
                                err_msg=name)
+
+
+from _torch_threads import one_thread  # noqa: E402,F401 (autouse)
 
 
 @pytest.mark.parametrize('name', sorted(SCHEDULES))

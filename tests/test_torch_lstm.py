@@ -280,12 +280,7 @@ def ref(tmp_path_factory):
     return arrays
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
+from _torch_threads import one_thread  # noqa: E402,F401 (autouse)
 
 
 def _close(name, got, want, rel):

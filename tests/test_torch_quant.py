@@ -522,12 +522,16 @@ def test_int8_tensor_roundtrip():
 
 def test_op_registry_counts():
     """The int8 family and the eleven int8 KV ops are registered, beside
-    the reduce family, cudnn_lstm, sigmoid_cross_entropy_with_logits and
-    the two SelectedRows ops: 114 op types."""
+    the reduce family, cudnn_lstm, sigmoid_cross_entropy_with_logits, the
+    two SelectedRows ops and the CRNN slice's seven LoD ops: 121 op
+    types."""
     for op in ('quantize_int8', 'dequantize_int8', 'mul_int8', 'conv2d_int8',
                'depthwise_conv2d_int8'):
         assert registry.get(op) is not None and registry.get(op).no_grad
-    assert len(registry._REGISTRY) == 114
+    for op in ('im2sequence', 'gru', 'lstm', 'warpctc', 'ctc_greedy_decoder',
+               'ctc_align', 'edit_distance'):
+        assert registry.get(op) is not None
+    assert len(registry._REGISTRY) == 121
 
 
 if __name__ == '__main__':

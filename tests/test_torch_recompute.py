@@ -151,6 +151,9 @@ def ref(tmp_path_factory):
     return rw, run
 
 
+from _torch_threads import one_thread  # noqa: E402,F401 (autouse)
+
+
 @pytest.mark.parametrize('case', ['bert/True', 'bert/auto', 'mlp/auto',
                                   'mlp_forward/explicit'])
 def test_segments_equal_the_reference(ref, case):

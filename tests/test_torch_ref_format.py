@@ -20,6 +20,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch.inference import (Config, create_predictor,
@@ -110,6 +111,9 @@ def dirs(tmp_path_factory):
                        timeout=900)
     assert r.returncode == 0, r.stdout[-4000:] + r.stderr[-4000:]
     return root, want
+
+
+from _torch_threads import one_thread  # noqa: E402,F401 (autouse)
 
 
 def test_codec_round_trip():

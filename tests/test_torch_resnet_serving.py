@@ -22,6 +22,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as fluid
 from paddle_tpu.inference import Config as JaxConfig
@@ -170,6 +171,9 @@ def jax_saved(tmp_path_factory):
     out['round_trip'] = (np.load(os.path.join(rt, 'logits.npy')),
                          os.path.join(rt, 'jax'))
     return out
+
+
+from _torch_threads import one_thread  # noqa: E402,F401 (autouse)
 
 
 @pytest.mark.parametrize('name', sorted(MODELS))

@@ -67,6 +67,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as fluid
 from models import resnet as jax_resnet
@@ -295,6 +296,9 @@ def _same_program(main, key, jax_run):
             sorted(jax_run[key]['states'][0])
         assert _update_feeds(main) == \
             jax_run['programs'][key + '_update_feeds']
+
+
+from _torch_threads import one_thread  # noqa: E402,F401 (autouse)
 
 
 def test_same_resnet20_program_in_both_packages(jax_run):

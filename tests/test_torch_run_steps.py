@@ -220,6 +220,9 @@ def _runs(k, feeds, gm=1):
             _state(main, scope))
 
 
+from _torch_threads import one_thread  # noqa: E402,F401 (autouse)
+
+
 @pytest.mark.parametrize('form', ['stacked', 'listed', 'stacked_tensor'])
 @pytest.mark.parametrize('policy', ['final', 'stack'])
 def test_run_steps_is_k_runs_bit_for_bit(form, policy):

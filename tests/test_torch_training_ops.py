@@ -558,6 +558,9 @@ PARAMS = ([pytest.param(n, None, id=n) for n in sorted(CASES)]
           + [pytest.param(*AMP_CASES[a], id=a) for a in sorted(AMP_CASES)])
 
 
+from _torch_threads import one_thread  # noqa: E402,F401 (autouse)
+
+
 @pytest.mark.parametrize('name,bf16', PARAMS)
 def test_op_and_grad_match_jax(name, bf16, request):
     case = CASES[name]

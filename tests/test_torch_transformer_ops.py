@@ -30,6 +30,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as fluid
 import paddle_tpu_torch as ptt
@@ -208,6 +209,9 @@ def reference(tmp_path_factory):
 
 PARAMS = ([pytest.param(n, None, id=n) for n in sorted(CASES)]
           + [pytest.param(*AMP_CASES[a], id=a) for a in sorted(AMP_CASES)])
+
+
+from _torch_threads import one_thread  # noqa: E402,F401 (autouse)
 
 
 @pytest.mark.parametrize('name,bf16', PARAMS)

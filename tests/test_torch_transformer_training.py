@@ -40,6 +40,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as fluid
 from models import transformer as jax_transformer
@@ -154,6 +155,9 @@ def jax_run(tmp_path_factory):
 def _reference_masks(arrays, names, draw=0):
     return {(i, n): arrays['d%d/step%d/%s' % (draw, i, n)]
             for i in range(STEPS) for n in names}
+
+
+from _torch_threads import one_thread  # noqa: E402,F401 (autouse)
 
 
 @pytest.mark.parametrize('dropout', DROPOUTS)
