@@ -16,7 +16,7 @@ It builds the port's CUDA kernels from paddle_tpu_torch/csrc/ (bn_apply,
 flash_attn_fwd and flash_attn_bwd, one nvcc each, in parallel) and holds
 each against its plain PyTorch version on the card (bn_apply and its
 backward, which is plain torch, at batch 16 and 128, and in bf16 at 256).
-Then it drives thirty paths, with random weights from a seed, TF32 off
+Then it drives thirty-four paths, with random weights from a seed, TF32 off
 and bf16 GEMMs reducing in f32:
 
 - ResNet-50 (depth 50, 224x224, 1000 classes) served through
@@ -166,9 +166,34 @@ and bf16 GEMMs reducing in f32:
   timed dispatches, and against 8 run() calls bit for bit; bn_apply and
   its backward held against their plain versions at CRNN's 8 shapes
   (bf16, batch 64) and timed there.
+- the serving fleet (inference/fleet.py): FleetRouter over replica
+  processes (`python -m paddle_tpu_torch.inference.fleet_worker`), each on
+  the card with its own CUDA context. bench.py:1354-1454
+  bench_fleet_serving at its defaults: its decode artifact
+  (build_decode_spec(vocab=211, d_model=48, 4 heads, 2 layers, d_ff 96,
+  4 slots, cache 106, buckets 4/8), 200 prompts from RandomState(0), 96
+  new tokens each) offered a 5x Poisson swing (30 requests at a base
+  rate of 0.4 x one replica's calibrated capacity, at most 30/s, 120 at
+  5x, 30 at 1x; RandomState(1)) by a 1-replica and a 3-replica fleet:
+  TTFT p50/p99, tokens/s, the offered rate, dropped requests (0), every
+  transcript equal to the in-process DecodingPredictor's, each replica's
+  hello with 0 nvcc builds and neither jax nor paddle_tpu loaded; then a
+  SIGKILL to one of the 3 replicas with streams in flight (only its
+  in-flight requests fail, with ReplicaFailed, the rest equal the
+  in-process transcripts, the death seen within the watchdog's bound).
+  A 2-replica fleet over the decode-base artifact serving the decode
+  phase's 12 requests (transcripts equal the in-process predictor's). A
+  2-replica batching fleet over resnet50_serving's artifact: 64 batch-1
+  requests, each equal bit for bit to the in-process BatchingPredictor's
+  result, with 53 f32 bn_apply launches a batch counted in each replica;
+  a RollingRollout to the int8 tier, promoted on top-1 parity >= 0.99
+  with bit-deterministic canary sweeps at an unchanged replica count,
+  the int8 replicas' launches (53 f32 bn_apply and 54 integer GEMMs a
+  batch) checked, and an injected parity failure rolled back loudly.
 
 Each path runs with every kernel's launch count set to 0 just before it
-and read just after. Every top-level step prints `phase <name> seconds`,
+and read just after (in a fleet's replicas, from the end of each
+replica's warmup, read from its heartbeat). Every top-level step prints `phase <name> seconds`,
 and a `phase_seconds` line before the total lists each phase's own
 seconds from the largest down. The run compares GPU and CPU outputs of each served
 model, the loss and gradients of one step of each trained model (f32 and
@@ -236,6 +261,7 @@ import json
 import math
 import os
 import platform
+import signal
 import subprocess
 import sys
 import tempfile
@@ -252,8 +278,11 @@ from paddle_tpu_torch import kernels, passes
 from paddle_tpu_torch.contrib import gradient_merge, mixed_precision
 from paddle_tpu_torch.inference import (BatchingPredictor, CompiledPredictor,
                                         CompiledTrainer, DecodingPredictor,
-                                        DraftModelDrafter, export_compiled,
+                                        DraftModelDrafter, FleetRouter,
+                                        ReplicaFailed, RollingRollout,
+                                        RolloutRolledBack, export_compiled,
                                         export_decode, export_train_step)
+from paddle_tpu_torch.inference import fleet as fleet_mod
 from paddle_tpu_torch.models import (alexnet, googlenet, se_resnext, smallnet,
                                      vgg)
 from paddle_tpu_torch.models.bert import bert_mlm_logits, build_bert_pretrain
@@ -3588,6 +3617,8 @@ def decode_paths():
             decode_req_s = phase_decode_serving(d, dsig)
         phase_decode_gpu_vs_cpu(d, decode_pred, decode_seq, decode_prompts)
         _phase_seconds('decode_slot', t0)
+        # the same artifact behind a fleet of replica processes
+        fleet_counts = phase_fleet_decode_base(d, decode_seq, decode_prompts)
 
         # the same weights in the block layout and with a verify program:
         # block-paged serving, shared prefixes, speculative decoding
@@ -3633,6 +3664,7 @@ def decode_paths():
         del decode_pred
     torch.cuda.empty_cache()
     return {'decode_serving': decode_counts,
+            'fleet_decode_base': fleet_counts,
             'decode_block_serving': block_counts,
             'decode_prefix_sharing': prefix_counts,
             'decode_spec': spec_counts,
@@ -6473,6 +6505,511 @@ def phase_ocr_gpu_vs_cpu(amp):
     torch.cuda.empty_cache()
 
 
+# -- the serving fleet: FleetRouter over replica processes on the card ------
+# bench.py:1354-1454 bench_fleet_serving at its defaults (no env knobs)
+FLEET_DECODE = dict(vocab=211, d_model=48, n_head=4, n_layer=2, d_ff=96,
+                    max_slots=4, prompt_buckets=(4, 8), eos_id=1)
+FLEET_MAX_NEW = 96            # PTPU_BENCH_FLEET_MAX_NEW's default
+FLEET_SURGE = 120             # PTPU_BENCH_FLEET_REQS's default
+FLEET_REPLICAS = 3            # PTPU_BENCH_FLEET_REPLICAS's default
+FLEET_PROMPTS = 200
+FLEET_CALIBRATION = 16        # the single arm's closed-loop burst
+# scripts/fleet_smoke.py B on the row's fleet arm: a SIGKILL mid-stream
+FLEET_CHAOS_PROMPTS = 96
+FLEET_CHAOS_NEW = 24
+FLEET_CHAOS_SLEEP_S = 0.15
+# K1 in batching replicas: resnet50_serving's artifact, then the int8 tier
+FLEET_RESNET_REPLICAS = 2
+FLEET_RESNET_REQUESTS = 64    # batch-1, two at a time (one a replica)
+FLEET_INT8_REQUESTS = 8       # after the promotion, the same way
+FLEET_PROBE_ROWS = 8          # rows a rollout probe (bucket 8)
+FLEET_MIN_PARITY = 0.99
+FLEET_LATENCY_BUDGET = 100.0  # scripts/fleet_smoke.py D's: parity decides
+FLEET_DECODE_BASE_REPLICAS = 2
+
+
+def _fleet_hellos(label, router):
+    """Every replica that said hello: 0 nvcc builds at spin-up, neither
+    jax nor paddle_tpu among its modules, serving on the card. Returns
+    {rid: spin-up seconds}."""
+    spin = {}
+    for rid, rep in sorted(router._replicas.items()):
+        if not rep.hello:
+            continue
+        h = rep.hello
+        check(h.get('compiles') == 0 and h.get('framework_free') is True
+              and str(h.get('device', '')).startswith('cuda'),
+              '%s replica %d hello: compiles=%r framework_free=%r device=%r'
+              % (label, rid, h.get('compiles'), h.get('framework_free'),
+                 h.get('device')))
+        spin[rid] = rep.spinup_s
+    return spin
+
+
+def _fleet_beats(router, done, timeout=30.0):
+    """The serving replicas' heartbeat payloads once done(beats) holds
+    (each replica rewrites its file every 0.5 s), {rid: payload}."""
+    deadline = time.monotonic() + timeout
+    while True:
+        beats = {rid: fleet_mod.read_heartbeat(router._hb_path(rid))[0]
+                 for rid in router.serving_replicas()}
+        if done(beats) or time.monotonic() > deadline:
+            return beats
+        time.sleep(0.1)
+
+
+def _fleet_memory(beats):
+    """{rid: peak allocated GB} from the replicas' heartbeats, and the
+    card's used GB (every process's contexts and allocations) now."""
+    free, total = torch.cuda.mem_get_info()
+    return ({rid: round((hb.get('memory') or {}).get('peak_allocated', 0)
+                        / 1e9, 3) for rid, hb in beats.items()},
+            round((total - free) / 1e9, 3))
+
+
+def build_fleet_row_artifact(dirname):
+    """bench_fleet_serving's artifact, exported by the port: the decode
+    spec at the row's widths with a cache of FLEET_MAX_NEW + 10, its
+    startup run on the CPU as the row runs it. Returns the prompts
+    (FLEET_PROMPTS, RandomState(0))."""
+    with fluid.unique_name.guard():
+        spec = build_decode_spec(max_cache_len=FLEET_MAX_NEW + 10,
+                                 **FLEET_DECODE)
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(spec['startup'], scope=scope)
+    export_decode(spec, dirname, scope=scope)
+    rng = np.random.RandomState(0)
+    return [rng.randint(2, FLEET_DECODE['vocab'], rng.randint(2, 9))
+            for _ in range(FLEET_PROMPTS)]
+
+
+def _offer_swing(router, prompts, base_hz):
+    """bench_fleet_serving's swing: FLEET_SURGE // 4 requests at base_hz,
+    FLEET_SURGE at 5x, FLEET_SURGE // 4 at 1x, the gaps from
+    RandomState(1); returns [(prompt index, future)]."""
+    futs = []
+    arr = np.random.RandomState(1)
+    for n, hz in ((FLEET_SURGE // 4, base_hz), (FLEET_SURGE, base_hz * 5),
+                  (FLEET_SURGE // 4, base_hz)):
+        for k in range(n):
+            i = k % len(prompts)
+            futs.append((i, router.submit(prompts[i],
+                                          max_new_tokens=FLEET_MAX_NEW)))
+            time.sleep(arr.exponential(1.0 / hz))
+    return futs
+
+
+def _fleet_arm(art, prompts, want, n_replicas, base_hz=None):
+    """One arm of the row, as bench.py's run_arm: FleetRouter with its
+    defaults on the card, the capacity calibration (the single arm only,
+    then stats.reset()), the swing; every transcript checked against
+    `want`, the in-process transcripts, or a function that returns them
+    once the replicas are up. Returns (the open router, the arm's
+    numbers, the transcripts)."""
+    t0 = time.perf_counter()
+    router = FleetRouter(art, replicas=n_replicas)
+    try:
+        spin_s = time.perf_counter() - t0
+        if callable(want):
+            want = want()
+        spinup = _fleet_hellos('fleet_serving', router)
+        arm = {'replicas': n_replicas, 'spin_up_s': spin_s,
+               'replica_spinup_s': spinup}
+        if base_hz is None:
+            t1 = time.perf_counter()
+            cal = [router.submit(prompts[k], max_new_tokens=FLEET_MAX_NEW)
+                   for k in range(FLEET_CALIBRATION)]
+            got = [f.result(300) for f in cal]
+            cap_hz = FLEET_CALIBRATION / (time.perf_counter() - t1)
+            check(got == want[:FLEET_CALIBRATION],
+                  'fleet_serving calibration transcripts differ from the '
+                  'in-process predictor\'s')
+            base_hz = min(0.4 * cap_hz, 30.0)
+            arm['capacity_req_s'] = cap_hz
+            router.stats.reset()
+        t1 = time.perf_counter()
+        futs = _offer_swing(router, prompts, base_hz)
+        toks = [(i, f.result(600)) for i, f in futs]
+        wall = time.perf_counter() - t1
+        snap = router.fleet_snapshot()
+        # the replicas' own counts lag by a heartbeat; they include the
+        # calibration, which the router's stats.reset() left out
+        served = len(toks) + (FLEET_CALIBRATION if 'capacity_req_s' in arm
+                              else 0)
+        beats = _fleet_beats(router, lambda b: sum(
+            hb.get('stats', {}).get('requests', 0) for hb in b.values())
+            >= served)
+        peak_gb, card_gb = _fleet_memory(beats)
+        launches = sum(sum(hb.get('launches', {}).get(name, {}).values())
+                       for hb in beats.values() for name in WRAPPERS)
+        bad = [i for i, t in toks if t != want[i]]
+        arm.update(base_hz=base_hz, offered_req_s=base_hz * 5,
+                   requests=len(toks), wall_s=wall,
+                   tok_s=sum(len(t) for _, t in toks) / wall,
+                   ttft_p50_ms=snap['ttft_p50_ms'],
+                   ttft_p99_ms=snap['ttft_p99_ms'], p99_ms=snap['p99_ms'],
+                   failed=snap['failed'], rerouted=snap['rerouted'],
+                   replica_peak_allocated_gb=peak_gb, card_used_gb=card_gb,
+                   kernel_launches=launches,
+                   served_by_replica={
+                       rid: hb.get('stats', {}).get('requests')
+                       for rid, hb in beats.items()})
+        check(not bad, 'fleet_serving %d-replica arm: %d of %d transcripts '
+              'differ from the in-process predictor\'s (prompts %s)'
+              % (n_replicas, len(bad), len(toks), bad[:8]))
+        check(len(toks) == FLEET_SURGE * 3 // 2 and not launches,
+              'fleet_serving swing resolved %d requests, %d kernel launches'
+              % (len(toks), launches))
+    except BaseException:
+        router.close()
+        raise
+    return router, arm, want
+
+
+def phase_fleet_serving(dirname):
+    """bench.py's fleet_serving row on the card: the same 5x swing offered
+    to one replica and to FLEET_REPLICAS, each a FleetRouter with the
+    row's defaults over `python -m paddle_tpu_torch.inference.fleet_worker`
+    processes on CUDAPlace(0); TTFT p50/p99, tokens/s, the offered rate,
+    dropped requests, and the single arm's p99 over the fleet's. Every
+    transcript equals the in-process DecodingPredictor's of its prompt on
+    the card, bit for bit (the slot layout runs every slot every step at
+    one shape, so a request's tokens do not depend on its co-tenants).
+    Returns (the fleet arm's open router, the prompts, the in-process
+    transcripts, the row's numbers)."""
+    t0 = time.perf_counter()
+    prompts = build_fleet_row_artifact(dirname)
+    ref = DecodingPredictor(dirname)
+    try:
+        # the swing sends prompts[k % FLEET_PROMPTS] for k < FLEET_SURGE,
+        # the chaos phase the first FLEET_CHAOS_PROMPTS; the in-process
+        # predictor decodes them on its scheduler thread while the single
+        # arm's replica spins up, and they are collected before its
+        # calibration
+        t1 = time.perf_counter()
+        streams = [ref.submit(p, max_new_tokens=FLEET_MAX_NEW) for p in
+                   prompts[:max(FLEET_SURGE, FLEET_CHAOS_PROMPTS)]]
+        ref_s = []
+
+        def collect():
+            out = [s.result(600) for s in streams]
+            ref_s.append(time.perf_counter() - t1)
+            return out
+        single_router, single, want = _fleet_arm(dirname, prompts, collect,
+                                                 1)
+    finally:
+        ref.close()
+    single_router.close()
+    torch.cuda.empty_cache()
+    print('fleet_serving artifact build_decode_spec(%s, max_cache_len=%d) '
+          'exported; %d in-process transcripts of %d new tokens on the '
+          'card done %.1f s after their submission, beside the single '
+          'arm\'s spin-up' % (
+              ', '.join('%s=%s' % kv for kv in FLEET_DECODE.items()),
+              FLEET_MAX_NEW + 10, len(want), FLEET_MAX_NEW, ref_s[0]))
+    router, multi, _ = _fleet_arm(dirname, prompts, want, FLEET_REPLICAS,
+                                  base_hz=single['base_hz'])
+    for arm in (single, multi):
+        print('fleet_serving arm %s' % json.dumps(arm, default=str))
+    ratio = (single['ttft_p99_ms'] / multi['ttft_p99_ms']
+             if multi['ttft_p99_ms'] else 1.0)
+    row = {'fleet_serving_ttft_p99_ms': multi['ttft_p99_ms'],
+           'vs_baseline': ratio, 'max_replicas': FLEET_REPLICAS,
+           'single_ttft_p99_ms': single['ttft_p99_ms'],
+           'ttft_p50_ms': multi['ttft_p50_ms'],
+           'single_ttft_p50_ms': single['ttft_p50_ms'],
+           'tok_s': multi['tok_s'], 'single_tok_s': single['tok_s'],
+           'offered_req_s': single['base_hz'] * 5,
+           'dropped': multi['failed'] + single['failed'],
+           'capacity_req_s': single['capacity_req_s'],
+           'replica_spinup_s': multi['replica_spinup_s'],
+           'replica_peak_allocated_gb': multi['replica_peak_allocated_gb'],
+           'card_used_gb': multi['card_used_gb']}
+    print('fleet_serving row %s' % json.dumps(row, default=str))
+    check(row['dropped'] == 0, 'fleet_serving dropped %d requests'
+          % row['dropped'])
+    _phase_seconds('fleet_serving', t0)
+    return router, prompts, want, row
+
+
+def phase_fleet_chaos(router, prompts, want):
+    """scripts/fleet_smoke.py B on the row's artifact and FLEET_REPLICAS
+    fleet: FLEET_CHAOS_PROMPTS streams of FLEET_CHAOS_NEW tokens in
+    flight, SIGKILL to the replica with the most outstanding; only its
+    in-flight requests fail, with ReplicaFailed naming it, at most
+    inflight_per_replica of them; every other request completes equal to
+    the in-process transcript (a greedy transcript's first tokens are the
+    shorter request's transcript); the death is seen within the watchdog's
+    bound; the fleet keeps serving. Closes the router."""
+    t0 = time.perf_counter()
+    try:
+        n = FLEET_CHAOS_PROMPTS
+        futs = [router.submit(prompts[i], max_new_tokens=FLEET_CHAOS_NEW)
+                for i in range(n)]
+        time.sleep(FLEET_CHAOS_SLEEP_S)
+        with router._lock:
+            victim = max((r for r in router._replicas.values()
+                          if r.state == 'serving'),
+                         key=lambda r: len(r.outstanding))
+            in_flight = len(victim.outstanding)
+        t_kill = time.perf_counter()
+        os.kill(victim.proc.pid, signal.SIGKILL)
+        with warnings.catch_warnings():
+            warnings.simplefilter('ignore')
+            while victim.state != 'dead' \
+                    and time.perf_counter() - t_kill < 15:
+                time.sleep(0.005)
+            detect_s = time.perf_counter() - t_kill
+            done, failed = {}, {}
+            for i, f in enumerate(futs):
+                try:
+                    done[i] = f.result(300)
+                except ReplicaFailed as e:
+                    failed[i] = str(e)
+        resolve_s = time.perf_counter() - t_kill
+        snap = router.fleet_snapshot()
+        bound_s = router.hb_timeout_s + 2 * router._poll_s
+        bad = [i for i, t in done.items()
+               if t != want[i][:FLEET_CHAOS_NEW]]
+        again = router.run(prompts[0], max_new_tokens=FLEET_CHAOS_NEW,
+                           timeout=300)
+        print('fleet_chaos SIGKILL replica %d with %d in flight: %d/%d '
+              'completed equal to the in-process transcripts, %d failed '
+              'with ReplicaFailed, %d rerouted, death seen in %.3f s '
+              '(bound %.1f s), all resolved %.1f s after the kill, p99 '
+              '%.1f ms; survivors serving %s' % (
+                  victim.rid, in_flight, len(done) - len(bad), n,
+                  len(failed), snap['rerouted'], detect_s, bound_s,
+                  resolve_s, snap['p99_ms'], router.serving_replicas()))
+        check(in_flight >= 1, 'fleet_chaos: the victim had no stream in '
+              'flight at the kill')
+        check(victim.state == 'dead' and detect_s <= bound_s,
+              'fleet_chaos: replica %d %s after %.2f s'
+              % (victim.rid, victim.state, detect_s))
+        check(len(failed) <= router._inflight
+              and all('fleet replica %d died' % victim.rid in m
+                      for m in failed.values()),
+              'fleet_chaos: %d failed (cap %d): %s'
+              % (len(failed), router._inflight, list(failed.values())[:3]))
+        check(len(done) + len(failed) == n and not bad,
+              'fleet_chaos: %d done, %d failed of %d; %d differ'
+              % (len(done), len(failed), n, len(bad)))
+        check(snap['replica_deaths'] == 1
+              and again == want[0][:FLEET_CHAOS_NEW]
+              and len(router.serving_replicas()) == FLEET_REPLICAS - 1,
+              'fleet_chaos: the fleet did not keep serving')
+    finally:
+        router.close()
+    torch.cuda.empty_cache()
+    _phase_seconds('fleet_chaos', t0)
+    return {'victim_in_flight': in_flight, 'failed': len(failed),
+            'completed': len(done), 'detect_s': detect_s,
+            'resolve_s': resolve_s}
+
+
+def phase_fleet_decode_base(dirname, seq, prompts):
+    """A FLEET_DECODE_BASE_REPLICAS fleet over the decode-base artifact of
+    phase_decode_serving (Transformer-base widths, 32 slots, cache 512,
+    f32) serving that phase's DECODE_SERVED requests of DECODE_MAX_NEW
+    tokens at once; each transcript equal to the in-process predictor's
+    sequential one. Returns the launches the replicas counted."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with FleetRouter(dirname, replicas=FLEET_DECODE_BASE_REPLICAS) as router:
+        spin_s = time.perf_counter() - t0
+        spinup = _fleet_hellos('fleet_decode_base', router)
+        t1 = time.perf_counter()
+        futs = [router.submit(p, max_new_tokens=DECODE_MAX_NEW)
+                for p in prompts]
+        got = [f.result(600) for f in futs]
+        wall = time.perf_counter() - t1
+        snap = router.fleet_snapshot()
+        beats = _fleet_beats(router, lambda b: sum(
+            hb.get('stats', {}).get('requests', 0) for hb in b.values())
+            >= len(prompts))
+        peak_gb, card_gb = _fleet_memory(beats)
+        launches = collections.Counter()
+        for hb in beats.values():
+            for name, by_dtype in hb.get('launches', {}).items():
+                if name in WRAPPERS:
+                    launches[name] += sum(by_dtype.values())
+    equal = sum(g == w for g, w in zip(got, seq))
+    print('fleet_decode_base replicas=%d spin_up_s=%.1f replica_spinup_s=%s '
+          'requests=%d equal=%d/%d wall_s=%.2f tok_s=%.1f ttft_p50_ms=%r '
+          'ttft_p99_ms=%r served_by_replica=%s replica_peak_allocated_gb=%s '
+          'card_used_gb=%r launches=%s' % (
+              FLEET_DECODE_BASE_REPLICAS, spin_s, spinup, len(got), equal,
+              len(seq), wall, sum(len(g) for g in got) / wall,
+              snap['ttft_p50_ms'], snap['ttft_p99_ms'],
+              {rid: hb.get('stats', {}).get('requests')
+               for rid, hb in beats.items()},
+              peak_gb, card_gb, dict(launches)))
+    check(equal == len(seq) == len(got) and snap['failed'] == 0,
+          'fleet_decode_base: %d of %d transcripts equal the in-process '
+          'predictor\'s' % (equal, len(seq)))
+    check(not any(launches.values()),
+          'fleet_decode_base replicas launched %s' % dict(launches))
+    torch.cuda.empty_cache()
+    _phase_seconds('fleet_decode_base', t0)
+    return {name: launches[name] for name in WRAPPERS}
+
+
+def _fleet_pairs(router, xs):
+    """xs (batch-1 feeds) two at a time, one to each of the two replicas
+    (least outstanding work), each alone in its replica's batch (bucket
+    1); the results in order."""
+    out = []
+    for i in range(0, len(xs), 2):
+        futs = [router.submit({'data': x}) for x in xs[i:i + 2]]
+        out.extend(f.result(600)[0] for f in futs)
+    return out
+
+
+def _fleet_k1(label, router, n_bn, n_requests, int8_ops=0):
+    """Each serving replica's launches since its warmup, from its
+    heartbeat once the replicas' stats account for n_requests: n_bn f32
+    bn_apply launches and int8_ops integer GEMMs a batch it dispatched.
+    Returns {rid: {batches, bn_apply, int8_gemm}}."""
+    beats = _fleet_beats(router, lambda b: sum(
+        hb.get('stats', {}).get('requests', 0) for hb in b.values())
+        >= n_requests)
+    per = {}
+    for rid, hb in sorted(beats.items()):
+        batches = hb.get('stats', {}).get('batches', 0)
+        bn = hb.get('launches', {}).get('bn_apply', {})
+        gemms = sum(hb.get('launches', {}).get('int8_gemm', {}).values())
+        per[rid] = {'batches': batches, 'bn_apply': dict(bn),
+                    'int8_gemm': gemms}
+        check(bn.get('float32', 0) == n_bn * batches
+              and not bn.get('bfloat16') and gemms == int8_ops * batches,
+              '%s replica %d: %s over %d batches, not %d f32 bn_apply and '
+              '%d integer GEMMs each' % (label, rid, per[rid], batches,
+                                         n_bn, int8_ops))
+    check(sum(p['batches'] > 0 for p in per.values()) == len(per) > 0,
+          '%s: a replica served nothing: %s' % (label, per))
+    print('%s K1 in the replicas (since warmup): %s' % (label,
+                                                        json.dumps(per)))
+    return per
+
+
+def _fleet_tiers(router):
+    return {rid: s['tier'] for rid, s in
+            router.fleet_snapshot()['replicas'].items()
+            if s['state'] == 'serving'}
+
+
+def phase_fleet_resnet_rollout(adir, int8_dir, n_bn):
+    """K1 in batching replicas: a FLEET_RESNET_REPLICAS kind='batching'
+    fleet over resnet50_serving's artifact (buckets 1/8/32/128, f32)
+    serving FLEET_RESNET_REQUESTS batch-1 requests, each equal bit for bit
+    to the in-process BatchingPredictor's result, with n_bn f32 bn_apply
+    launches a batch counted in each replica; then scripts/fleet_smoke.py
+    D: a RollingRollout to the int8 tier (phase_resnet_int8_serving's
+    artifact, `int8_dir`) over probes of the calibration rows, promoted
+    on top-1 parity >= FLEET_MIN_PARITY with bit-deterministic canary
+    sweeps and the replica count unchanged, the int8 replicas' launches checked (n_bn f32
+    bn_apply and n_quantized integer GEMMs a batch); and an injected
+    parity failure (bit agreement across tiers) that rolls back loudly and
+    leaves the fleet untouched. Returns the launches per replica."""
+    t0 = time.perf_counter()
+    with open(os.path.join(int8_dir, 'signature.json')) as f:
+        n_quantized = json.load(f)['quantization']['quantized_ops']
+    gen = np.random.RandomState(4)
+    xs = [gen.randn(1, 3, 224, 224).astype(np.float32)
+          for _ in range(FLEET_RESNET_REQUESTS)]
+    rng = np.random.RandomState(0)   # phase_resnet_int8_serving's rows
+    rows = np.concatenate([rng.randn(max(INT8_BUCKETS), 3, 224, 224).astype(
+        np.float32) for _ in range(INT8_CALIB_BATCHES)])
+    probes = [{'data': rows[i:i + FLEET_PROBE_ROWS]}
+              for i in range(0, len(rows), FLEET_PROBE_ROWS)]
+
+    def in_process():
+        with BatchingPredictor(adir, batch_timeout_ms=2.0) as inproc:
+            inproc.warmup()
+            return [inproc.run([x], timeout=600)[0] for x in xs]
+    # the in-process results on a thread while the replicas spin up
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        inproc_fut = pool.submit(in_process)
+        t1 = time.perf_counter()
+        router = FleetRouter(adir, replicas=FLEET_RESNET_REPLICAS,
+                             kind='batching')
+        spin_s = time.perf_counter() - t1
+        try:
+            want = inproc_fut.result()
+        except BaseException:
+            router.close()
+            raise
+    torch.cuda.empty_cache()
+    try:
+        spinup = _fleet_hellos('fleet_resnet', router)
+        got = _fleet_pairs(router, xs)
+        equal = sum(np.array_equal(g, w) for g, w in zip(got, want))
+        print('fleet_resnet replicas=%d spin_up_s=%.1f replica_spinup_s=%s '
+              'bit_identity equal=%d/%d' % (FLEET_RESNET_REPLICAS, spin_s,
+                                            spinup, equal, len(xs)))
+        check(equal == len(xs), 'fleet_resnet: %d of %d results differ '
+              'from the in-process BatchingPredictor\'s'
+              % (len(xs) - equal, len(xs)))
+        f32 = _fleet_k1('fleet_resnet f32', router, n_bn, len(xs))
+        peak_gb, card_gb = _fleet_memory(_fleet_beats(router,
+                                                      lambda b: True, 0))
+        n0 = len(router.serving_replicas())
+
+        t1 = time.perf_counter()
+        report = RollingRollout(
+            router, tier='int8', artifact=int8_dir, probes=probes,
+            agreement='top1', min_agreement=FLEET_MIN_PARITY,
+            latency_budget=FLEET_LATENCY_BUDGET).run()
+        rollout_s = time.perf_counter() - t1
+        tiers = _fleet_tiers(router)
+        print('fleet_resnet rollout to int8 in %.1f s: %s; serving tiers %s'
+              % (rollout_s, json.dumps(report), tiers))
+        check(report['promoted'] and report['deterministic']
+              and report['agreement'] >= FLEET_MIN_PARITY
+              and len(tiers) == n0 and set(tiers.values()) == {'int8'}
+              and router.stats.rollout['state'] == 'promoted',
+              'fleet_resnet rollout: %s, tiers %s' % (report, tiers))
+        served = sum(s['requests'] for s in
+                     router.fleet_snapshot()['replicas'].values()
+                     if s['state'] == 'serving')
+        _fleet_pairs(router, xs[:FLEET_INT8_REQUESTS])
+        int8 = _fleet_k1('fleet_resnet int8', router, n_bn,
+                         served + FLEET_INT8_REQUESTS, n_quantized)
+
+        t1 = time.perf_counter()
+        rolled_back = False
+        with warnings.catch_warnings(record=True) as wlog:
+            warnings.simplefilter('always')
+            try:
+                RollingRollout(router, tier=None, artifact=adir,
+                               probes=probes, agreement='bit',
+                               latency_budget=FLEET_LATENCY_BUDGET).run()
+            except RolloutRolledBack as e:
+                rolled_back = True
+                print('fleet_resnet injected parity failure (bit agreement '
+                      'across tiers) in %.1f s: %s'
+                      % (time.perf_counter() - t1, e))
+        tiers2 = _fleet_tiers(router)
+        # the canaries and the replacement said hello like the first two
+        spinup = _fleet_hellos('fleet_resnet', router)
+        check(rolled_back and any('ROLLED BACK' in str(w.message)
+                                  for w in wlog)
+              and tiers2 == tiers
+              and router.stats.rollout['state'] == 'rolled_back',
+              'fleet_resnet: the injected failure did not roll back loudly '
+              '(tiers %s -> %s)' % (tiers, tiers2))
+        router.run({'data': xs[0]}, timeout=600)
+    finally:
+        router.close()
+    torch.cuda.empty_cache()
+    _phase_seconds('fleet_resnet_rollout', t0)
+    return {'f32': f32, 'int8': int8, 'spin_up_s': spin_s,
+            'replica_spinup_s': spinup, 'rollout_s': rollout_s,
+            'parity': report['agreement'],
+            'latency_ratio': report['latency_ratio'],
+            'replica_peak_allocated_gb': peak_gb, 'card_used_gb': card_gb}
+
+
 def _se_bn_shapes():
     """The (C, H, W) of SE-ResNeXt-50's 53 batch_norm inputs at 224x224,
     with counts, from its program."""
@@ -6585,6 +7122,11 @@ def _main(t_start, built):
                 d, n_bn)
             int8_ops = phase_int8_ops(raw_prog)
             del raw_prog
+        # resnet50_serving's artifact behind a batching fleet, rolled to
+        # the int8 tier
+        fleet_resnet = phase_fleet_resnet_rollout(
+            os.path.join(d, 'artifact'), os.path.join(d, 'artifact_int8'),
+            n_bn)
     with tempfile.TemporaryDirectory() as d:
         with _phase('bert_serving'):
             t0 = time.perf_counter()
@@ -6772,6 +7314,13 @@ def _main(t_start, built):
         phase_bert_profile(bert_pred, bert_feeds)
     with _phase('cpu_gates_wait'):
         _cpu_gates_done()
+    # bench.py's fleet_serving row, with the worker's backlog done: the row
+    # is host-bound and timed on the host's clock
+    with tempfile.TemporaryDirectory() as d:
+        fleet_router, fleet_prompts, fleet_want, fleet_row = \
+            phase_fleet_serving(d)
+        fleet_chaos = phase_fleet_chaos(fleet_router, fleet_prompts,
+                                        fleet_want)
 
     paths = {'resnet50_serving': resnet_counts, 'bert_serving': bert_counts,
              'bert_training': train_counts,
@@ -6791,6 +7340,11 @@ def _main(t_start, built):
              'googlenet_artifact_serving': gnet_art_counts,
              'resnet50_int8_serving': int8_counts}
     paths.update(decode_counts)
+    for tier in ('f32', 'int8'):
+        paths['fleet_resnet50_batching_%s' % tier] = dict(
+            dict.fromkeys(WRAPPERS, 0), bn_apply=sum(
+                sum(r['bn_apply'].values())
+                for r in fleet_resnet[tier].values()))
     paths.update(zoo_counts)
     paths.update(lstm_counts)
     paths.update(ctr_counts)
@@ -6840,6 +7394,9 @@ def _main(t_start, built):
         'lstm_route_vs_plain': lstm_route,
         'stacked_lstm_text_cls': lstm_summary, 'ctr_deepfm': ctr_summary}))
     print('OCR summary: %s' % json.dumps({'ocr_crnn': ocr_summary}))
+    print('fleet summary: %s' % json.dumps({
+        'fleet_serving': fleet_row, 'fleet_chaos': fleet_chaos,
+        'fleet_resnet50': fleet_resnet}, default=str))
     print('total seconds %.1f' % _phase_summary(t_start))
     print(json.dumps({'kernels': [{
         'name': 'bn_apply', 'route': 'cuda',
@@ -6863,6 +7420,12 @@ def _main(t_start, built):
             totals_ocr, launches_per_step=ocr_summary[
                 'bn_apply_launches_per_step']),
         'resnet50_int8_tier_launches_per_batch': n_bn,
+        'fleet_replicas_resnet50_batching': {
+            tier: {'launches_per_batch': n_bn, 'by_replica': {
+                rid: {'batches': r['batches'],
+                      'launches': r['bn_apply'].get('float32', 0)}
+                for rid, r in fleet_resnet[tier].items()}}
+            for tier in ('f32', 'int8')},
         'max_abs_err_zoo_shapes': {str(dt)[6:]: err
                                    for dt, err in zoo_k1_abs.items()},
         'zoo_shapes': zoo_k1,

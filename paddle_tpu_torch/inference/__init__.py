@@ -7,6 +7,9 @@ from .decoding import (DecodeStats, DecodingPredictor,  # noqa: F401
                        TokenStream, load_decoding)
 from .kv_blocks import (BlockManager, BlockPoolExhausted,  # noqa: F401
                         TRASH_BLOCK)
+from .fleet import (Autoscaler, FleetRouter, FleetStats,  # noqa: F401
+                    FleetUnavailable, ReplicaFailed, RolloutRolledBack,
+                    RollingRollout, load_fleet)
 from .export import (export_compiled, export_decode,  # noqa: F401
                      export_train_step)
 from .ref_format import (load_reference_inference_model,  # noqa: F401

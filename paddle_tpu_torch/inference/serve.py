@@ -14,6 +14,8 @@ line:
         N_REQUESTS [TIMEOUT_MS]
     python -m paddle_tpu_torch.inference.serve decode ARTIFACT_DIR \\
         PROMPTS.npz OUT.npz [MAX_NEW [BEAM]] [--tier T]
+    python -m paddle_tpu_torch.inference.serve fleet ARTIFACT_DIR IN.npz \\
+        N_REQUESTS [REPLICAS] [--tier T] [--kind K]
 
 Everything runs on CUDAPlace(0) unless `platform='cpu'` or the environment
 sets PTPU_PLATFORM=cpu, as the reference reads it.
@@ -33,8 +35,8 @@ spec written there). CompiledPredictor, BatchingPredictor,
 DecodingPredictor and the decode command's `--tier` pick one.
 
 Not ported yet: LoD feeds and fetches (ROADMAP.md queue 1 item 8), the
-profiler's serving and bulk-inference sources, and the `fleet` and
-`gateway` commands (item 11).
+profiler's serving and bulk-inference sources, and the `gateway` command
+(item 11).
 """
 from __future__ import annotations
 
@@ -663,6 +665,58 @@ def _decode_cli(argv):
     return 0
 
 
+def _fleet_cli(argv):
+    # fleet ARTIFACT_DIR IN.npz N_REQUESTS [REPLICAS] [--tier T] [--kind K]
+    # Spin up a replica fleet (fleet_worker processes over the fleet.py
+    # frame protocol, on the card unless PTPU_PLATFORM=cpu), replay IN.npz
+    # N times through FleetRouter.submit with least-outstanding-work
+    # routing, and print fleet throughput, latency percentiles and the
+    # per-replica table as JSON. Batching/compiled artifacts: IN.npz holds
+    # one request's feed arrays. Decode artifacts: the decode command's
+    # convention, 'prompts' [N, L] int64 (0-padded) and optional 'lens'
+    # [N]; requests cycle through the prompt rows.
+    tier, argv = _pop_flag(argv, 'tier')
+    kind, argv = _pop_flag(argv, 'kind')
+    if len(argv) not in (5, 6):
+        print("usage: serve.py fleet ARTIFACT_DIR IN.npz N_REQUESTS "
+              "[REPLICAS] [--tier T] [--kind K]", file=sys.stderr)
+        return 2
+    from .fleet import FleetRouter
+    artifact_dir, in_path, n = argv[2], argv[3], int(argv[4])
+    replicas = int(argv[5]) if len(argv) == 6 else 2
+    with np.load(in_path) as z:
+        raw = {k: z[k] for k in z.files}
+    with FleetRouter(artifact_dir, replicas=replicas, kind=kind or 'auto',
+                     tier=tier) as router:
+        if router.kind == 'decoding':
+            prompts = np.asarray(raw['prompts'], np.int64)
+            lens = (np.asarray(raw['lens'], np.int64) if 'lens' in raw
+                    else np.full(prompts.shape[0], prompts.shape[1],
+                                 np.int64))
+            requests = [prompts[i % prompts.shape[0],
+                                :lens[i % prompts.shape[0]]]
+                        for i in range(n)]
+        else:
+            requests = [raw] * n
+        t0 = time.perf_counter()
+        futs = [router.submit(r) for r in requests]
+        for f in futs:
+            f.result(600)
+        wall = time.perf_counter() - t0
+        snap = router.fleet_snapshot()
+    print(json.dumps({
+        'requests': n, 'replicas': replicas, 'req_s': round(n / wall, 2),
+        'tier': snap['tier'], 'p50_ms': snap['p50_ms'],
+        'p99_ms': snap['p99_ms'], 'rerouted': snap['rerouted'],
+        'failed': snap['failed'],
+        'per_replica': {rid: {'requests': s['requests'],
+                              'occupancy': s['occupancy'],
+                              'spinup_s': s['spinup_s'],
+                              'compiles': s['compiles']}
+                        for rid, s in snap['replicas'].items()}}))
+    return 0
+
+
 def _run_cli(argv):
     artifact_dir, in_path, out_path = argv[1:]
     pred = CompiledPredictor(artifact_dir)
@@ -679,18 +733,19 @@ _USAGE = ("usage: serve.py ARTIFACT_DIR IN.npz OUT.npz\n"
           "       serve.py bench ARTIFACT_DIR IN.npz N_REQUESTS "
           "[TIMEOUT_MS]\n"
           "       serve.py decode ARTIFACT_DIR PROMPTS.npz OUT.npz "
-          "[MAX_NEW [BEAM]] [--tier T]")
+          "[MAX_NEW [BEAM]] [--tier T]\n"
+          "       serve.py fleet ARTIFACT_DIR IN.npz N_REQUESTS "
+          "[REPLICAS] [--tier T] [--kind K]")
 
 
 def main(argv):
     cmd = argv[1] if len(argv) >= 2 else None
-    if cmd in ('fleet', 'gateway'):
-        print("serve.py %s: the replica fleet and the HTTP gateway are not "
-              "ported yet (ROADMAP.md queue 1 item 11)" % cmd,
-              file=sys.stderr)
+    if cmd == 'gateway':
+        print("serve.py gateway: the HTTP gateway is not ported yet "
+              "(ROADMAP.md queue 1 item 11)", file=sys.stderr)
         return 2
     commands = {'bench': _bench_cli, 'loop': _loop_cli, 'train': _train_cli,
-                'decode': _decode_cli}
+                'decode': _decode_cli, 'fleet': _fleet_cli}
     if cmd in commands:
         return commands[cmd](argv)
     if len(argv) != 4:

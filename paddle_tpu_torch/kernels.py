@@ -27,6 +27,9 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _loaded = {}
+# nvcc processes this process started (build() and load() on a miss): a
+# fleet replica reports the ones it ran while it spun up
+nvcc_runs = 0
 
 
 def _nvcc():
@@ -56,6 +59,7 @@ def build(names=SOURCES):
     """Compile the named kernels that are not built yet, one nvcc process
     per source, all started together. Returns {name: (seconds, ptxas
     report)}; raises with the compiler's output if any build fails."""
+    global nvcc_runs
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     for name in names:
@@ -68,6 +72,7 @@ def build(names=SOURCES):
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        time.perf_counter(), tmp, out)
+        nvcc_runs += 1
     report, failed = {}, []
     for name, (p, t0, tmp, out) in procs.items():
         log, _ = p.communicate()

@@ -345,7 +345,8 @@ assert serve.main(['serve.py', 'bench', art, d + '/one.npz', '12',
                    '5']) == 0
 assert serve.main(['serve.py', 'decode', lm, d + '/prompts.npz',
                    d + '/tokens.npz', '4']) == 0
-assert serve.main(['serve.py', 'fleet', art, d + '/in.npz', '4']) == 2
+assert serve.main(['serve.py', 'fleet', art, d + '/in.npz', '4']) == 0
+assert serve.main(['serve.py', 'gateway', art]) == 2
 assert serve.main(['serve.py']) == 2
 leaked = sorted(m for m in sys.modules
                 if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))
@@ -354,9 +355,9 @@ assert not leaked, leaked
 
 
 def test_serve_cli_fresh_process(fc_dir, tmp_path):
-    """run, loop, bench and decode through serve.main in one fresh
+    """run, loop, bench, decode and fleet through serve.main in one fresh
     interpreter on PTPU_PLATFORM=cpu, which loads neither jax nor
-    paddle_tpu; fleet prints that it is not ported and returns 2."""
+    paddle_tpu; gateway prints that it is not ported and returns 2."""
     from paddle_tpu_torch.inference import DecodingPredictor, export_decode
     from paddle_tpu_torch.models.transformer import build_decode_spec
     pred = _predictor(os.path.join(fc_dir, 'model'))
@@ -392,10 +393,13 @@ def test_serve_cli_fresh_process(fc_dir, tmp_path):
     with np.load(str(tmp_path / 'loop_out.npz')) as out:
         np.testing.assert_array_equal(
             out[name], np.stack([served.run([x])[0] for x in xs]))
-    bench = json.loads(r.stdout.strip().splitlines()[-2])
+    bench = json.loads(r.stdout.strip().splitlines()[-3])
     assert bench['req_s'] > 0 and bench['p99_ms'] >= bench['p50_ms'] > 0
-    decoded = json.loads(r.stdout.strip().splitlines()[-1])
+    decoded = json.loads(r.stdout.strip().splitlines()[-2])
     assert decoded['requests'] == 2
+    fleet = json.loads(r.stdout.strip().splitlines()[-1])
+    assert fleet['requests'] == 4 and fleet['failed'] == 0
+    assert all(s['compiles'] == 0 for s in fleet['per_replica'].values())
     with np.load(str(tmp_path / 'tokens.npz')) as out, DecodingPredictor(
             lm, place=ptt.CPUPlace()) as dp:
         for i, n in enumerate((3, 2)):

@@ -92,7 +92,8 @@ def test_package_and_chip_smoke_import_with_jax_blocked():
 
 SERVING_MODULES = ('inference.serve', 'inference.batching',
                    'inference.export', 'inference.proto',
-                   'inference.ref_format')
+                   'inference.ref_format', 'inference.fleet',
+                   'inference.fleet_worker', 'inference.fleet_ctl')
 
 _ONE_MODULE = r'''
 import importlib, sys
